@@ -1,0 +1,18 @@
+from .spmm import CsrMatrix, spmm, spmm_plain
+from .normalize import (
+    l1_normalize,
+    l1_normalize_plain,
+    l2_normalize,
+    l2_normalize_plain,
+    normalize,
+    spectral_normalize,
+)
+from .whiten import whiten
+from .loop import embed_loop, embed_loop_convergence, embed_step
+
+__all__ = [
+    "CsrMatrix", "spmm", "spmm_plain",
+    "l2_normalize", "l1_normalize", "l2_normalize_plain",
+    "l1_normalize_plain", "spectral_normalize", "normalize",
+    "whiten", "embed_loop", "embed_loop_convergence", "embed_step",
+]

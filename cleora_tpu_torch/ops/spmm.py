@@ -1,0 +1,100 @@
+"""Sparse matrix × dense embedding propagation (SpMM) on a CSR matrix.
+
+``out[i] = Σ_{edges (i→j)} value · x[j]`` (reference semantics:
+``spmm_kernel``, src/embedding.rs:52-86).  The matrix stays in CSR in its
+original row order: kernel K1 (``kernels/spmm_csr.cu``) keeps each row's
+sum in registers, so none of the JAX package's ELL, banded or edge-cut
+layouts and none of their row relabelling is needed here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+# edges per chunk of the plain version's (chunk, D) gather intermediate
+_PLAIN_CHUNK_EDGES = 1 << 22
+
+
+class CsrMatrix:
+    """A square CSR matrix on one device: ``indptr`` int64 (N+1),
+    ``indices`` int32 (nnz), ``vals`` float32 (nnz)."""
+
+    def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
+                 vals: torch.Tensor):
+        self.indptr = indptr
+        self.indices = indices
+        self.vals = vals
+        self._plain_index: Optional[tuple] = None
+
+    @classmethod
+    def from_numpy(cls, indptr: np.ndarray, indices: np.ndarray,
+                   vals: np.ndarray, device) -> "CsrMatrix":
+        """Validate the host CSR once (the kernel trusts its indices), then
+        copy it to ``device``."""
+        indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+        indices = np.ascontiguousarray(indices, dtype=np.int32)
+        vals = np.ascontiguousarray(vals, dtype=np.float32)
+        n = indptr.shape[0] - 1
+        if (n < 0 or indptr[0] != 0 or indptr[-1] != indices.shape[0]
+                or indices.shape != vals.shape
+                or (n > 0 and np.any(np.diff(indptr) < 0))):
+            raise ValueError("malformed CSR: indptr/indices/vals disagree")
+        if indices.size and (indices.min() < 0 or indices.max() >= n):
+            raise ValueError("malformed CSR: column index out of range")
+        return cls(torch.from_numpy(indptr).to(device),
+                   torch.from_numpy(indices).to(device),
+                   torch.from_numpy(vals).to(device))
+
+    @property
+    def n_rows(self) -> int:
+        return self.indptr.shape[0] - 1
+
+    @property
+    def nnz(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    def plain_index(self):
+        """(rows, cols) as int64, built once: ``index_select`` and
+        ``index_add_`` need int64 indices."""
+        if self._plain_index is None:
+            counts = self.indptr[1:] - self.indptr[:-1]
+            rows = torch.repeat_interleave(
+                torch.arange(self.n_rows, device=self.device), counts)
+            self._plain_index = (rows, self.indices.long())
+        return self._plain_index
+
+
+def spmm(csr: CsrMatrix, x: torch.Tensor,
+         residual_weight: float = 0.0) -> torch.Tensor:
+    """``A @ x`` as float32, then ``(1-w)·y + w·x`` when w > 0.  On CUDA
+    this launches K1; on the CPU it runs :func:`spmm_plain`."""
+    if x.is_cuda:
+        return kernels.spmm_csr(csr.indptr, csr.indices, csr.vals,
+                                x.contiguous(), residual_weight)
+    return spmm_plain(csr, x, residual_weight)
+
+
+def spmm_plain(csr: CsrMatrix, x: torch.Tensor,
+               residual_weight: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of K1: gather, scale, ``index_add_`` — in
+    edge chunks so the (chunk, D) intermediate stays bounded."""
+    rows, cols = csr.plain_index()
+    out = torch.zeros((csr.n_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for s in range(0, csr.nnz, _PLAIN_CHUNK_EDGES):
+        e = s + _PLAIN_CHUNK_EDGES
+        scaled = x.index_select(0, cols[s:e]).float() * csr.vals[s:e, None]
+        out.index_add_(0, rows[s:e], scaled)
+    w = float(residual_weight)
+    if w > 0.0:
+        out = (1.0 - w) * out + w * x.float()
+    return out

@@ -1,0 +1,36 @@
+"""PCA whitening.
+
+Reference semantics: ``whiten_embeddings`` (pycleora/__init__.py:130-164):
+mean-center, D×D covariance with 1/(n-1), eigendecomposition sorted by
+descending eigenvalue, scale columns by 1/sqrt(max(λ, 1e-10)), project
+(PCA whitening — projection onto principal components, NOT rotated back).
+
+The two products are plain float32 ``torch.matmul`` calls and the D×D
+eigendecomposition is ``torch.linalg.eigh`` (which waits for the device).
+Nothing here enables TF32: PyTorch's default keeps float32 matmuls in full
+float32, as the JAX version computes them.  Column signs of eigh may differ
+between backends — inner products and distances are invariant to them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def whiten(x: torch.Tensor, n_components=None, eps: float = 1e-10) -> torch.Tensor:
+    n = x.shape[0]
+    if n <= 1:
+        return x
+    xf = x.float()
+    xc = xf - xf.mean(dim=0)
+    cov = torch.matmul(xc.T, xc) / (n - 1)
+    eigenvalues, eigenvectors = torch.linalg.eigh(cov)
+    # eigh returns ascending; reference sorts descending
+    eigenvalues = eigenvalues.flip(0)
+    eigenvectors = eigenvectors.flip(1)
+    if n_components is not None:
+        eigenvalues = eigenvalues[:n_components]
+        eigenvectors = eigenvectors[:, :n_components]
+    scale = 1.0 / torch.sqrt(torch.clamp_min(eigenvalues, eps))
+    out = torch.matmul(xc, eigenvectors * scale)
+    return out.to(x.dtype)

@@ -1,0 +1,148 @@
+"""The port's graph build against the JAX package's: bitwise.
+
+Both packages' GraphData fields and the deterministic hash init must agree
+bit for bit, on the C++ ingest core and on the numpy fallback.
+"""
+
+import pickle
+
+import numpy as np
+import pytest
+
+import cleora_tpu as ct
+import cleora_tpu.graph.builder as jax_builder
+import cleora_tpu.graph.hashing as jax_hashing
+import cleora_tpu.graph.native as jax_native
+import cleora_tpu_torch as ctt
+import cleora_tpu_torch.graph.builder as port_builder
+import cleora_tpu_torch.graph.hashing as port_hashing
+import cleora_tpu_torch.graph.native as port_native
+import cleora_tpu_torch.native as port_native_lib
+from cleora_tpu.datasets import load_dataset
+from cleora_tpu_torch.convert import from_jax_state
+
+_FIELDS = ("entity_hashes", "column_ids", "row_sums", "indptr", "indices",
+           "left_vals", "sym_vals")
+
+
+def _karate():
+    d = load_dataset("karate_club")
+    return d["edges"], d["columns"], 16
+
+
+def _random_edges():
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 300, size=1500)
+    dst = rng.integers(0, 300, size=1500)
+    return [f"{s} {d}" for s, d in zip(src, dst)], "complex::reflexive::node", 16
+
+
+def _hyperedges():
+    rng = np.random.default_rng(5)
+    lines = []
+    for u in range(120):
+        k = int(rng.integers(1, 12))
+        items = rng.choice(60, size=k, replace=False)
+        lines.append(f"u{u}\t" + " ".join(f"p{i}" for i in items))
+    # hyperedge trimming (side longer than hyperedge_trim_n) is exercised
+    return lines, "user complex::product", 4
+
+
+_CASES = {"karate": _karate, "random_edges": _random_edges,
+          "hyperedge_tsv": _hyperedges}
+
+
+def assert_same_graph(a, b):
+    assert a.entity_ids == b.entity_ids
+    # two packages, two dataclass types: compare the fields
+    assert vars(a.descriptor) == vars(b.descriptor)
+    for f in _FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        assert x.tobytes() == y.tobytes(), f
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+@pytest.mark.parametrize("builder", ["native", "numpy"])
+def test_graph_data_bitwise(case, builder):
+    lines, columns, trim = _CASES[case]()
+    if builder == "native":
+        if port_native_lib.get_lib() is None:
+            pytest.fail("the port's native builder did not build")
+        ours = port_native.build_graph_native(lines, columns, trim)
+        ref = jax_native.build_graph_native(lines, columns, trim)
+    else:
+        ours = port_builder.build_graph(lines, columns, trim)
+        ref = jax_builder.build_graph(lines, columns, trim)
+    assert_same_graph(ours, ref)
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_init_bitwise(case, monkeypatch):
+    lines, columns, trim = _CASES[case]()
+    hashes = jax_builder.build_graph(lines, columns, trim).entity_hashes
+    ref = jax_hashing.init_embeddings(hashes, 48, seed=3)
+    # several blocks, the last one ragged
+    monkeypatch.setattr(port_hashing, "_INIT_BLOCK_ROWS", 7)
+    ours = port_hashing.init_embeddings(hashes, 48, seed=3)
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape
+    assert ours.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_sparse_matrix_from_files(tmp_path, monkeypatch, native):
+    lines, columns, trim = _hyperedges()
+    path = tmp_path / "hyper.tsv"
+    path.write_text("\n".join(lines) + "\n")
+    if not native:
+        # CLEORA_TPU_NATIVE=0 forces the numpy fallback on the next load
+        monkeypatch.setenv("CLEORA_TPU_NATIVE", "0")
+        monkeypatch.setattr(port_native_lib, "_lib", None)
+        monkeypatch.setattr(port_native_lib, "_load_failed", False)
+    ours = ctt.SparseMatrix.from_files([str(path)], columns, trim)
+    assert (port_native_lib.get_lib() is not None) == native
+    ref = ct.SparseMatrix.from_files([str(path)], columns, trim)
+    assert_same_graph(ours.data, ref.data)
+    a = ours.initialize_deterministically(32, seed=1)
+    b = ref.initialize_deterministically(32, seed=1)
+    assert a.tobytes() == b.tobytes()
+
+
+def test_sparse_matrix_from_iterator_and_edge_arrays():
+    lines, columns, trim = _karate()
+    ours = ctt.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    ref = ct.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    assert_same_graph(ours.data, ref.data)
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, 500, 2000), rng.integers(0, 500, 2000)
+    assert_same_graph(ctt.SparseMatrix.from_edge_arrays(src, dst).data,
+                      ct.SparseMatrix.from_edge_arrays(src, dst).data)
+    with pytest.raises(ValueError, match="equal length"):
+        ctt.SparseMatrix.from_edge_arrays(src, dst[:-1])
+
+
+def test_sparse_matrix_inspection_and_pickle():
+    lines, columns, trim = _hyperedges()
+    ref = ct.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    ours = from_jax_state(ref.__getstate__())
+    assert_same_graph(ours.data, ref.data)
+    assert_same_graph(from_jax_state(pickle.loads(ref.__getstate__())).data,
+                      ref.data)
+    assert repr(ours) == repr(ref) and len(ours) == len(ref)
+    assert ours.num_entities == ref.num_entities
+    assert ours.num_edges == ref.num_edges
+    assert ours.entity_ids == ref.entity_ids
+    assert ours.get_entity_index("p7") == ref.get_entity_index("p7")
+    assert (ours.get_entity_indices(["u3", "p1"])
+            == ref.get_entity_indices(["u3", "p1"]))
+    with pytest.raises(ValueError, match="Entity 'nope' not found"):
+        ours.get_entity_index("nope")
+    for mt in ("left", "symmetric"):
+        for x, y in zip(ours.to_sparse_csr(mt), ref.to_sparse_csr(mt)):
+            assert np.array_equal(x, y)
+    again = pickle.loads(pickle.dumps(ours))
+    assert_same_graph(again.data, ref.data)
+    with pytest.raises(ValueError, match="missing"):
+        from_jax_state({"indptr": np.zeros(1)})
+    with pytest.raises(ValueError, match="cannot be constructed directly"):
+        ctt.SparseMatrix(1)

@@ -1,0 +1,75 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+CUDA kernels have no CPU mode, so every test here carries the ``cuda``
+marker and skips without a card.  The file imports neither JAX nor the JAX
+package, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py
+
+Tolerances: K1 float32 rtol=1e-5, atol=1e-6 (the same float32 products,
+summed in another order by the plain version's atomics); bf16 x atol=1e-2;
+K2 atol=1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cleora_tpu_torch import kernels
+from cleora_tpu_torch.ops.normalize import (
+    l1_normalize_plain,
+    l2_normalize_plain,
+    normalize,
+)
+from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def markov_csr(n, seed, hub_degree):
+    """Left-Markov CSR (rows sum to 1) with zero-degree rows and row 1 of
+    degree ``hub_degree``."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(4, size=n)
+    deg[::7] = 0
+    deg[1] = hub_degree
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    cols = rng.integers(0, n, size=int(indptr[-1]))
+    vals = (1.0 / np.maximum(deg, 1))[np.repeat(np.arange(n), deg)]
+    return indptr, cols, vals.astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [8, 256, 300, 7])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [0.0, 0.3])
+def test_k1_matches_plain(cuda_device, d, x_dtype, w):
+    csr = CsrMatrix.from_numpy(*markov_csr(3000, d, 5000), cuda_device)
+    x = torch.randn((3000, d), device=cuda_device).to(x_dtype)
+    before = kernels.LAUNCHES["spmm_csr"]
+    out = spmm(csr, x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_csr"] == before + 1
+    tol = ({"rtol": 1e-5, "atol": 1e-6} if x_dtype == torch.float32
+           else {"rtol": 0.0, "atol": 1e-2})
+    torch.testing.assert_close(out, spmm_plain(csr, x, w), **tol)
+
+
+@pytest.mark.parametrize("method", ["l2", "l1"])
+@pytest.mark.parametrize("d", [8, 256, 300, 7])
+def test_k2_matches_plain(cuda_device, method, d):
+    x = torch.randn((500, d), device=cuda_device)
+    x[3] = 0.0
+    before = kernels.LAUNCHES["row_normalize"]
+    out = normalize(x.clone(), method)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_normalize"] == before + 1
+    plain = {"l2": l2_normalize_plain, "l1": l1_normalize_plain}[method]
+    torch.testing.assert_close(out, plain(x.clone()), rtol=0.0, atol=1e-6)
