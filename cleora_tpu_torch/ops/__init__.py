@@ -9,10 +9,18 @@ from .normalize import (
 )
 from .whiten import whiten
 from .loop import embed_loop, embed_loop_convergence, embed_step
+from .init import device_init, device_init_plain
+from .attention import (
+    attention_step,
+    edge_attention_weights,
+    edge_attention_weights_plain,
+)
 
 __all__ = [
     "CsrMatrix", "spmm", "spmm_plain",
     "l2_normalize", "l1_normalize", "l2_normalize_plain",
     "l1_normalize_plain", "spectral_normalize", "normalize",
     "whiten", "embed_loop", "embed_loop_convergence", "embed_step",
+    "device_init", "device_init_plain", "attention_step",
+    "edge_attention_weights", "edge_attention_weights_plain",
 ]

@@ -1,0 +1,76 @@
+"""One iteration of ``embed_with_attention``.
+
+Reference semantics: the ``attention_step`` closure of the JAX package's
+``embed_with_attention`` (cleora_tpu/__init__.py:501-534), itself the
+reference's pycleora/__init__.py:206-276.  Per iteration:
+
+1. ``xn = l2_normalize(x)`` (kernel K2, on a copy: the SpMM reads ``x``);
+2. the edge weights: cosine score of each edge over T, a row softmax over
+   the edges whose Markov value is not 0, reweighting by the Markov value
+   and row renormalisation (kernel K4, ``kernels/edge_attention.cu``);
+3. SpMM of ``x`` with those weights as the values (kernel K1);
+4. normalisation (K2 for l2/l1) and optional whitening.
+
+On the CPU the plain versions run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .normalize import l2_normalize, normalize
+from .spmm import CsrMatrix, spmm
+from .whiten import whiten
+
+EPS = 1e-10
+# edges per chunk of the plain version's (chunk, D) score intermediates
+_PLAIN_CHUNK_EDGES = 1 << 21
+
+
+def edge_attention_weights(csr: CsrMatrix, xn: torch.Tensor,
+                           temperature: float) -> torch.Tensor:
+    """The (nnz,) float32 attention weights: K4 on CUDA,
+    :func:`edge_attention_weights_plain` on the CPU."""
+    if xn.is_cuda:
+        return kernels.edge_attention(csr.indptr, csr.indices, csr.vals,
+                                      xn.contiguous(), temperature)
+    return edge_attention_weights_plain(csr, xn, temperature)
+
+
+def edge_attention_weights_plain(csr: CsrMatrix, xn: torch.Tensor,
+                                 temperature: float) -> torch.Tensor:
+    """Plain PyTorch version of K4, with the JAX version's segment ops:
+    scores in edge chunks, then ``scatter_reduce("amax")`` and
+    ``index_add_`` per row."""
+    rows, cols = csr.plain_index()
+    n = csr.n_rows
+    t = torch.tensor(temperature, dtype=torch.float32)
+    scores = torch.empty(csr.nnz, dtype=torch.float32, device=xn.device)
+    for s in range(0, csr.nnz, _PLAIN_CHUNK_EDGES):
+        e = s + _PLAIN_CHUNK_EDGES
+        scores[s:e] = torch.sum(xn.index_select(0, rows[s:e])
+                                * xn.index_select(0, cols[s:e]), dim=1) / t
+    valid = csr.vals != 0.0
+    masked = torch.where(valid, scores, float("-inf"))
+    row_max = torch.full((n,), float("-inf"), device=xn.device).scatter_reduce(
+        0, rows, masked, "amax")
+    row_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
+    exp_scores = torch.where(valid, torch.exp(masked - row_max[rows]), 0.0)
+    denom = torch.zeros(n, device=xn.device).index_add_(0, rows, exp_scores)
+    weighted = exp_scores / torch.clamp_min(denom, EPS)[rows] * csr.vals
+    wsum = torch.zeros(n, device=xn.device).index_add_(0, rows, weighted)
+    return weighted / torch.clamp_min(wsum, EPS)[rows]
+
+
+def attention_step(csr: CsrMatrix, x: torch.Tensor, temperature: float,
+                   normalization: str = "l2",
+                   do_whiten: bool = False) -> torch.Tensor:
+    """One attention iteration on the float32 state ``x``."""
+    xn = l2_normalize(x.to(torch.float32, copy=True))
+    weights = edge_attention_weights(csr, xn, temperature)
+    y = spmm(csr.with_vals(weights), x)
+    y = normalize(y, normalization)
+    if do_whiten:
+        y = whiten(y)
+    return y

@@ -55,10 +55,17 @@ def embed_loop(csr: CsrMatrix, x0: torch.Tensor, num_iterations: int,
     return x
 
 
-def rmse(y: torch.Tensor, x: torch.Tensor) -> float:
-    """sqrt(Σδ²/(N·D)), computed in float32 (also for bf16 storage)."""
-    diff = y.float() - x.float()
-    return float(torch.sqrt(torch.sum(diff * diff) / diff.numel()))
+def rmse(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sqrt(Σδ²/(N·D)) as a 0-d tensor in the storage dtype, as the JAX
+    loop computes it (cleora_tpu/ops/loop.py:125-126): under bf16 storage
+    the difference, the sum and the root are all bf16, and the caller
+    compares the result with the threshold in bf16 too."""
+    diff = y - x
+    # float32 accumulation, then each step rounds to the storage dtype (N·D
+    # too), which is how XLA evaluates the JAX loop's bf16 expression
+    total = torch.sum(diff * diff, dtype=torch.float32).to(diff.dtype)
+    count = torch.tensor(diff.numel(), dtype=diff.dtype, device=diff.device)
+    return torch.sqrt(total / count)
 
 
 def embed_loop_convergence(csr: CsrMatrix, x0: torch.Tensor,
@@ -75,7 +82,7 @@ def embed_loop_convergence(csr: CsrMatrix, x0: torch.Tensor,
     x = x0
     for i in range(int(max_iterations)):
         y = embed_step(csr, x, residual_weight, normalization, do_whiten)
-        done = i > 0 and rmse(y, x) < convergence_threshold
+        done = i > 0 and bool(rmse(y, x) < convergence_threshold)
         x = y
         if done:
             return x, i + 1

@@ -50,6 +50,33 @@ class CsrMatrix:
                    torch.from_numpy(indices).to(device),
                    torch.from_numpy(vals).to(device))
 
+    @classmethod
+    def from_coo(cls, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                 n: int, device) -> "CsrMatrix":
+        """An (n, n) CSR from a caller-supplied COO whose rows are sorted
+        (duplicates are kept and summed by the SpMM, as a COO product
+        sums them).  Validated like :meth:`from_numpy`."""
+        rows = np.asarray(rows)
+        n = int(n)
+        if (n < 0 or rows.ndim != 1 or np.shape(cols) != rows.shape
+                or np.shape(vals) != rows.shape):
+            raise ValueError("malformed COO: rows/cols/vals disagree")
+        if rows.size and (rows.min() < 0 or rows.max() >= n):
+            raise ValueError("malformed COO: row index out of range")
+        if rows.size > 1 and np.any(np.diff(rows) < 0):
+            raise ValueError("malformed COO: rows must be sorted")
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows.astype(np.int64), minlength=n),
+                  out=indptr[1:])
+        return cls.from_numpy(indptr, cols, vals, device)
+
+    def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
+        """The same sparsity pattern with other values, sharing the index
+        tensors and, once built, the plain version's row index."""
+        out = CsrMatrix(self.indptr, self.indices, vals)
+        out._plain_index = self._plain_index
+        return out
+
     @property
     def n_rows(self) -> int:
         return self.indptr.shape[0] - 1

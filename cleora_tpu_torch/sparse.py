@@ -5,7 +5,8 @@ API parity with the reference PyO3 class ``pycleora.SparseMatrix``
 pickle state.  The numeric state is the host CSR built by
 ``cleora_tpu_torch.graph.builder`` (or its C++ core); a device copy
 (:class:`~.ops.spmm.CsrMatrix`, original row order) is cached lazily per
-(Markov type, device) and shared by all propagate/embed calls.
+(Markov type, device) and shared by all propagate/embed calls, as are the
+entity hashes from which kernel K3 builds the init on the card.
 
 Every compute method takes ``device=None``, which means CUDA; the CPU runs
 only when asked for (``device="cpu"``).  ``num_workers`` is accepted for API
@@ -25,6 +26,7 @@ from .graph.builder import GraphData, build_graph
 from .graph.columns import RelationDescriptor
 from .graph.hashing import init_embeddings
 from .ops.loop import effective_residual_weight, embed_loop, embed_loop_convergence
+from .ops.init import device_init, hashes_as_int64
 from .ops.memory import check_device_fit
 from .ops.spmm import CsrMatrix, spmm
 
@@ -236,6 +238,10 @@ class SparseMatrix:
         return m
 
     @property
+    def entity_degrees(self) -> np.ndarray:
+        return self.data.row_sums.copy()
+
+    @property
     def num_entities(self) -> int:
         return self.data.num_entities
 
@@ -257,6 +263,26 @@ class SparseMatrix:
                 raise ValueError(f"Entity '{eid}' not found")
             out.append(index_map[eid])
         return out
+
+    def get_entity_column_mask(self, column_name: str) -> np.ndarray:
+        d = self.descriptor
+        column_id_by_name = {d.col_a_name: d.col_a_id, d.col_b_name: d.col_b_id}
+        if column_name not in column_id_by_name:
+            raise ValueError(
+                f"Column name '{column_name}' not found. "
+                f"Available: '{d.col_a_name}', '{d.col_b_name}'"
+            )
+        cid = column_id_by_name[column_name]
+        return self.data.column_ids == np.uint8(cid)
+
+    def get_neighbors(self, entity_id: str) -> List[Tuple[str, float]]:
+        idx = self.get_entity_index(entity_id)
+        data = self.data
+        start, end = int(data.indptr[idx]), int(data.indptr[idx + 1])
+        return [
+            (data.entity_ids[int(data.indices[j])], float(data.left_vals[j]))
+            for j in range(start, end)
+        ]
 
     def to_sparse_csr(self, markov_type: Optional[str] = None):
         mt = markov_type if markov_type is not None else "left"
@@ -282,6 +308,26 @@ class SparseMatrix:
                 data.indptr, data.indices, vals, device)
         return self._device_cache[key]
 
+    def _device_hashes(self, device: torch.device) -> torch.Tensor:
+        """The entity hashes on ``device`` (int64 view of the uint64 bits),
+        uploaded once and cached."""
+        key = ("hashes", str(device))
+        if key not in self._device_cache:
+            self._device_cache[key] = hashes_as_int64(
+                self.data.entity_hashes).to(device)
+        return self._device_cache[key]
+
+    def _initial_state(self, feature_dim: int, seed: int,
+                       device: torch.device) -> torch.Tensor:
+        """The hash init as a float32 tensor on ``device``: built on the
+        card by kernel K3 on CUDA (the single-device case of the JAX
+        package's device init, cleora_tpu/parallel/state.py:91-126); the
+        host's init on the CPU.  Bit for bit the same either way."""
+        if device.type == "cuda":
+            return device_init(self._device_hashes(device), feature_dim, seed)
+        return torch.from_numpy(
+            self.initialize_deterministically(feature_dim, seed))
+
     # ------------------------------------------------------------- compute API
     def _propagate(self, x, markov_type: str, device) -> np.ndarray:
         x = np.asarray(x, dtype=np.float32)
@@ -306,6 +352,11 @@ class SparseMatrix:
         """Bit-exact parity with the reference hash init (src/lib.rs:242-252,478-488)."""
         return init_embeddings(self.data.entity_hashes, feature_dim, seed)
 
+    def l2_normalize(self, x, num_workers: Optional[int] = None) -> np.ndarray:
+        x = np.asarray(x, dtype=np.float32)
+        norms = np.sqrt((x * x).sum(axis=1, keepdims=True))
+        return x / np.maximum(norms, 1e-10)
+
     def _markov_name(self, propagation: str) -> str:
         if propagation not in ("left", "symmetric"):
             raise ValueError(
@@ -318,9 +369,8 @@ class SparseMatrix:
         dev = resolve_device(device)
         check_device_fit(self.num_entities, int(feature_dim),
                          self.num_edges, device=dev)
-        x0 = torch.from_numpy(
-            self.initialize_deterministically(feature_dim, seed)).to(dev)
-        return self._device_csr(mt, dev), x0
+        return self._device_csr(mt, dev), self._initial_state(
+            int(feature_dim), seed, dev)
 
     def embed_fast(
         self,

@@ -14,7 +14,10 @@ import torch
 
 import cleora_tpu as ct
 import cleora_tpu_torch as ctt
+from cleora_tpu.ops.loop import embed_loop_convergence as jax_loop_convergence
+from cleora_tpu.ops.spmm import pad_coo
 from cleora_tpu_torch.convert import from_jax_state
+from cleora_tpu_torch.ops.loop import embed_loop_convergence, embed_step
 
 D = 32
 
@@ -140,6 +143,47 @@ def test_bfloat16_storage(graphs):
     ref, ours = _both(graphs, feature_dim=D, num_iterations=5, whiten=False,
                       dtype="bfloat16")
     assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("propagation", ["left", "symmetric"])
+def test_bfloat16_convergence_stops_at_same_iteration(graphs, propagation):
+    """Under bf16 storage the JAX loop takes the RMSE in bf16
+    (cleora_tpu/ops/loop.py:125-126); thresholds within 0.2 % of an
+    iteration's RMSE tell a float32 RMSE from it."""
+    import jax.numpy as jnp
+
+    ref_g, our_g = graphs
+    rows, cols, vals, n, _ = ref_g.to_sparse_csr(propagation)
+    flat = [jnp.asarray(a) for a in pad_coo(
+        rows.astype(np.int32), cols.astype(np.int32), vals, n)]
+    x0 = ref_g.initialize_deterministically(D, 0)
+    csr = our_g._device_csr(propagation, torch.device("cpu"))
+    x = torch.from_numpy(x0).to(torch.bfloat16)
+    thresholds = [1e-3, 2e-3, 5e-3, 1e-2]
+    for i in range(12):
+        y = embed_step(csr, x, 0.0, "l2", False)
+        d = y.double() - x.double()
+        if i >= 2:
+            r = float(torch.sqrt(torch.mean(d * d)))
+            thresholds += [0.998 * r, 1.002 * r]
+        x = y
+    stops = []
+    for threshold in thresholds:
+        ref, ref_iters = jax_loop_convergence(
+            *flat, jnp.asarray(x0).astype(jnp.bfloat16), n_rows=n,
+            max_iterations=40, convergence_threshold=threshold)
+        ours, our_iters = embed_loop_convergence(
+            csr, torch.from_numpy(x0).to(torch.bfloat16), 40, 0.0, threshold)
+        assert our_iters == int(ref_iters), threshold
+        stops.append(our_iters)
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=0, atol=2e-2)
+    assert len(set(stops)) > 5 and min(stops) < 40
+    ref, ours = _both(graphs, feature_dim=D, num_iterations=40,
+                      propagation=propagation, whiten=False, dtype="bfloat16",
+                      convergence_threshold=2e-3)
     np.testing.assert_allclose(ours, ref, rtol=0, atol=2e-2)
 
 

@@ -146,3 +146,46 @@ def test_sparse_matrix_inspection_and_pickle():
         from_jax_state({"indptr": np.zeros(1)})
     with pytest.raises(ValueError, match="cannot be constructed directly"):
         ctt.SparseMatrix(1)
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_sparse_matrix_node_methods_exactly_equal(case):
+    lines, columns, trim = _CASES[case]()
+    ref = ct.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    # through the converter: the column ids travel with the graph state
+    ours = from_jax_state(ref.__getstate__())
+    degrees = ours.entity_degrees
+    assert degrees.dtype == ref.entity_degrees.dtype
+    assert degrees.tobytes() == ref.entity_degrees.tobytes()
+    degrees[:] = -1  # a copy: the graph keeps its own
+    assert ours.entity_degrees.tobytes() == ref.entity_degrees.tobytes()
+    d = ref.descriptor
+    for name in {d.col_a_name, d.col_b_name}:
+        mask = ours.get_entity_column_mask(name)
+        assert mask.dtype == bool
+        assert np.array_equal(mask, ref.get_entity_column_mask(name))
+    for eid in ref.entity_ids[:25]:
+        assert ours.get_neighbors(eid) == ref.get_neighbors(eid)
+    x = np.random.default_rng(1).standard_normal(
+        (ours.num_entities, 6)).astype(np.float32)
+    x[0] = 0.0
+    assert ours.l2_normalize(x).tobytes() == ref.l2_normalize(x).tobytes()
+    for call in (lambda g: g.get_entity_column_mask("banana"),
+                 lambda g: g.get_neighbors("banana")):
+        with pytest.raises(ValueError) as ref_err:
+            call(ref)
+        with pytest.raises(ValueError) as our_err:
+            call(ours)
+        assert str(our_err.value) == str(ref_err.value)
+
+
+def test_column_mask_after_conversion_of_a_complex_graph():
+    lines, columns, trim = _hyperedges()
+    assert "complex::" in columns
+    ref = ct.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    ours = from_jax_state(pickle.loads(ref.__getstate__()))
+    users = ours.get_entity_column_mask("user")
+    products = ours.get_entity_column_mask("product")
+    assert users.sum() == 120 and products.sum() == ours.num_entities - 120
+    assert not np.any(users & products)
+    assert all(ours.entity_ids[i].startswith("u") for i in np.flatnonzero(users))

@@ -94,7 +94,7 @@ def test_spmm_dispatches_to_plain_on_cpu():
         np.random.default_rng(0).standard_normal((n, 8)).astype(np.float32))
     kernels.reset_launches()
     assert torch.equal(spmm(csr, x, 0.25), spmm_plain(csr, x, 0.25))
-    assert kernels.LAUNCHES == {"spmm_csr": 0, "row_normalize": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
 def test_csr_validation():
@@ -103,6 +103,31 @@ def test_csr_validation():
         _csr(indptr, np.array([0, 2]), np.ones(2, np.float32))
     with pytest.raises(ValueError, match="malformed CSR"):
         _csr(np.array([0, 2, 1]), np.array([0, 1]), np.ones(2, np.float32))
+
+
+def test_csr_from_coo_matches_from_numpy_and_validates():
+    rows, cols, vals, indptr = random_csr(300, seed=8, hub_degree=40)
+    a = CsrMatrix.from_coo(rows, cols, vals, 300, torch.device("cpu"))
+    b = _csr(indptr, cols, vals)
+    for name in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+    # trailing empty rows and an empty matrix
+    c = CsrMatrix.from_coo(rows, cols, vals, 320, torch.device("cpu"))
+    assert c.n_rows == 320 and int(c.indptr[-1]) == rows.shape[0]
+    empty = CsrMatrix.from_coo(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                               np.zeros(0, np.float32), 5, torch.device("cpu"))
+    assert empty.nnz == 0 and empty.n_rows == 5
+    with pytest.raises(ValueError, match="rows must be sorted"):
+        CsrMatrix.from_coo(rows[::-1], cols, vals, 300, torch.device("cpu"))
+    with pytest.raises(ValueError, match="row index out of range"):
+        CsrMatrix.from_coo(rows, cols, vals, 100, torch.device("cpu"))
+    with pytest.raises(ValueError, match="column index out of range"):
+        CsrMatrix.from_coo(rows, cols + 300, vals, 300, torch.device("cpu"))
+    with pytest.raises(ValueError, match="malformed COO"):
+        CsrMatrix.from_coo(rows, cols[:-1], vals, 300, torch.device("cpu"))
+    # a matrix with other values keeps the pattern
+    d = b.with_vals(b.vals * 2)
+    assert d.indices is b.indices and torch.equal(d.vals, b.vals * 2)
 
 
 def _rows_with_zero(n=300, d=24, seed=0):
@@ -185,7 +210,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.row_normalize_(x, "l2")
-    assert kernels.LAUNCHES == {"spmm_csr": 0, "row_normalize": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.hash_init(torch.zeros(50, dtype=torch.int64), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.edge_attention(csr.indptr, csr.indices, csr.vals, x, 1.0)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
