@@ -7,22 +7,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. environment: the card's name and power limit, torch/CUDA versions;
 2. build: K1 (kernels/spmm_csr.cu), K2 (kernels/row_normalize.cu), K3
-   (kernels/hash_init.cu) and K4 (kernels/edge_attention.cu) are compiled
-   from the checkout's sources, one nvcc each, in parallel;
+   (kernels/hash_init.cu), K4 (kernels/edge_attention.cu), K5
+   (kernels/spmm_axpy.cu), K6 (kernels/dense_markov.cu) and K7
+   (kernels/log_clip.cu) are compiled from the checkout's sources, one nvcc
+   each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
-   {8, 256, 300}, float32 and bfloat16 x, residual weight 0 and 0.3
+   {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
+   paths do), float32 and bfloat16 x, residual weight 0 and 0.3
    (float32 rtol=1e-5, atol=1e-6; bfloat16 atol=1e-2); K2 in l2 and l1
    modes on rows that include an all-zero row (atol=1e-6); K3 bitwise
    against its plain version and the host init on 20,000 random uint64
    hashes (0, 2**64-1 and top-bit values among them), D in {1, 7, 256, 300},
    seed in {0, 7, -3, 2**40+5}; K4 on the same CSR plus a row whose values
    are all 0, D in {8, 256, 300}, T in {0.7, 1.0} (rtol=1e-5, atol=1e-6);
+   K5 on the first CSR, D in {8, 136, 256, 300, 4096}, with RandNE's,
+   Chebyshev's (z and acc) and Katz's coefficients (rtol=1e-5, atol=1e-6:
+   the tail is rounded like the plain version's, the row sum in another
+   order); K6 at n in {1, 257, 4096} with duplicate entries and an empty
+   row (P and deg atol=1e-6, vol rtol=1e-6); K7 on (4096, 4096) and
+   (1000, 300), NetMF's and GraRep's modes, with and without scales
+   (atol=1e-6: the same float32 operations);
 4. slice parity: a 20,000-node random graph through the card and through
    device="cpu": embed() unwhitened allclose, whitened Gram matrices of
    2,000 sampled rows, bf16 storage, and the same early-stop iteration under
    a convergence threshold; embed_with_attention unwhitened allclose and
    whitened Gram; embed_multiscale and embed_weighted unwhitened allclose;
+   the spectral siblings: _prone_chebyshev_core and
+   _device_spmm_weighted_sum allclose (rtol=1e-4, atol=1e-5),
+   embed_hope(feature_dim=32) by the Gram matrix of 2,000 rows (atol=5e-3),
+   and on a 2,000-node graph embed_netmf and embed_grarep, dense and with
+   block_rows=256, by the Gram matrix of all rows (atol=5e-3: unit rows, a
+   sketched SVD whose column signs and near-degenerate directions may
+   differ between cuSOLVER and LAPACK);
 5. full width: bench.py's roadNet-CA-shaped graph (1,965,206 nodes,
    5,533,214 undirected edges, seed 7) ingested through
    SparseMatrix.from_edge_arrays, then the two main paths, each with the
@@ -33,7 +50,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    per-iteration K1/K2/whiten times, peak device memory, torch.sparse.mm's
    time on the same product, and checks each output (finite, covariance
    close to the identity), K3's full-size output bitwise against the host
-   init and one full-size K1, K2 and K4 call against their plain versions.
+   init and one full-size K1, K2 and K4 call against their plain versions;
+6. the spectral siblings at full width, each through its public entry point
+   with backend="device" and the launch counts zeroed before and read
+   after: embed_randne (40 iterations), embed_prone and embed_hope at
+   feature_dim=256 on phase 5's graph; embed_netmf and embed_grarep dense
+   at 32,768 nodes and 98,304 undirected edges (six (n, n) float32 buffers
+   are 25.8 GB) and blocked (block_rows=4096, power_iters=1) at 200,000
+   nodes and 600,000 undirected edges.  Each entry point runs twice: once
+   as a user calls it, which gives the end-to-end seconds, the launch
+   counts and the peak device memory, and once more with its stages wrapped
+   in a stopwatch that synchronises the device around every call, which
+   gives the seconds by stage and nothing else.  Checks each output
+   (finite, unit rows) and holds the kernels against their plain versions
+   at every shape these paths give them: K5 at D=256 with each coefficient
+   set and its Katz step at D=136 on the big graph, K6 and K7 at 32,768
+   nodes, and one row block of each blocked path step by step on the
+   200,000-node graph's transposed transition CSR (K5 and K1 at
+   (200,000, 4,096) on the walk's own states, K7 in NetMF's mode on the
+   summed walk and in GraRep's on each power); times them beside one
+   library call each.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -42,6 +78,8 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -67,6 +105,14 @@ FULL_NODES = 1_965_206
 FULL_UND_EDGES = 5_533_214
 DIM = 256
 ITERATIONS = 40
+SMALL_PARITY_NODES = 2_000
+SMALL_PARITY_EDGES = 6_000
+DENSE_NODES = 32_768
+DENSE_UND_EDGES = 98_304
+BLOCKED_NODES = 200_000
+BLOCKED_UND_EDGES = 600_000
+BLOCK_ROWS = 4_096
+GRAREP_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -177,7 +223,7 @@ def check_kernels(dev: torch.device) -> None:
 
     csr = CsrMatrix.from_numpy(*markov_csr(K1_CHECK_ROWS, 1, HUB_DEGREE), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for d in (8, 256, 300):
+    for d in (8, 256, 300, 4096):
         x32 = torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
@@ -201,6 +247,9 @@ def check_kernels(dev: torch.device) -> None:
             log(f"K2 d={d} {method}: max |err| {max_err(got, want):.3e}")
     check_k3(dev)
     check_k4(dev)
+    check_k5(dev, csr)
+    check_k6(dev)
+    check_k7(dev)
 
 
 def check_k3(dev: torch.device) -> None:
@@ -255,13 +304,131 @@ def check_k4(dev: torch.device) -> None:
                 f"{max_err(got, want):.3e}")
 
 
-def random_graph(n_nodes: int, n_und_edges: int, seed: int):
-    """bench.py's synthetic_coo edge draw, as a SparseMatrix."""
+# K5's coefficient sets: (a, b, c, d, takes z, takes acc)
+K5_CASES = {
+    "randne": (1.0, 0.0, 0.0, 0.25, False, True),
+    "chebyshev": (-2.0, 2.0, -1.0, 0.0497, True, True),
+    "katz": (0.1, 0.0, 0.0, 1.0, False, True),
+}
+
+
+def k5_pair(csr, x, z, acc, case: str):
+    """One K5 call and its plain version on the same inputs; returns
+    (out, acc) of each."""
+    from cleora_tpu_torch.ops.spmm import spmm_axpy, spmm_axpy_plain
+
+    a, b, c, d, has_z, has_acc = K5_CASES[case]
+    got_acc = acc.clone() if has_acc else None
+    want_acc = acc.clone() if has_acc else None
+    got = spmm_axpy(csr, x, a, b, z=z if has_z else None, c=c, acc=got_acc,
+                    d=d)
+    want = spmm_axpy_plain(csr, x, a, b, z=z if has_z else None, c=c,
+                           acc=want_acc, d=d)
+    torch.cuda.synchronize()
+    return (got, got_acc), (want, want_acc)
+
+
+def check_k5(dev: torch.device, csr) -> None:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = csr.n_rows
+    for d in (8, 136, 256, 300, 4096):
+        x, z, acc = (torch.randn((n, d), device=dev, generator=gen)
+                     for _ in range(3))
+        for case in K5_CASES:
+            got, want = k5_pair(csr, x, z, acc, case)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+            log(f"K5 d={d} {case}: max |err| out {max_err(got[0], want[0]):.3e}"
+                f", acc {max_err(got[1], want[1]):.3e}")
+
+
+def duplicate_csr(n: int, seed: int):
+    """Row-sorted CSR arrays with repeated (row, col) entries and an empty
+    row (row 3, where there is one)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(6, size=n) + 1
+    if n > 3:
+        deg[3] = 0
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    cols = rng.integers(0, n, size=int(indptr[-1]), dtype=np.int64)
+    for r in range(0, n, 2):  # every other row repeats its first column
+        if deg[r] > 1:
+            cols[indptr[r] + 1] = cols[indptr[r]]
+    vals = rng.random(int(indptr[-1])).astype(np.float32)
+    return indptr, cols, vals
+
+
+def check_dense_markov(csr) -> float:
+    """K6 against its plain version on ``csr``; returns the largest error
+    of P."""
+    from cleora_tpu_torch.ops.dense import dense_markov, dense_markov_plain
+
+    p, deg, vol = dense_markov(csr)
+    p_plain, deg_plain, vol_plain = dense_markov_plain(csr)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(p, p_plain, rtol=0.0, atol=1e-6)
+    torch.testing.assert_close(deg, deg_plain, rtol=0.0, atol=1e-6)
+    torch.testing.assert_close(vol, vol_plain, rtol=1e-6, atol=0.0)
+    return max_err(p, p_plain)
+
+
+def check_k6(dev: torch.device) -> None:
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
+
+    for n in (1, 257, 4096):
+        csr = CsrMatrix.from_numpy(*duplicate_csr(n, n), dev)
+        err = check_dense_markov(csr)
+        log(f"K6 n={n} ({csr.nnz} entries, duplicates, an empty row): "
+            f"max |err| P {err:.3e}")
+
+
+def grarep_mode():
+    from cleora_tpu_torch.algorithms import _GRAREP_FLOOR, _GRAREP_OFFSET
+
+    return _GRAREP_FLOOR, _GRAREP_OFFSET
+
+
+def check_log_clip(x, r, c, floor: float, offset: float) -> float:
+    """K7 against its plain version on copies of ``x``; returns the largest
+    error."""
+    from cleora_tpu_torch.ops.dense import log_clip, log_clip_plain
+
+    got = log_clip(x.clone(), r, c, floor, offset)
+    want = log_clip_plain(x.clone(), r, c, floor, offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-6)
+    return max_err(got, want)
+
+
+def check_k7(dev: torch.device) -> None:
+    gen = torch.Generator(device=dev).manual_seed(7)
+    modes = {"netmf": (1.0, 0.0), "grarep": grarep_mode()}
+    for n, m in ((4096, 4096), (1000, 300)):
+        x = torch.rand((n, m), device=dev, generator=gen) * 4
+        x[x < 1.0] = 0.0  # a transition power is mostly zeros
+        r = torch.rand(n, device=dev, generator=gen) + 0.5
+        c = torch.rand(m, device=dev, generator=gen) + 0.5
+        for mode, (floor, offset) in modes.items():
+            for scaled in (True, False):
+                err = check_log_clip(x, r if scaled else None,
+                                     c if scaled else None, floor, offset)
+                log(f"K7 ({n}, {m}) {mode} scales={scaled}: max |err| "
+                    f"{err:.3e}")
+
+
+def random_graph(n_nodes: int, n_und_edges: int, seed: int,
+                 cover: bool = False):
+    """bench.py's synthetic_coo edge draw, as a SparseMatrix.  ``cover``
+    makes node i the source of edge i, so that every node appears and the
+    graph has exactly ``n_nodes`` entities."""
     import cleora_tpu_torch as ctt
 
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n_nodes, size=n_und_edges, dtype=np.int64)
     dst = rng.integers(0, n_nodes, size=n_und_edges, dtype=np.int64)
+    if cover:
+        src[:n_nodes] = np.arange(n_nodes)
     return ctt.SparseMatrix.from_edge_arrays(src, dst)
 
 
@@ -336,6 +503,47 @@ def slice_parity(dev: torch.device) -> None:
                            **kw)[1]
     np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
     log(f"parity embed_weighted (10 it): max |err| {np.abs(a - b).max():.3e}")
+    spectral_parity(dev, g, rows)
+
+
+def spectral_parity(dev: torch.device, g, rows: np.ndarray) -> None:
+    """The spectral siblings on the card against device="cpu"."""
+    import cleora_tpu_torch.algorithms as alg
+
+    cpu = torch.device("cpu")
+    a = alg._prone_chebyshev_core(g, DIM, 0.2, 0.5, 0, dev).cpu().numpy()
+    b = alg._prone_chebyshev_core(g, DIM, 0.2, 0.5, 0, cpu).numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    log(f"parity _prone_chebyshev_core: max |err| {np.abs(a - b).max():.3e}")
+    R = np.random.default_rng(0).standard_normal((g.num_entities, DIM))
+    w = [1.0 / 2**i for i in range(ITERATIONS + 1)]
+    a = alg._device_spmm_weighted_sum(g, R, w, True, dev)
+    b = alg._device_spmm_weighted_sum(g, R, w, True, cpu)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    log(f"parity _device_spmm_weighted_sum ({ITERATIONS} it): max |err| "
+        f"{np.abs(a - b).max():.3e}")
+    kw = dict(feature_dim=32, backend="device")
+    a = alg.embed_hope(g, device=dev, **kw)
+    b = alg.embed_hope(g, device=cpu, **kw)
+    err, scale = gram_err(a, b, rows)
+    log(f"parity embed_hope Gram ({PARITY_SAMPLE} rows): max |err| {err:.3e} "
+        f"of max |G| {scale:.3e}")
+    assert np.isfinite(a).all() and err <= 5e-3, err
+
+    small = random_graph(SMALL_PARITY_NODES, SMALL_PARITY_EDGES, seed=4)
+    every = np.arange(small.num_entities)
+    for name in ("netmf", "grarep"):
+        fn = getattr(alg, f"embed_{name}")
+        for block_rows in (None, 256):
+            kw = dict(feature_dim=DIM, backend="device",
+                      block_rows=block_rows)
+            a = fn(small, device=dev, **kw)
+            b = fn(small, device=cpu, **kw)
+            err, scale = gram_err(a, b, every)
+            log(f"parity embed_{name} block_rows={block_rows} Gram "
+                f"({small.num_entities} rows): max |err| {err:.3e} of max "
+                f"|G| {scale:.3e}")
+            assert np.isfinite(a).all() and err <= 5e-3, err
 
 
 def gram_err(a: np.ndarray, b: np.ndarray, rows: np.ndarray):
@@ -379,7 +587,24 @@ def run_main_path(name: str, call) -> tuple:
     return out, launches
 
 
-def full_width(dev: torch.device, card: str) -> list:
+def kernel_row(name, source, replaces, ms, plain_ms, lib_ms, err, nbytes,
+               flops, launches) -> dict:
+    """One entry of the kernels line; the bound is the larger of the bytes
+    (each input read once, each output written once) over the memory rate
+    and the flops over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    }
+
+
+def full_width(dev: torch.device, card: str) -> tuple:
     import torch.nn.functional as F
 
     import cleora_tpu_torch as ctt
@@ -406,8 +631,10 @@ def full_width(dev: torch.device, card: str) -> list:
     # ---- the main path, through the user's entry point
     out, launches = run_main_path("embed()", lambda: ctt.embed(
         g, feature_dim=DIM, num_iterations=ITERATIONS, whiten=True))
-    assert launches == {"spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
-                        "hash_init": 1, "edge_attention": 0}, launches
+    none = dict.fromkeys(launches, 0)
+    assert launches == none | {
+        "spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
+        "hash_init": 1}, launches
     check_covariance(out, dev)
     del out
 
@@ -415,7 +642,7 @@ def full_width(dev: torch.device, card: str) -> list:
     att_out, att_launches = run_main_path(
         "embed_with_attention()", lambda: ctt.embed_with_attention(
             g, feature_dim=DIM, num_iterations=ITERATIONS, whiten=True))
-    assert att_launches == {
+    assert att_launches == none | {
         "spmm_csr": ITERATIONS, "row_normalize": 2 * ITERATIONS - 1,
         "hash_init": 1, "edge_attention": ITERATIONS - 1}, att_launches
     check_covariance(att_out, dev)
@@ -558,33 +785,402 @@ def full_width(dev: torch.device, card: str) -> list:
         f"{gather_bytes / 1e9:.3f} GB -> "
         f"{gather_bytes / (k4_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
 
-    def entry(name, source, replaces, ms, plain_ms, lib_ms, err, nbytes,
-              flops, runs):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": runs[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-        }
-
     return [
-        entry("spmm_csr", "cleora_tpu_torch/kernels/spmm_csr.cu",
-              "cleora_tpu/ops/spmm_ell.py:437", k1_ms, k1_plain_ms,
-              k1_lib_ms, k1_err, k1_bytes, k1_flops, launches),
-        entry("row_normalize", "cleora_tpu_torch/kernels/row_normalize.cu",
-              "cleora_tpu/ops/normalize.py:15", k2_ms, k2_plain_ms,
-              k2_lib_ms, k2_err, k2_bytes, k2_flops, launches),
+        kernel_row("spmm_csr", "cleora_tpu_torch/kernels/spmm_csr.cu",
+                   "cleora_tpu/ops/spmm_ell.py:437", k1_ms, k1_plain_ms,
+                   k1_lib_ms, k1_err, k1_bytes, k1_flops,
+                   launches["spmm_csr"]),
+        kernel_row("row_normalize",
+                   "cleora_tpu_torch/kernels/row_normalize.cu",
+                   "cleora_tpu/ops/normalize.py:15", k2_ms, k2_plain_ms,
+                   k2_lib_ms, k2_err, k2_bytes, k2_flops,
+                   launches["row_normalize"]),
         # no single PyTorch call computes K3's or K4's function
-        entry("hash_init", "cleora_tpu_torch/kernels/hash_init.cu",
-              "cleora_tpu/ops/init.py:60", k3_ms, k3_plain_ms, None, 0.0,
-              k3_bytes, k3_flops, launches),
-        entry("edge_attention", "cleora_tpu_torch/kernels/edge_attention.cu",
-              "cleora_tpu/__init__.py:502", k4_ms, k4_plain_ms, None, k4_err,
-              k4_bytes, k4_flops, att_launches),
+        kernel_row("hash_init", "cleora_tpu_torch/kernels/hash_init.cu",
+                   "cleora_tpu/ops/init.py:60", k3_ms, k3_plain_ms, None, 0.0,
+                   k3_bytes, k3_flops, launches["hash_init"]),
+        kernel_row("edge_attention",
+                   "cleora_tpu_torch/kernels/edge_attention.cu",
+                   "cleora_tpu/__init__.py:502", k4_ms, k4_plain_ms, None,
+                   k4_err, k4_bytes, k4_flops,
+                   att_launches["edge_attention"]),
+    ], g
+
+
+@contextlib.contextmanager
+def stopwatch(*targets):
+    """Wall seconds spent inside each ``(owner, name)`` function while the
+    block runs (the device is synchronised around every call); yields the
+    dict that collects them."""
+    seconds = {}
+    saved = []
+
+    def timed(real, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for owner, name in targets:
+        real = getattr(owner, name)
+        saved.append((owner, name, real))
+        setattr(owner, name, timed(real, name))
+    try:
+        yield seconds
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def run_spectral(name: str, call, expected=None) -> dict:
+    """One spectral entry point as a main path, called as a user calls it
+    (nothing wrapped, no synchronisation inside): launch counts asserted
+    (kernels not named in ``expected`` must not launch; None leaves the
+    assertion to the caller), output finite with unit rows (an all-zero
+    row of the factorised matrix stays zero)."""
+    from cleora_tpu_torch import kernels
+
+    out, launches = run_main_path(name, call)
+    if expected is not None:
+        want = dict.fromkeys(kernels.LAUNCHES, 0) | expected
+        assert launches == want, (launches, want)
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+    norms = np.linalg.norm(out, axis=1)
+    zero = norms < 1e-6
+    assert np.all((np.abs(norms - 1.0) <= 1e-3) | zero), (norms.min(),
+                                                          norms.max())
+    assert zero.mean() <= 0.01, zero.mean()
+    log(f"  {name}: output {out.shape}, unit rows ({int(zero.sum())} zero "
+        "rows)")
+    return launches
+
+
+def stage_split(name: str, call, *targets) -> None:
+    """A second run of ``call`` with ``targets`` under the stopwatch.  The
+    forced synchronisations serialise host and device, so its total is not
+    the entry point's time: run_spectral's is."""
+    with stopwatch(*targets) as stages:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    log(f"  {name}: second run under the stopwatch {wall_s:.3f} s; seconds "
+        "by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+
+def check_blocked_block(alg, graph, dev: torch.device) -> dict:
+    """The kernels of the blocked NetMF and GraRep paths against their
+    plain versions at the shapes and on the states those paths give them:
+    the first row block of ``graph``, walked step by step as
+    algorithms.py's block bodies walk it, each kernel call beside its plain
+    version on the same input.  Returns the largest error of each kernel."""
+    from cleora_tpu_torch.ops.spmm import (
+        spmm,
+        spmm_axpy,
+        spmm_axpy_plain,
+        spmm_plain,
+    )
+
+    rows, cols, vals, n = alg._coo_f32(graph)
+    csr_pt, deg, vol = alg._pt_csr(rows, cols, vals, n, dev)
+    defaults = inspect.signature(alg.embed_netmf).parameters
+    window = defaults["window_size"].default
+    neg = defaults["negative_samples"].default
+    b, max_step = BLOCK_ROWS, GRAREP_STEPS
+    deg_dev = torch.from_numpy(deg).to(dev)
+    scale = np.float32(vol / (neg * window))
+    s_col = (float(scale) / deg_dev)[:b].contiguous()
+    errs = {"spmm_axpy": 0.0, "spmm_csr": 0.0, "log_clip": 0.0}
+    tol = {"rtol": 1e-5, "atol": 1e-6}
+
+    # NetMF's block: `window` K5 steps that sum the walk, then K7
+    y = alg._one_hot_block(n, b, 0, dev)
+    acc = torch.zeros_like(y)
+    for _ in range(window):
+        want_acc = acc.clone()
+        want = spmm_axpy_plain(csr_pt, y, 1.0, acc=want_acc, d=1.0)
+        got = spmm_axpy(csr_pt, y, 1.0, acc=acc, d=1.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        torch.testing.assert_close(acc, want_acc, **tol)
+        errs["spmm_axpy"] = max(errs["spmm_axpy"], max_err(got, want),
+                                max_err(acc, want_acc))
+        y = got
+        del want, want_acc, got
+    errs["log_clip"] = check_log_clip(acc, deg_dev, s_col, 1.0, 0.0)
+    del acc
+
+    # GraRep's block: K1 per power, K7 on a copy of each
+    y = alg._one_hot_block(n, b, 0, dev)
+    for _ in range(max_step):
+        want = spmm_plain(csr_pt, y)
+        got = spmm(csr_pt, y)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        errs["spmm_csr"] = max(errs["spmm_csr"], max_err(got, want))
+        y = got
+        del want, got
+        errs["log_clip"] = max(errs["log_clip"],
+                               check_log_clip(y, None, None, *grarep_mode()))
+    log(f"  one row block of the blocked paths, ({n}, {b}) on the "
+        f"{csr_pt.nnz}-entry transposed transition CSR, each step against "
+        f"its plain version: K5 ({window} NetMF walk steps) max |err| "
+        f"{errs['spmm_axpy']:.3e}, K1 ({max_step} GraRep powers) "
+        f"{errs['spmm_csr']:.3e}, K7 (NetMF's mode on the summed walk, "
+        f"GraRep's on each power) {errs['log_clip']:.3e}")
+    return errs
+
+
+def spectral_full_width(dev: torch.device, card: str, g) -> list:
+    """Phase 6: the five spectral siblings through their entry points, then
+    K5, K6 and K7 at full size against their plain versions and timed."""
+    import cleora_tpu_torch.algorithms as alg
+    from cleora_tpu_torch.ops import memory
+    from cleora_tpu_torch.ops.dense import (
+        dense_markov,
+        dense_markov_plain,
+        log_clip,
+        log_clip_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import (
+        CsrMatrix,
+        spmm_axpy,
+        spmm_axpy_plain,
+    )
+
+    n, nnz = g.num_entities, g.num_edges
+    log(f"phase 6, sparse siblings on {n} entities, {nnz} nnz")
+
+    def randne():
+        return alg.embed_randne(g, feature_dim=DIM, num_iterations=ITERATIONS,
+                                backend="device")
+
+    def prone():
+        return alg.embed_prone(g, feature_dim=DIM, backend="device")
+
+    def hope():
+        return alg.embed_hope(g, feature_dim=DIM, backend="device")
+
+    run_spectral("embed_randne()", randne, {"spmm_axpy": ITERATIONS})
+    stage_split("embed_randne()", randne, (alg, "_device_weighted_sum_core"),
+                (alg, "_fetch_f64"), (alg, "_finalize"))
+    prone_launches = run_spectral("embed_prone()", prone, {"spmm_axpy": 9})
+    stage_split("embed_prone()", prone, (alg, "_prone_chebyshev_core"),
+                (alg, "_fetch_f64"), (alg, "_svd_sqrt"), (alg, "_finalize"))
+
+    # HOPE's launch count follows from the series length its code derives:
+    # 6 Katz applications (power_iters=2), each `terms` launches.  The
+    # second run reads `terms` where the code passes it on.
+    hope_launches = run_spectral("embed_hope()", hope)
+    seen = {}
+    real_katz = alg._katz
+
+    def katz(csr, x, beta, terms):
+        seen["terms"] = terms
+        return real_katz(csr, x, beta, terms)
+
+    alg._katz = katz
+    try:
+        stage_split("embed_hope()", hope, (alg, "_katz"),
+                    (torch.linalg, "qr"), (torch.linalg, "svd"),
+                    (alg, "_fetch_f64"), (alg, "_finalize"))
+    finally:
+        alg._katz = real_katz
+    log(f"  embed_hope(): k={DIM // 2}, r={DIM // 2 + 8}, "
+        f"terms={seen['terms']}")
+    assert seen["terms"] in (12, 13), seen
+    assert hope_launches == dict.fromkeys(hope_launches, 0) | {
+        "spmm_axpy": 6 * seen["terms"]}, hope_launches
+
+    # ---- K5 at the sparse siblings' shape: error, times, bound
+    rows, cols, vals, _, _ = g.to_sparse_csr()
+    csr = CsrMatrix.from_coo(
+        rows, cols, alg._sym_normalized_vals(rows, cols, vals, n), n, dev)
+    del rows, cols, vals
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, z, acc = (torch.randn((n, DIM), device=dev, generator=gen)
+                 for _ in range(3))
+    k5_err = 0.0
+    for case in K5_CASES:
+        got, want = k5_pair(csr, x, z, acc, case)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            k5_err = max(k5_err, max_err(a, b))
+        del got, want, a, b
+    ca, cb, cc, cd = K5_CASES["chebyshev"][:4]
+    k5_ms = time_ms(lambda: spmm_axpy(csr, x, ca, cb, z=z, c=cc, acc=acc,
+                                      d=cd))
+    k5_plain_ms = time_ms(lambda: spmm_axpy_plain(csr, x, ca, cb, z=z, c=cc,
+                                                  acc=acc, d=cd),
+                          reps=3, warmup=1)
+    k5_randne_ms = time_ms(lambda: spmm_axpy(csr, x, 1.0, acc=acc, d=0.25))
+    k5_bare_ms = time_ms(lambda: spmm_axpy(csr, x, -1.0, 1.0))
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a_lib = torch.sparse_csr_tensor(csr.indptr.int(), csr.indices,
+                                        csr.vals, size=(n, n),
+                                        check_invariants=False)
+
+        def k5_library():
+            out = torch.sparse.mm(a_lib, x).mul_(ca)
+            out.add_(x, alpha=cb).add_(z, alpha=cc)
+            acc.add_(out, alpha=cd)
+            return out
+
+        k5_lib_ms = time_ms(k5_library)
+    x136, acc136 = (torch.randn((n, 136), device=dev, generator=gen)
+                    for _ in range(2))
+    got, want = k5_pair(csr, x136, None, acc136, "katz")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        k5_err = max(k5_err, max_err(a, b))
+    del got, want, a, b
+    k5_katz_ms = time_ms(lambda: spmm_axpy(csr, x136, 0.1, acc=acc136, d=1.0))
+    del a_lib, x136, acc136
+    # x, z and out move once, acc is read and written
+    k5_bytes = 8 * (n + 1) + 8 * nnz + 3 * 4 * n * DIM + 8 * n * DIM
+    k5_flops = 2 * nnz * DIM + 7 * n * DIM
+    log(f"K5 D={DIM}: Chebyshev step (z, acc) {k5_ms:.3f} ms (plain "
+        f"{k5_plain_ms:.3f}, torch.sparse.mm + 4 elementwise calls "
+        f"{k5_lib_ms:.3f}); RandNE step (acc) {k5_randne_ms:.3f} ms; "
+        f"x - N x alone {k5_bare_ms:.3f} ms; Katz step at D=136 "
+        f"{k5_katz_ms:.3f} ms; max |err| {k5_err:.3e}; [{card}]")
+    del csr, x, z, acc
+    torch.cuda.empty_cache()
+
+    # ---- the dense two
+    t0 = time.perf_counter()
+    gd = random_graph(DENSE_NODES, DENSE_UND_EDGES, seed=11, cover=True)
+    nd, nnzd = gd.num_entities, gd.num_edges
+    assert nd == DENSE_NODES
+    log(f"phase 6, dense siblings on {nd} entities, {nnzd} nnz (ingest "
+        f"{time.perf_counter() - t0:.3f} s); six (n, n) float32 buffers = "
+        f"{6 * 4 * nd * nd / 1e9:.1f} GB")
+    limit = memory.device_memory_limit(dev)
+    gate_rows = int(np.sqrt(0.9 * limit / (6 * 4)))
+    assert alg._dense_fits(gate_rows, device=dev)
+    assert not alg._dense_fits(int(gate_rows * 1.01) + 1, device=dev)
+    log(f"  dense gate on this card: {limit / 2**30:.3f} GiB free -> the "
+        f"dense path takes n <= {gate_rows}; past it block_rows is "
+        f"{alg._auto_block_rows(BLOCKED_NODES, DIM + 10, device=dev)} at "
+        f"n={BLOCKED_NODES}; [{card}]")
+    dense_targets = ((alg, "dense_markov"), (torch, "matmul"),
+                     (alg, "log_clip"), (torch.linalg, "qr"),
+                     (torch.linalg, "svd"), (alg, "_fetch_f64"))
+
+    def netmf_dense():
+        return alg.embed_netmf(gd, feature_dim=DIM, backend="device")
+
+    def grarep_dense():
+        return alg.embed_grarep(gd, feature_dim=DIM, max_step=GRAREP_STEPS,
+                                backend="device")
+
+    netmf = run_spectral("embed_netmf() dense", netmf_dense,
+                         {"dense_markov": 1, "log_clip": 1})
+    stage_split("embed_netmf() dense", netmf_dense, *dense_targets)
+    run_spectral("embed_grarep() dense", grarep_dense,
+                 {"dense_markov": 1, "log_clip": GRAREP_STEPS})
+    stage_split("embed_grarep() dense", grarep_dense, *dense_targets)
+
+    # ---- K6 and K7 at the dense siblings' shape
+    rows, cols, vals, _ = alg._coo_f32(gd)
+    csrd = CsrMatrix.from_coo(rows, cols, vals, nd, dev)
+    k6_err = check_dense_markov(csrd)
+    k6_ms = time_ms(lambda: dense_markov(csrd))
+    k6_plain_ms = time_ms(lambda: dense_markov_plain(csrd), reps=3, warmup=1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        a_lib = torch.sparse_csr_tensor(csrd.indptr.int(), csrd.indices,
+                                        csrd.vals, size=(nd, nd),
+                                        check_invariants=False)
+
+        def k6_library():
+            p = a_lib.to_dense()
+            return p.div_(p.sum(dim=1).clamp_min_(1e-10)[:, None])
+
+        torch.testing.assert_close(k6_library(), dense_markov(csrd)[0],
+                                   rtol=0.0, atol=1e-6)
+        k6_lib_ms = time_ms(k6_library)
+    del a_lib
+    k6_bytes = 8 * (nd + 1) + 8 * nnzd + 4 * nd * nd + 4 * nd + 8
+    k6_flops = 2 * nnzd
+    log(f"K6 n={nd}: {k6_ms:.3f} ms (plain {k6_plain_ms:.3f}, to_dense + row "
+        f"divide {k6_lib_ms:.3f}); max |err| {k6_err:.3e}; [{card}]")
+
+    p, deg, vol = dense_markov(csrd)
+    xk7 = torch.matmul(p, p)  # a transition power, as the entry points clip
+    row_scale = (vol.float() / 5.0) / deg
+    k7_err = max(
+        check_log_clip(xk7, row_scale, deg, 1.0, 0.0),
+        check_log_clip(xk7, None, None, *grarep_mode()))
+    del p
+    k7_ms = time_ms(lambda: log_clip(xk7, row_scale, deg, 1.0, 0.0))
+    k7_grarep_ms = time_ms(lambda: log_clip(xk7, None, None, *grarep_mode()))
+    k7_plain_ms = time_ms(
+        lambda: log_clip_plain(xk7, row_scale, deg, 1.0, 0.0))
+    k7_lib_ms = time_ms(lambda: torch.log(torch.clamp_min(
+        xk7 * row_scale[:, None] * deg[None, :], 1.0)))
+    k7_bytes = 2 * 4 * nd * nd + 4 * 2 * nd
+    k7_flops = 5 * nd * nd
+    log(f"K7 ({nd}, {nd}): NetMF mode {k7_ms:.3f} ms (plain "
+        f"{k7_plain_ms:.3f}, torch.log(clamp_min(x*r*c)) {k7_lib_ms:.3f}); "
+        f"GraRep mode {k7_grarep_ms:.3f} ms; max |err| {k7_err:.3e}; "
+        f"[{card}]")
+    del xk7, csrd, gd
+    torch.cuda.empty_cache()
+
+    # ---- the blocked paths
+    t0 = time.perf_counter()
+    gb = random_graph(BLOCKED_NODES, BLOCKED_UND_EDGES, seed=12, cover=True)
+    nb = gb.num_entities
+    blocks = -(-nb // BLOCK_ROWS)
+    sweeps = 2 + 2 * 1  # power_iters=1
+    log(f"phase 6, blocked paths on {nb} entities, {gb.num_edges} nnz "
+        f"(ingest {time.perf_counter() - t0:.3f} s): block_rows={BLOCK_ROWS},"
+        f" {blocks} blocks, {sweeps} sweeps")
+    blocked_targets = ((alg, "spmm_axpy"), (alg, "spmm"), (alg, "log_clip"),
+                       (torch, "matmul"), (torch.linalg, "qr"),
+                       (torch.linalg, "svd"), (alg, "_fetch_f64"))
+
+    def netmf_blocked():
+        return alg.embed_netmf(gb, feature_dim=DIM, backend="device",
+                               block_rows=BLOCK_ROWS, power_iters=1)
+
+    def grarep_blocked():
+        return alg.embed_grarep(gb, feature_dim=DIM, max_step=GRAREP_STEPS,
+                                backend="device", block_rows=BLOCK_ROWS,
+                                power_iters=1)
+
+    blocked_errs = check_blocked_block(alg, gb, dev)
+    torch.cuda.empty_cache()
+    run_spectral("embed_netmf() blocked", netmf_blocked,
+                 {"spmm_axpy": blocks * sweeps * 5,
+                  "log_clip": blocks * sweeps})
+    stage_split("embed_netmf() blocked", netmf_blocked, *blocked_targets)
+    run_spectral("embed_grarep() blocked", grarep_blocked,
+                 {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
+                  "log_clip": blocks * sweeps * GRAREP_STEPS})
+    stage_split("embed_grarep() blocked", grarep_blocked, *blocked_targets)
+    k5_err = max(k5_err, blocked_errs["spmm_axpy"])
+    k7_err = max(k7_err, blocked_errs["log_clip"])
+
+    src = "cleora_tpu_torch/kernels/"
+    return [
+        kernel_row("spmm_axpy", src + "spmm_axpy.cu",
+                   "cleora_tpu/algorithms.py:186", k5_ms, k5_plain_ms,
+                   k5_lib_ms, k5_err, k5_bytes, k5_flops,
+                   prone_launches["spmm_axpy"]),
+        kernel_row("dense_markov", src + "dense_markov.cu",
+                   "cleora_tpu/algorithms.py:397", k6_ms, k6_plain_ms,
+                   k6_lib_ms, k6_err, k6_bytes, k6_flops,
+                   netmf["dense_markov"]),
+        kernel_row("log_clip", src + "log_clip.cu",
+                   "cleora_tpu/algorithms.py:429", k7_ms, k7_plain_ms,
+                   k7_lib_ms, k7_err, k7_bytes, k7_flops, netmf["log_clip"]),
     ]
 
 
@@ -599,7 +1195,8 @@ def main() -> int:
     build_kernels()
     check_kernels(dev)
     slice_parity(dev)
-    rows = full_width(dev, card)
+    rows, graph = full_width(dev, card)
+    rows += spectral_full_width(dev, card, graph)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's hand-written CUDA kernels.
 
-K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu`` and K4
-``edge_attention.cu`` are built at first use (:mod:`.build`).  Each wrapper
+K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
+``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu`` and K7
+``log_clip.cu`` are built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -11,6 +12,7 @@ only; the plain PyTorch versions live beside their callers in ``ops/``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +43,18 @@ _ARGTYPES = {
     "edge_attention": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
                        _c.c_int, _c.c_void_p],
+    # indptr, indices, vals, x, z, acc, out, n_rows, d, a, b, c, dd, vec4, stream
+    "spmm_axpy": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                  _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                  _c.c_int64, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
+                  _c.c_int, _c.c_void_p],
+    # indptr, indices, vals, p, deg, vol, n, vec4, stream
+    "dense_markov": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                     _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
+                     _c.c_void_p],
+    # x, r, c, n, m, floor, offset, vec4, stream
+    "log_clip": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                 _c.c_int64, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
 }
 
 
@@ -162,3 +176,127 @@ def edge_attention(indptr: torch.Tensor, indices: torch.Tensor,
                 int(vec4), torch.cuda.current_stream(xn.device).cuda_stream)
     _check_launch("edge_attention", rc)
     return out
+
+
+def _require_csr(name: str, indptr: torch.Tensor, indices: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    _require(indptr.dtype == torch.int64 and indices.dtype == torch.int32
+             and vals.dtype == torch.float32,
+             f"{name}: indptr int64, indices int32 and vals float32 expected")
+    _require(indptr.dim() == 1 and indptr.shape[0] >= 1
+             and indices.shape == vals.shape and indices.dim() == 1,
+             f"{name}: indptr/indices/vals mismatch")
+
+
+def _require_cuda_contiguous(name: str, device, *tensors) -> None:
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{name}: operands must be contiguous")
+    _require(all(t.is_cuda and t.device == device for t in tensors),
+             f"{name}: every operand must be on the same CUDA device")
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _byte_range(t: torch.Tensor):
+    """[first, last) address that a tensor with non-negative strides
+    reaches."""
+    reach = sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1
+    first = t.data_ptr()
+    return first, first + (reach * t.element_size() if t.numel() else 0)
+
+
+def _overlap(s: torch.Tensor, t: torch.Tensor) -> bool:
+    """Whether the address ranges of two tensors meet (views of one
+    storage that interleave without sharing an element count as meeting)."""
+    (s0, s1), (t0, t1) = _byte_range(s), _byte_range(t)
+    return s0 < t1 and t0 < s1
+
+
+def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
+              x: torch.Tensor, a: float, b: float = 0.0,
+              z: Optional[torch.Tensor] = None, c: float = 0.0,
+              acc: Optional[torch.Tensor] = None,
+              d: float = 0.0) -> torch.Tensor:
+    """K5: ``out = a·(A @ x) + b·x + c·z`` (A in CSR) as a new float32
+    (N, D) tensor, and ``acc += d·out`` in place when ``acc`` is given."""
+    name = "spmm_axpy"
+    n = indptr.shape[0] - 1
+    _require_csr(name, indptr, indices, vals)
+    dense = [t for t in (x, z, acc) if t is not None]
+    for t in dense:
+        _require(t.dtype == torch.float32 and t.dim() == 2,
+                 f"{name}: x, z and acc must be 2-D float32 tensors")
+        _require(t.shape == x.shape, f"{name}: x, z and acc shapes differ")
+    _require(x.shape[0] == n, f"{name}: x must have one row per row of A")
+    # the kernel reads x and z through the read-only cache, and other rows
+    # gather x, while a row's thread updates acc
+    _require(acc is None or not any(_overlap(acc, t) for t in (x, z)
+                                    if t is not None),
+             f"{name}: acc must not share memory with x or z")
+    _require_cuda_contiguous(name, x.device, indptr, indices, vals, *dense)
+    width = x.shape[1]
+    out = torch.empty_like(x)
+    vec4 = width % 4 == 0 and _aligned16(out, *dense)
+    fn = _bound(name)
+    with torch.cuda.device(x.device):
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                x.data_ptr(), None if z is None else z.data_ptr(),
+                None if acc is None else acc.data_ptr(), out.data_ptr(),
+                n, width, float(a), float(b), float(c), float(d), int(vec4),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    return out
+
+
+def dense_markov(indptr: torch.Tensor, indices: torch.Tensor,
+                 vals: torch.Tensor):
+    """K6: the dense row-normalised matrix of a square CSR.  Returns
+    ``(P, deg, vol)``: float32 (n, n) with duplicate entries summed and each
+    row divided by ``deg = max(row sum, 1e-10)`` (float32 (n,)), and the
+    sum of all entries as a float64 (1,) tensor."""
+    name = "dense_markov"
+    n = indptr.shape[0] - 1
+    _require_csr(name, indptr, indices, vals)
+    _require_cuda_contiguous(name, vals.device, indptr, indices, vals)
+    p = torch.empty((n, n), dtype=torch.float32, device=vals.device)
+    deg = torch.empty((n,), dtype=torch.float32, device=vals.device)
+    vol = torch.zeros((1,), dtype=torch.float64, device=vals.device)
+    vec4 = n % 4 == 0 and _aligned16(p)
+    fn = _bound(name)
+    with torch.cuda.device(vals.device):
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                p.data_ptr(), deg.data_ptr(), vol.data_ptr(), n, int(vec4),
+                torch.cuda.current_stream(vals.device).cuda_stream)
+    _check_launch(name, rc)
+    return p, deg, vol
+
+
+def log_clip_(x: torch.Tensor, row_scale: Optional[torch.Tensor],
+              col_scale: Optional[torch.Tensor], floor: float,
+              offset: float) -> torch.Tensor:
+    """K7: ``x[i, j] = log(max(x[i, j]·row_scale[i]·col_scale[j], floor)) −
+    offset`` in place on float32 (n, m) ``x``; a scale that is None is a
+    factor of 1.  Returns ``x``."""
+    name = "log_clip_"
+    scales = [t for t in (row_scale, col_scale) if t is not None]
+    for t in (x, *scales):
+        _require(t.dtype == torch.float32, f"{name}: float32 tensors expected")
+    _require(x.dim() == 2, f"{name}: x must be 2-D")
+    n, m = x.shape
+    _require(row_scale is None or row_scale.shape == (n,),
+             f"{name}: row_scale must have one entry per row of x")
+    _require(col_scale is None or col_scale.shape == (m,),
+             f"{name}: col_scale must have one entry per column of x")
+    _require_cuda_contiguous(name, x.device, x, *scales)
+    vec4 = m % 4 == 0 and _aligned16(
+        x, *([] if col_scale is None else [col_scale]))
+    fn = _bound("log_clip")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), None if row_scale is None else row_scale.data_ptr(),
+                None if col_scale is None else col_scale.data_ptr(), n, m,
+                float(floor), float(offset), int(vec4),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch("log_clip", rc)
+    return x

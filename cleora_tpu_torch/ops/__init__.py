@@ -1,4 +1,4 @@
-from .spmm import CsrMatrix, spmm, spmm_plain
+from .spmm import CsrMatrix, spmm, spmm_axpy, spmm_axpy_plain, spmm_plain
 from .normalize import (
     l1_normalize,
     l1_normalize_plain,
@@ -15,9 +15,18 @@ from .attention import (
     edge_attention_weights,
     edge_attention_weights_plain,
 )
+from .dense import (
+    dense_markov,
+    dense_markov_plain,
+    log_clip,
+    log_clip_plain,
+    rsvd_u_sqrt,
+)
 
 __all__ = [
-    "CsrMatrix", "spmm", "spmm_plain",
+    "CsrMatrix", "spmm", "spmm_plain", "spmm_axpy", "spmm_axpy_plain",
+    "dense_markov", "dense_markov_plain", "log_clip", "log_clip_plain",
+    "rsvd_u_sqrt",
     "l2_normalize", "l1_normalize", "l2_normalize_plain",
     "l1_normalize_plain", "spectral_normalize", "normalize",
     "whiten", "embed_loop", "embed_loop_convergence", "embed_step",

@@ -16,8 +16,9 @@ import torch
 
 from .. import kernels
 
-# edges per chunk of the plain version's (chunk, D) gather intermediate
-_PLAIN_CHUNK_EDGES = 1 << 22
+# elements of the plain version's (chunk, D) gather intermediate: 4 GiB in
+# float32, which is 1 << 22 edges per chunk at D = 256
+_PLAIN_CHUNK_ELEMENTS = 1 << 30
 
 
 class CsrMatrix:
@@ -70,6 +71,18 @@ class CsrMatrix:
                   out=indptr[1:])
         return cls.from_numpy(indptr, cols, vals, device)
 
+    @classmethod
+    def transpose_from_coo(cls, rows: np.ndarray, cols: np.ndarray,
+                           vals: np.ndarray, n: int, device) -> "CsrMatrix":
+        """The CSR of Aᵀ for an (n, n) COO of A: the entries sorted by
+        column with a stable argsort, so each row of Aᵀ keeps A's row
+        order (cleora_tpu/algorithms.py:356-359)."""
+        if not (np.shape(rows) == np.shape(cols) == np.shape(vals)):
+            raise ValueError("malformed COO: rows/cols/vals disagree")
+        order = np.argsort(cols, kind="stable")
+        return cls.from_coo(np.asarray(cols)[order], np.asarray(rows)[order],
+                            np.asarray(vals)[order], n, device)
+
     def with_vals(self, vals: torch.Tensor) -> "CsrMatrix":
         """The same sparsity pattern with other values, sharing the index
         tensors and, once built, the plain version's row index."""
@@ -117,11 +130,43 @@ def spmm_plain(csr: CsrMatrix, x: torch.Tensor,
     rows, cols = csr.plain_index()
     out = torch.zeros((csr.n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for s in range(0, csr.nnz, _PLAIN_CHUNK_EDGES):
-        e = s + _PLAIN_CHUNK_EDGES
+    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, x.shape[1]))
+    for s in range(0, csr.nnz, chunk):
+        e = s + chunk
         scaled = x.index_select(0, cols[s:e]).float() * csr.vals[s:e, None]
         out.index_add_(0, rows[s:e], scaled)
     w = float(residual_weight)
     if w > 0.0:
         out = (1.0 - w) * out + w * x.float()
+    return out
+
+
+def spmm_axpy(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
+              z: Optional[torch.Tensor] = None, c: float = 0.0,
+              acc: Optional[torch.Tensor] = None,
+              d: float = 0.0) -> torch.Tensor:
+    """One step of the spectral recurrences: ``out = a·(A @ x) + b·x + c·z``
+    as a new float32 tensor, and ``acc += d·out`` in place when ``acc`` is
+    given.  On CUDA this launches K5; on the CPU it runs
+    :func:`spmm_axpy_plain`."""
+    if x.is_cuda:
+        return kernels.spmm_axpy(
+            csr.indptr, csr.indices, csr.vals, x.contiguous(), a, b,
+            None if z is None else z.contiguous(), c, acc, d)
+    return spmm_axpy_plain(csr, x, a, b, z, c, acc, d)
+
+
+def spmm_axpy_plain(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
+                    z: Optional[torch.Tensor] = None, c: float = 0.0,
+                    acc: Optional[torch.Tensor] = None,
+                    d: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of K5: :func:`spmm_plain`, then the terms in
+    K5's order, each product and sum rounded to float32."""
+    out = spmm_plain(csr, x).mul_(float(a))
+    if float(b) != 0.0:
+        out += float(b) * x
+    if z is not None:
+        out += float(c) * z
+    if acc is not None:
+        acc += float(d) * out
     return out

@@ -7,16 +7,20 @@ descending eigenvalue, scale columns by 1/sqrt(max(λ, 1e-10)), project
 
 The two products are plain float32 ``torch.matmul`` calls and the D×D
 eigendecomposition is ``torch.linalg.eigh`` (which waits for the device).
-Nothing here enables TF32: PyTorch's default keeps float32 matmuls in full
-float32, as the JAX version computes them.  Column signs of eigh may differ
-between backends — inner products and distances are invariant to them.
+The products run in full float32 even when the caller has allowed TF32
+(:func:`.._util.full_float32_matmul`), as the JAX version pins them.  Column
+signs of eigh may differ between backends — inner products and distances
+are invariant to them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._util import full_float32_matmul
 
+
+@full_float32_matmul()
 def whiten(x: torch.Tensor, n_components=None, eps: float = 1e-10) -> torch.Tensor:
     n = x.shape[0]
     if n <= 1:

@@ -189,3 +189,21 @@ def test_column_mask_after_conversion_of_a_complex_graph():
     assert users.sum() == 120 and products.sum() == ours.num_entities - 120
     assert not np.any(users & products)
     assert all(ours.entity_ids[i].startswith("u") for i in np.flatnonzero(users))
+
+
+def test_converted_graph_feeds_the_spectral_siblings():
+    """The graph is the only state the spectral siblings need: a converted
+    graph runs embed_randne and gives the JAX package's result (the same
+    float64 host code on the same arrays)."""
+    import cleora_tpu.algorithms as jalg
+    import cleora_tpu_torch.algorithms as talg
+
+    lines, columns, trim = _hyperedges()
+    ref = ct.SparseMatrix.from_iterator(iter(lines), columns, trim)
+    ours = from_jax_state(ref.__getstate__())
+    kw = dict(feature_dim=16, num_iterations=6, seed=3)
+    assert np.array_equal(talg.embed_randne(ours, **kw),
+                          jalg.embed_randne(ref, **kw))
+    np.testing.assert_allclose(
+        talg.embed_randne(ours, backend="device", device="cpu", **kw),
+        jalg.embed_randne(ref, backend="device", **kw), rtol=0, atol=1e-4)

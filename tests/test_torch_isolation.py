@@ -54,3 +54,28 @@ def test_embed_in_fresh_process_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_spectral_siblings_in_fresh_process_load_no_jax():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import cleora_tpu_torch as ctt\n"
+        "from cleora_tpu_torch import algorithms as alg\n"
+        "g = ctt.SparseMatrix.from_iterator(\n"
+        "    iter(['a b', 'b c', 'c d', 'd a', 'a c']),\n"
+        "    'complex::reflexive::node')\n"
+        "for fn in (alg.embed_prone, alg.embed_randne, alg.embed_hope,\n"
+        "           alg.embed_netmf, alg.embed_grarep):\n"
+        "    for kw in ({}, {'backend': 'device', 'device': 'cpu'}):\n"
+        "        out = fn(g, feature_dim=4, **kw)\n"
+        "        assert out.shape == (4, 4) and np.isfinite(out).all()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'cleora_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
