@@ -8,8 +8,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. environment: the card's name and power limit, torch/CUDA versions;
 2. build: K1 (kernels/spmm_csr.cu), K2 (kernels/row_normalize.cu), K3
    (kernels/hash_init.cu), K4 (kernels/edge_attention.cu), K5
-   (kernels/spmm_axpy.cu), K6 (kernels/dense_markov.cu) and K7
-   (kernels/log_clip.cu) are compiled from the checkout's sources, one nvcc
+   (kernels/spmm_axpy.cu), K6 (kernels/dense_markov.cu), K7
+   (kernels/log_clip.cu), K8 (kernels/walk_uniform.cu), K9
+   (kernels/pair_enum.cu), K10 (kernels/run_length.cu) and K11
+   (kernels/ppmi.cu) are compiled from the checkout's sources, one nvcc
    each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
@@ -54,7 +56,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 6. the spectral siblings at full width, each through its public entry point
    with backend="device" and the launch counts zeroed before and read
    after: embed_randne (40 iterations), embed_prone and embed_hope at
-   feature_dim=256 on phase 5's graph; embed_netmf and embed_grarep dense
+   feature_dim=256 on phase 5's graph (one run each, under the stage
+   stopwatch); embed_netmf and embed_grarep dense
    at 32,768 nodes and 98,304 undirected edges (six (n, n) float32 buffers
    are 25.8 GB) and blocked (block_rows=4096, power_iters=1) at 200,000
    nodes and 600,000 undirected edges.  Each entry point runs twice: once
@@ -69,7 +72,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    200,000-node graph's transposed transition CSR (K5 and K1 at
    (200,000, 4,096) on the walk's own states, K7 in NetMF's mode on the
    summed walk and in GraRep's on each power); times them beside one
-   library call each.
+   library call each;
+7. DeepWalk (the walk pipeline), with launch counts zeroed before and read
+   after its main path: on a 20,000-node, 60,000-edge parity graph, K8, K9 and K10
+   bitwise against their plain versions on the first walk batch (K10 after
+   the sweep and after a merge), the walks and the count ranges of the card
+   bitwise equal to device="cpu", K11 against its plain version (column
+   sums and row pointers bitwise, values rtol=1e-6: another logf), and
+   embed_deepwalk with device counting, with host counting and the device
+   factorization, and with the host factorization, each by the Gram matrix
+   of 2,000 rows against device="cpu" (atol=1e-3: a value perturbation of
+   1e-6 moves it by 2e-5 on this graph; the graph is a ring plus random
+   edges, connected, because a small component's rows are rounding noise
+   after the factorization on any backend); at full width, scripts/deepwalk_e2e.py's corpus (1,000,000 nodes,
+   5,500,000 undirected edges from default_rng(7), 2 walks of 80 per node,
+   window 5; num_walks cut from the API's 10 to 2) through
+   embed_deepwalk(feature_dim=256, backend="device", cooccurrence="device")
+   once untouched and once under the stage stopwatch, the count alone
+   (unique pairs within 1 % of the JAX package's 810,145,222 on this
+   corpus shape), K8-K11 against their plain versions at the main path's
+   shapes and timed beside torch.sort and torch.unique_consecutive; and
+   scripts/walk_quality_probe.py's 100,000-node, 50-community planted
+   partition, whose centroid accuracy must reach 0.99.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -113,6 +137,26 @@ BLOCKED_NODES = 200_000
 BLOCKED_UND_EDGES = 600_000
 BLOCK_ROWS = 4_096
 GRAREP_STEPS = 4
+# phase 7: scripts/deepwalk_e2e.py's defaults (1M nodes, 5.5M undirected
+# edges from default_rng(7), 2 walks of 80 per node, window 5), at D=256
+WALK_NODES = 1_000_000
+WALK_UND_EDGES = 5_500_000
+WALKS_PER_NODE = 2
+WALK_LENGTH = 80
+WINDOW = 5
+# unique pairs the JAX package counted on this corpus shape (RESULTS.md:
+# 813-838); the port's walks are another stream, so its count is held to 1 %
+JAX_UNIQUE_PAIRS = 810_145_222
+WALK_PARITY_LENGTH = 40
+WALK_PARITY_DIM = 32
+WALK_PARITY_PASSES = 3
+# scripts/walk_quality_probe.py's defaults
+QUALITY_NODES = 100_000
+QUALITY_COMMUNITIES = 50
+QUALITY_DEG_IN = 8
+QUALITY_DEG_OUT = 2
+QUALITY_DIM = 64
+QUALITY_WALK_LENGTH = 40
 
 
 def log(msg: str) -> None:
@@ -872,6 +916,18 @@ def stage_split(name: str, call, *targets) -> None:
         "by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
 
+def staged_spectral(name: str, call, expected, *targets) -> dict:
+    """One run of a spectral entry point with ``targets`` under the
+    stopwatch: launch counts, peak memory and the end-to-end seconds of
+    that run (the stopwatch's synchronisations included), and the seconds
+    by stage."""
+    with stopwatch(*targets) as stages:
+        launches = run_spectral(name, call, expected)
+    log(f"  {name}: seconds by stage " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    return launches
+
+
 def check_blocked_block(alg, graph, dev: torch.device) -> dict:
     """The kernels of the blocked NetMF and GraRep paths against their
     plain versions at the shapes and on the states those paths give them:
@@ -965,17 +1021,20 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
     def hope():
         return alg.embed_hope(g, feature_dim=DIM, backend="device")
 
-    run_spectral("embed_randne()", randne, {"spmm_axpy": ITERATIONS})
-    stage_split("embed_randne()", randne, (alg, "_device_weighted_sum_core"),
-                (alg, "_fetch_f64"), (alg, "_finalize"))
-    prone_launches = run_spectral("embed_prone()", prone, {"spmm_axpy": 9})
-    stage_split("embed_prone()", prone, (alg, "_prone_chebyshev_core"),
-                (alg, "_fetch_f64"), (alg, "_svd_sqrt"), (alg, "_finalize"))
+    # one run each, under the stopwatch: on the card its synchronisations
+    # cost less than the spread between runs, and ProNE's host SVD alone
+    # takes most of a minute
+    staged_spectral("embed_randne()", randne, {"spmm_axpy": ITERATIONS},
+                    (alg, "_device_weighted_sum_core"), (alg, "_fetch_f64"),
+                    (alg, "_finalize"))
+    prone_launches = staged_spectral(
+        "embed_prone()", prone, {"spmm_axpy": 9},
+        (alg, "_prone_chebyshev_core"), (alg, "_fetch_f64"),
+        (alg, "_svd_sqrt"), (alg, "_finalize"))
 
     # HOPE's launch count follows from the series length its code derives:
-    # 6 Katz applications (power_iters=2), each `terms` launches.  The
-    # second run reads `terms` where the code passes it on.
-    hope_launches = run_spectral("embed_hope()", hope)
+    # 6 Katz applications (power_iters=2), each `terms` launches, read where
+    # the code passes it on
     seen = {}
     real_katz = alg._katz
 
@@ -985,9 +1044,9 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
 
     alg._katz = katz
     try:
-        stage_split("embed_hope()", hope, (alg, "_katz"),
-                    (torch.linalg, "qr"), (torch.linalg, "svd"),
-                    (alg, "_fetch_f64"), (alg, "_finalize"))
+        hope_launches = staged_spectral(
+            "embed_hope()", hope, None, (alg, "_katz"), (torch.linalg, "qr"),
+            (torch.linalg, "svd"), (alg, "_fetch_f64"), (alg, "_finalize"))
     finally:
         alg._katz = real_katz
     log(f"  embed_hope(): k={DIM // 2}, r={DIM // 2 + 8}, "
@@ -1184,6 +1243,351 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
     ]
 
 
+# ------------------------------------------------------ phase 7: DeepWalk
+def planted_edges(n, communities, deg_in, deg_out, rng):
+    """scripts/walk_quality_probe.py's planted-partition generator (a copy:
+    the script imports nothing of the JAX package)."""
+    size = -(-n // communities)
+    comm = np.arange(n) // size
+    m_in = n * deg_in
+    src_in = rng.integers(0, n, m_in)
+    dst_in = np.minimum(
+        comm[src_in] * size + rng.integers(0, size, m_in), n - 1)
+    m_out = n * deg_out
+    src_out = rng.integers(0, n, m_out)
+    dst_out = rng.integers(0, n, m_out)
+    return (np.concatenate([src_in, src_out]),
+            np.concatenate([dst_in, dst_out]), comm)
+
+
+def centroid_accuracy(emb, labels, rng, train_frac=0.5):
+    """scripts/walk_quality_probe.py's nearest-centroid accuracy."""
+    n = emb.shape[0]
+    normed = emb / np.maximum(
+        np.linalg.norm(emb, axis=1, keepdims=True), 1e-10)
+    perm = rng.permutation(n)
+    tr, te = perm[: int(n * train_frac)], perm[int(n * train_frac):]
+    k = labels.max() + 1
+    cents = np.zeros((k, emb.shape[1]), dtype=np.float64)
+    for c in range(k):
+        rows = tr[labels[tr] == c]
+        if rows.size:
+            cents[c] = normed[rows].mean(axis=0)
+    cents /= np.maximum(np.linalg.norm(cents, axis=1, keepdims=True), 1e-10)
+    pred = np.argmax(normed[te] @ cents.T, axis=1)
+    return float(np.mean(pred == labels[te]))
+
+
+def merge_plain(a, b, n: int):
+    """ops/cooccur.py:_merge with K10's plain version."""
+    from cleora_tpu_torch.ops.cooccur import run_length_plain
+
+    keys = torch.cat([a[0].long() * n + a[1], b[0].long() * n + b[1]])
+    keys, order = torch.sort(keys)
+    cen, ctx, cnt, _ = run_length_plain(keys, torch.cat([a[2], b[2]])[order],
+                                        n, 1)
+    return cen, ctx, cnt, int(cen.shape[0])
+
+
+def partition(r, s: int):
+    """Partition ``s``'s segment of a sweep reduce's (cen, ctx, cnt, m_per)."""
+    start = sum(r[3][:s])
+    end = start + r[3][s]
+    return r[0][start:end], r[1][start:end], r[2][start:end], end - start
+
+
+def walk_kernels_vs_plain(g, dev: torch.device, passes: int, label: str):
+    """K8, K9 and K10 against their plain versions on ``g``'s first walk
+    batch at the main path's batch size (K10 after the sweep and after a
+    merge of the batch's two halves' partition 0).  Returns the tensors
+    the timings reuse."""
+    import cleora_tpu_torch.algorithms as alg
+    from cleora_tpu_torch.ops import cooccur
+    from cleora_tpu_torch.ops.walk import (
+        WalkTables,
+        walk_uniform,
+        walk_uniform_plain,
+    )
+
+    indptr, cols, deg, n = alg._walk_csr(g)
+    tables = WalkTables(indptr, cols, deg, n, dev)
+    starts = np.tile(np.nonzero(deg > 0)[0].astype(np.int32), WALKS_PER_NODE)
+    starts = torch.from_numpy(starts[:alg._WALK_BATCH // 2]).to(dev)
+    b = starts.shape[0]
+    args = (tables.indptr, tables.cols, tables.deg, starts, WALK_LENGTH, 0, 0,
+            n)
+    walks = walk_uniform(*args)
+    assert torch.equal(walks, walk_uniform_plain(*args))
+    keys = cooccur.pair_keys(walks, b, n, WINDOW, passes)
+    assert torch.equal(keys, cooccur.pair_keys_plain(walks, b, n, WINDOW,
+                                                     passes))
+    sorted_keys = torch.sort(keys).values
+    del keys
+    got = cooccur.run_length(sorted_keys, None, n, passes)
+    want = cooccur.run_length_plain(sorted_keys, None, n, passes)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    del want
+    h = b // 2
+    halves = [cooccur._reduce_sweep(walks[lo:hi], 0, n, WINDOW, passes)
+              for lo, hi in ((0, h), (h, b))]
+    a0, b0 = (partition(r, 0) for r in halves)
+    merged = cooccur._merge(a0, b0, n)
+    plain = merge_plain(a0, b0, n)
+    assert all(torch.equal(x, y) for x, y in zip(merged[:3], plain[:3]))
+    torch.cuda.synchronize()
+    log(f"{label}: K8 walks ({b}, {WALK_LENGTH}), K9 keys "
+        f"({sorted_keys.shape[0]}), K10 runs ({got[0].shape[0]}, {passes} "
+        f"partitions) and K10 after a merge ({a0[3]} + {b0[3]} -> "
+        f"{merged[3]} runs) bitwise equal to their plain versions")
+    return tables, args, walks, sorted_keys, got
+
+
+def ppmi_vs_plain(ranges, n: int, dev: torch.device, label: str):
+    """K11's two passes against their plain versions on every range;
+    returns the column sums, the total and the largest absolute error."""
+    from cleora_tpu_torch.ops import cooccur
+
+    zeros = lambda: (torch.zeros(n, dtype=torch.int64, device=dev),
+                     torch.zeros(1, dtype=torch.int64, device=dev))
+    col, total = zeros()
+    col_p, total_p = zeros()
+    for _, ctx, cnt, _ in ranges:
+        cooccur.ppmi_colsum_(ctx, cnt, col, total)
+        cooccur.ppmi_colsum_plain(ctx, cnt, col_p, total_p)
+    torch.cuda.synchronize()
+    assert torch.equal(col, col_p) and torch.equal(total, total_p)
+    rel = err = 0.0
+    for cen, ctx, cnt, _ in ranges:
+        vals, indptr = cooccur.ppmi_values(cen, ctx, cnt, col, total, n)
+        want, want_indptr = cooccur.ppmi_values_plain(cen, ctx, cnt, col,
+                                                      total, n)
+        torch.cuda.synchronize()
+        assert torch.equal(indptr, want_indptr)
+        torch.testing.assert_close(vals, want, rtol=1e-6, atol=0.0)
+        err = max(err, max_err(vals, want))
+        big = want != 0
+        if bool(big.any()):
+            rel = max(rel, float(((vals[big] - want[big]).abs()
+                                  / want[big].abs()).max()))
+        assert torch.equal(vals[~big], want[~big])
+    log(f"{label}: K11 column sums and total bitwise, row pointers bitwise, "
+        f"values max |err| {err:.3e}, max relative err {rel:.3e} over "
+        f"{len(ranges)} ranges")
+    return col, total, err
+
+
+def ring_graph(n_nodes: int, n_und_edges: int, seed: int):
+    """A ring through every node plus uniformly drawn edges, as a
+    SparseMatrix: connected, so that no node sits in a small component.
+    A small component's rows of the PPMI matrix lie outside the top-k
+    singular subspace of the large one, so their factor rows are rounding
+    noise that the finalize scales to unit length, on any backend: no
+    comparison can hold them."""
+    import cleora_tpu_torch as ctt
+
+    rng = np.random.default_rng(seed)
+    m = n_und_edges - n_nodes
+    src = np.concatenate([np.arange(n_nodes), rng.integers(0, n_nodes, m)])
+    dst = np.concatenate([(np.arange(n_nodes) + 1) % n_nodes,
+                          rng.integers(0, n_nodes, m)])
+    return ctt.SparseMatrix.from_edge_arrays(src, dst)
+
+
+def walk_parity(dev: torch.device) -> None:
+    """The card against device="cpu" on a connected 20,000-node graph:
+    walks and counts bitwise, embeddings by their Gram matrix."""
+    import cleora_tpu_torch.algorithms as alg
+    from cleora_tpu_torch.ops import cooccur
+
+    g = ring_graph(PARITY_NODES, PARITY_EDGES, seed=3)
+    n = g.num_entities
+    cpu = torch.device("cpu")
+    walk_kernels_vs_plain(g, dev, WALK_PARITY_PASSES, "phase 7 parity size")
+
+    def walks(d):
+        return np.concatenate(list(alg._device_walks(
+            g, WALKS_PER_NODE, WALK_PARITY_LENGTH, 0, device=d)))
+
+    wa, wb = walks(dev), walks(cpu)
+    assert np.array_equal(wa, wb)
+
+    def counts(d):
+        return cooccur.device_pair_counts(
+            lambda: alg._device_walks(g, WALKS_PER_NODE, WALK_PARITY_LENGTH,
+                                      0, batch=alg._WALK_BATCH // 2,
+                                      resident=True, device=d),
+            n, WINDOW, passes=WALK_PARITY_PASSES, device=d)
+
+    (ra, ma), (rb, mb) = counts(dev), counts(cpu)
+    assert ma == mb and len(ra) == len(rb) == WALK_PARITY_PASSES
+    for x, y in zip(ra, rb):
+        assert x[3] == y[3] and all(torch.equal(p.cpu(), q)
+                                    for p, q in zip(x[:3], y[:3]))
+    log(f"phase 7 parity ({n} nodes, {wa.shape[0]} walks of "
+        f"{WALK_PARITY_LENGTH}): walks bitwise equal on the card and the "
+        f"CPU; {ma} unique pairs in {WALK_PARITY_PASSES} partitions, ranges "
+        "bitwise equal")
+    ppmi_vs_plain(ra, n, dev, "phase 7 parity size")
+    del ra, rb
+
+    rows = np.random.default_rng(0).choice(n, PARITY_SAMPLE, replace=False)
+    base = dict(feature_dim=WALK_PARITY_DIM, num_walks=WALKS_PER_NODE,
+                walk_length=WALK_PARITY_LENGTH, window_size=WINDOW,
+                backend="device")
+    for kw in (dict(cooccurrence="device"),
+               dict(cooccurrence="host", factorization="device"),
+               dict(cooccurrence="host", factorization="host")):
+        a = alg.embed_deepwalk(g, device=dev, **base, **kw)
+        b = alg.embed_deepwalk(g, device=cpu, **base, **kw)
+        err, scale = gram_err(a, b, rows)
+        log(f"parity embed_deepwalk({kw}) Gram ({PARITY_SAMPLE} rows): max "
+            f"|err| {err:.3e} of max |G| {scale:.3e}")
+        assert np.isfinite(a).all() and err <= 1e-3, err
+
+
+def walk_full_width(dev: torch.device, card: str) -> list:
+    """Phase 7 at full width: embed_deepwalk through its entry point on
+    scripts/deepwalk_e2e.py's corpus, its stages, K8-K11 at the main path's
+    shapes, and the planted-partition quality check."""
+    import cleora_tpu_torch.algorithms as alg
+    import cleora_tpu_torch.ops.cooccur as cooccur
+    import cleora_tpu_torch.ops.dense as dense
+    import cleora_tpu_torch.ops.walk as walk
+
+    t0 = time.perf_counter()
+    g = random_graph(WALK_NODES, WALK_UND_EDGES, seed=7)
+    ingest_s = time.perf_counter() - t0
+    n = g.num_entities
+    passes = alg._cooc_passes(g, WALKS_PER_NODE, WALK_LENGTH, WINDOW)
+    deg = alg._walk_csr(g)[2]
+    n_walks = int((deg > 0).sum()) * WALKS_PER_NODE
+    batch = alg._WALK_BATCH // 2
+    batches = -(-n_walks // batch)
+    power_iters = inspect.signature(
+        alg._device_counts_to_embeddings).parameters["power_iters"].default
+    applies = 2 + 2 * power_iters
+    log(f"phase 7, DeepWalk on {n} entities, {g.num_edges} nnz (ingest "
+        f"{ingest_s:.3f} s): {n_walks} walks of {WALK_LENGTH} in {batches} "
+        f"batches, window {WINDOW}, {passes} hash partitions, D={DIM}")
+
+    def deepwalk():
+        return alg.embed_deepwalk(
+            g, feature_dim=DIM, num_walks=WALKS_PER_NODE,
+            walk_length=WALK_LENGTH, window_size=WINDOW, backend="device",
+            cooccurrence="device")
+
+    expected = {"walk_uniform": batches, "pair_enum": batches,
+                "run_length": batches + (batches - 1) * passes,
+                "ppmi": passes, "spmm_csr": applies,
+                "spmm_axpy": applies * (passes - 1)}
+    launches = run_spectral("embed_deepwalk()", deepwalk, expected)
+    targets = ((walk, "walk_uniform"), (cooccur, "pair_keys"),
+               (torch, "sort"), (cooccur, "run_length"),
+               (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
+               (dense, "spmm"), (dense, "spmm_axpy"), (torch.linalg, "qr"),
+               (torch.linalg, "svd"), (alg, "_finalize_factor"))
+    staged_spectral("embed_deepwalk() stopwatch run", deepwalk, expected,
+                    *targets)
+    torch.cuda.empty_cache()
+
+    # ---- the counts alone: pairs, unique pairs, K11 at full size
+    def batches_fn():
+        return alg._device_walks(g, WALKS_PER_NODE, WALK_LENGTH, 0,
+                                 batch=batch, resident=True, device=dev)
+
+    t0 = time.perf_counter()
+    ranges, m_total = cooccur.device_pair_counts(batches_fn, n, WINDOW,
+                                                 passes=passes, device=dev)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    pairs = cooccur.pair_total(ranges, n)
+    log(f"  counting alone {count_s:.3f} s: {pairs} pairs -> {m_total} "
+        f"unique ({m_total / JAX_UNIQUE_PAIRS - 1:+.4%} against the JAX "
+        f"package's {JAX_UNIQUE_PAIRS} on this corpus shape); per partition "
+        + ", ".join(str(r[3]) for r in ranges))
+    assert abs(m_total / JAX_UNIQUE_PAIRS - 1) <= 0.01, m_total
+    col, total, k11_err = ppmi_vs_plain(ranges, n, dev, "phase 7 full size")
+    cen, ctx, cnt, m0 = ranges[0]
+    k11_ms = time_ms(lambda: cooccur.ppmi_values(cen, ctx, cnt, col, total,
+                                                 n))
+    k11_plain_ms = time_ms(lambda: cooccur.ppmi_values_plain(
+        cen, ctx, cnt, col, total, n), reps=3, warmup=1)
+    k11_bytes = 12 * m0 + 8 * n + 8 + 4 * m0 + 8 * (n + 1)
+    del ranges, cen, ctx, cnt, col, total
+    torch.cuda.empty_cache()
+
+    # ---- K8-K10 at the main path's batch, against plain, and timed
+    tables, args, walks, sorted_keys, runs = walk_kernels_vs_plain(
+        g, dev, passes, "phase 7 full size")
+    b = walks.shape[0]
+    k8_ms = time_ms(lambda: walk.walk_uniform(*args))
+    k8_plain_ms = time_ms(lambda: walk.walk_uniform_plain(*args), reps=3,
+                          warmup=1)
+    # each hop reads deg of its node and, when it moves, indptr and cols:
+    # one 32-byte sector per random read; walks written, starts read once
+    reads = int((walks[:, :-1] < n).sum())
+    moves = int((walks[:, 1:] < n).sum())
+    k8_bytes = 32 * (reads + 2 * moves) + 4 * b * WALK_LENGTH + 4 * b
+    k9_ms = time_ms(lambda: cooccur.pair_keys(walks, b, n, WINDOW, passes))
+    k9_plain_ms = time_ms(lambda: cooccur.pair_keys_plain(
+        walks, b, n, WINDOW, passes), reps=3, warmup=1)
+    lanes = sorted_keys.shape[0]
+    k9_bytes = 4 * b * WALK_LENGTH + 8 * lanes
+    keys = cooccur.pair_keys(walks, b, n, WINDOW, passes)
+    sort_ms = time_ms(lambda: torch.sort(keys), reps=5)
+    del keys
+    k10_ms = time_ms(lambda: cooccur.run_length(sorted_keys, None, n,
+                                                passes))
+    k10_plain_ms = time_ms(lambda: cooccur.run_length_plain(
+        sorted_keys, None, n, passes), reps=3, warmup=1)
+    k10_lib_ms = time_ms(lambda: torch.unique_consecutive(
+        sorted_keys, return_counts=True))
+    m = runs[0].shape[0]
+    k10_bytes = 8 * lanes + 12 * m + 4 * passes
+    log(f"K8 ({b} walks of {WALK_LENGTH}) {k8_ms:.3f} ms (plain "
+        f"{k8_plain_ms:.3f}); K9 ({lanes} keys) {k9_ms:.3f} ms (plain "
+        f"{k9_plain_ms:.3f}); torch.sort of the keys {sort_ms:.3f} ms; K10 "
+        f"({m} runs) {k10_ms:.3f} ms (plain {k10_plain_ms:.3f}, "
+        f"torch.unique_consecutive {k10_lib_ms:.3f}); K11 (range 0, {m0} "
+        f"entries) {k11_ms:.3f} ms (plain {k11_plain_ms:.3f}); [{card}]")
+    del tables, walks, sorted_keys, runs
+    torch.cuda.empty_cache()
+
+    # ---- quality: the planted partition of scripts/walk_quality_probe.py
+    t0 = time.perf_counter()
+    import cleora_tpu_torch as ctt
+
+    src, dst, comm = planted_edges(QUALITY_NODES, QUALITY_COMMUNITIES,
+                                   QUALITY_DEG_IN, QUALITY_DEG_OUT,
+                                   np.random.default_rng(3))
+    gq = ctt.SparseMatrix.from_edge_arrays(src, dst)
+    labels = comm[np.array([int(e) for e in gq.entity_ids])]
+    emb = alg.embed_deepwalk(gq, QUALITY_DIM, num_walks=WALKS_PER_NODE,
+                             walk_length=QUALITY_WALK_LENGTH,
+                             backend="device", cooccurrence="device")
+    acc = centroid_accuracy(emb, labels, np.random.default_rng(1))
+    log(f"quality: planted partition, {gq.num_entities} nodes, "
+        f"{QUALITY_COMMUNITIES} communities, D={QUALITY_DIM}: centroid "
+        f"accuracy {acc:.4f} ({time.perf_counter() - t0:.3f} s with ingest)")
+    assert acc >= 0.99, acc
+
+    src = "cleora_tpu_torch/kernels/"
+    return [
+        kernel_row("walk_uniform", src + "walk_uniform.cu",
+                   "cleora_tpu/algorithms.py:1122", k8_ms, k8_plain_ms, None,
+                   0.0, k8_bytes, 0, launches["walk_uniform"]),
+        kernel_row("pair_enum", src + "pair_enum.cu",
+                   "cleora_tpu/ops/cooccur.py:196", k9_ms, k9_plain_ms, None,
+                   0.0, k9_bytes, 0, launches["pair_enum"]),
+        kernel_row("run_length", src + "run_length.cu",
+                   "cleora_tpu/ops/cooccur.py:46", k10_ms, k10_plain_ms,
+                   k10_lib_ms, 0.0, k10_bytes, 0, launches["run_length"]),
+        kernel_row("ppmi", src + "ppmi.cu", "cleora_tpu/ops/cooccur.py:939",
+                   k11_ms, k11_plain_ms, None, k11_err, k11_bytes, 0,
+                   launches["ppmi"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1195,8 +1599,11 @@ def main() -> int:
     build_kernels()
     check_kernels(dev)
     slice_parity(dev)
+    walk_parity(dev)
     rows, graph = full_width(dev, card)
     rows += spectral_full_width(dev, card, graph)
+    del graph
+    rows += walk_full_width(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

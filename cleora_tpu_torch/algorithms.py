@@ -29,21 +29,32 @@ dense n×n matrix by construction: the dense transition matrix is kernel K6
 gated by a device-memory fit check (six (n, n) float32 buffers against 90 %
 of the card's free memory); past the gate, or with ``block_rows=``, a
 blocked path materializes one row block of the log matrix at a time.
-The walk-based siblings (DeepWalk, Node2Vec) are not ported yet.
+
+The walk-based siblings (cleora_tpu/algorithms.py:1122-3024): DeepWalk
+and Node2Vec with ``p == q == 1`` run on the card as walks (kernel K8,
+``kernels/walk_uniform.cu``), co-occurrence counts on the host or on the
+card (kernels K9 ``pair_enum.cu`` and K10 ``run_length.cu`` around
+``torch.sort``, ``ops/cooccur.py``), the PPMI transform (K11
+``ppmi.cu``) and a randomized SVD whose products are K1 and K5.  Node2Vec
+with ``p != 1`` or ``q != 1`` on the card needs the second-order walk
+kernel of the next slice; its ``backend="host"`` takes any p, q.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ._util import full_float32_matmul, resolve_device
+from .native import sort_u64
 from .ops import memory
-from .ops.dense import dense_markov, log_clip, rsvd_u_sqrt
+from .ops.cooccur import CountCheckpoint, device_pair_counts, ppmi_csrs
+from .ops.dense import dense_markov, log_clip, rsvd_sparse, rsvd_u_sqrt
 from .ops.spmm import CsrMatrix, spmm, spmm_axpy
+from .ops.walk import WALK_BATCH, WalkTables, device_walks
 
 _SHARDED_NOT_PORTED = (
     "mesh=/n_devices= (the sharded device backends) are not ported yet: "
@@ -830,3 +841,716 @@ def embed_grarep(
 
     emb = _finalize(np.concatenate(embs, axis=1), feature_dim)
     return _write_npy(emb, out) if out is not None else emb
+
+
+# ------------------------------------------------------ device walk pipeline
+_WALK_BATCH = WALK_BATCH
+# the port's walks (Philox, ops/walk.py) are not the JAX package's
+# (jax.random), so its checkpoints carry their own engine tag and a port run
+# never resumes from counts the JAX package wrote
+_WALK_ENGINE = "walk1-philox"
+_WALK2_NOT_PORTED = (
+    "embed_node2vec(backend='device') with p != 1 or q != 1 needs the "
+    "second-order (p/q) walk kernel, the next slice of the port (ROADMAP.md, "
+    "queue B item 11); p == q == 1 runs the first-order engine on the "
+    "device, and backend='host' takes any p, q"
+)
+_SHARDED_WALKS_NOT_PORTED = (
+    "walk_tables='sharded' and factorization='sharded' are not ported yet: "
+    "they are the multi-GPU slice of the port (ROADMAP.md, queue A item 8)"
+)
+
+
+def _walk_csr(graph, with_vals: bool = False):
+    """Self-loop-free CSR on host (reference drops r==c, algorithms.py:248-259),
+    cached per graph: ``(indptr[:-1] int32, cols int32, deg int32, n)``
+    (cleora_tpu/algorithms.py:1165-1186).  ``with_vals`` additionally
+    returns the edge weights, the per-row max and the per-row sum."""
+    cache = getattr(graph, "_device_cache", None)
+    key = ("walk_csr", with_vals)
+    if cache is not None and key in cache:
+        return cache[key]
+    out = _walk_csr_build(graph, with_vals)
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
+def _walk_csr_build(graph, with_vals: bool):
+    if not hasattr(graph, "to_sparse_csr"):
+        raise NotImplementedError(
+            "DiskGraph input is not ported yet (ROADMAP.md, queue A item 7): "
+            "materialize with graph.to_sparse_matrix() first"
+        )
+    rows, cols, vals, n, _ = graph.to_sparse_csr()
+    keep = rows != cols
+    rows = rows[keep].astype(np.int64)
+    cols = cols[keep].astype(np.int32)
+    deg = np.bincount(rows, minlength=n).astype(np.int32)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    if int(indptr[-1]) >= 2**31:
+        # the walk kernel gathers with int32 edge offsets
+        raise ValueError(
+            f"graph has {int(indptr[-1])} self-loop-free edges; the device "
+            "walk engines support < 2**31 — use backend='host' or shard the "
+            "walk workload by subgraph"
+        )
+    ip32 = indptr[:-1].astype(np.int32)
+    if not with_vals:
+        return ip32, cols, deg, n
+    v = vals[keep].astype(np.float32)
+    wmax = np.zeros(n, dtype=np.float32)
+    np.maximum.at(wmax, rows, v)
+    wsum = np.zeros(n, dtype=np.float64)
+    np.add.at(wsum, rows, v.astype(np.float64))
+    return ip32, cols, deg, n, v, wmax, wsum.astype(np.float32)
+
+
+def _walk_table_mode(mode: str, n: int, nnz: int, device) -> None:
+    """The walk-table placement on one card (cleora_tpu/algorithms.py:
+    1483-1528): the CSR is replicated on the card, fit-checked against its
+    free memory; 'sharded' is the multi-GPU slice."""
+    if mode not in ("auto", "replicated", "sharded"):
+        raise ValueError(
+            f"Unknown walk_tables '{mode}'. Use 'auto', 'replicated' or "
+            "'sharded'."
+        )
+    if mode == "sharded":
+        raise NotImplementedError(_SHARDED_WALKS_NOT_PORTED)
+    if mode != "auto":
+        return
+    limit = memory.device_memory_limit(device)
+    if limit is None:
+        return
+    # cols + indptr + deg + ~3 batch-sized (B, L) buffers
+    table = n * 8 + nnz * 4
+    batch = 3 * _WALK_BATCH * 4 * 80
+    if table + batch > int(limit * 0.9):
+        raise ValueError(
+            f"walk tables need ~{table / (1 << 30):.1f} GiB (replicated "
+            f"exceeds the ~{limit / (1 << 30):.1f} GiB device budget) — use "
+            "more devices (mesh=), or backend='host' for host-RAM walks"
+        )
+
+
+def _device_walks(graph, num_walks: int, walk_length: int, seed: int,
+                  batch: int = _WALK_BATCH, resident: bool = False,
+                  walk_tables: str = "auto", device=None):
+    """Yield (B, walk_length) int32 host walk batches (sentinel == n), or
+    ``(walks, pad)`` left on the device with ``resident=True``
+    (cleora_tpu/algorithms.py:1318-1373, single device): one walk from each
+    node of degree > 0 per round, ``num_walks`` rounds, by kernel K8."""
+    dev = resolve_device(device)
+    indptr, cols, deg, n = _walk_csr(graph)
+    _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev)
+    starts = np.nonzero(deg > 0)[0].astype(np.int32)
+    if starts.shape[0] == 0:
+        return
+    cache = getattr(graph, "_device_cache", None)
+    key = ("walk_tables", dev)
+    tables = cache.get(key) if cache is not None else None
+    if tables is None:
+        tables = WalkTables(indptr, cols, deg, n, dev)
+        if cache is not None:
+            cache[key] = tables
+    yield from device_walks(tables, starts, num_walks, walk_length, seed,
+                            batch=batch, resident=resident)
+
+
+def _unique_counts_u64(keys: np.ndarray):
+    """Unique keys + occurrence counts via the native parallel radix sort
+    (cleora_tpu/algorithms.py:2066-2080)."""
+    if keys.size == 0:
+        return keys, np.empty(0, dtype=np.int64)
+    keys = sort_u64(keys)
+    boundaries = np.concatenate([[True], keys[1:] != keys[:-1]])
+    starts = np.nonzero(boundaries)[0]
+    counts = np.diff(np.append(starts, keys.size))
+    return keys[starts].copy(), counts
+
+
+def _merge_counts(keys_parts, counts_parts):
+    """Sort-reduce (keys, counts) fragments into unique keys + summed
+    counts (fragments are each sorted — numpy's stable mergesort exploits
+    the runs)."""
+    keys = np.concatenate(keys_parts)
+    counts = np.concatenate(counts_parts)
+    order = np.argsort(keys, kind="stable")
+    keys, counts = keys[order], counts[order]
+    boundaries = np.concatenate([[True], keys[1:] != keys[:-1]])
+    starts = np.nonzero(boundaries)[0]
+    return keys[starts], np.add.reduceat(counts, starts)
+
+
+def _walk_pair_counts(walk_batches, n: int, window: int):
+    """Sparse symmetric windowed co-occurrence over host walk batches, as
+    (keys = center·n + context, counts), counted on the host in int64
+    (cleora_tpu/algorithms.py:2096-2135)."""
+    acc_keys = [np.empty(0, dtype=np.uint64)]
+    acc_counts = [np.empty(0, dtype=np.int64)]
+    for walks in walk_batches:
+        parts = []
+        for off in range(1, window + 1):
+            if off >= walks.shape[1]:
+                break
+            a = walks[:, :-off].ravel()
+            b = walks[:, off:].ravel()
+            m = (a < n) & (b < n)
+            a = a[m].astype(np.uint64)
+            b = b[m].astype(np.uint64)
+            parts.append(a * np.uint64(n) + b)
+            parts.append(b * np.uint64(n) + a)
+        if not parts:
+            continue
+        batch_keys = np.concatenate(parts)
+        parts.clear()
+        u, c = _unique_counts_u64(batch_keys)
+        del batch_keys
+        acc_keys.append(u)
+        acc_counts.append(c)
+        if len(acc_keys) > 16:  # bound the fragment list
+            k, c = _merge_counts(acc_keys, acc_counts)
+            acc_keys, acc_counts = [k], [c]
+    keys, counts = _merge_counts(acc_keys, acc_counts)
+    return keys.astype(np.int64), counts
+
+
+def _column_signs(u: torch.Tensor) -> torch.Tensor:
+    """±1 per column: the sign of the column's largest-|u| entry, the first
+    such row on ties (``argmax`` picks the first maximum on the CPU and the
+    card, as numpy does); 0 counts as +1."""
+    pick = torch.argmax(torch.abs(u), dim=0)
+    sign = torch.sign(u[pick, torch.arange(u.shape[1], device=u.device)])
+    return torch.where(sign == 0, torch.ones_like(sign), sign)
+
+
+# rows of the (n, k) factor fetched and finalized at a time by out=
+_FINALIZE_ROWS = 1 << 18
+
+
+def _finalize_factor(u_su: torch.Tensor, feature_dim: int, out):
+    """The rsvd exit (cleora_tpu/algorithms.py:2229-2280): column signs
+    canonicalized on the device, then ``_finalize`` on the host in float64,
+    either whole or streamed into ``out`` (.npy) in row chunks, so the host
+    never holds more than one chunk.  Returns the array or the read-only
+    memmap."""
+    sign = _fetch_f64(_column_signs(u_su))
+    if out is None:
+        return _finalize(_fetch_f64(u_su) * sign, feature_dim)
+    n = int(u_su.shape[0])
+    tmp = out + ".tmp"
+    mm = np.lib.format.open_memmap(
+        tmp, mode="w+", dtype=np.float32, shape=(n, feature_dim))
+    for lo in range(0, n, _FINALIZE_ROWS):
+        block = _fetch_f64(u_su[lo:lo + _FINALIZE_ROWS]) * sign
+        mm[lo:lo + block.shape[0]] = _finalize(block, feature_dim)
+    mm.flush()
+    del mm
+    os.replace(tmp, out)
+    return np.load(out, mmap_mode="r")
+
+
+def _rsvd_flat(pieces: List[CsrMatrix], n: int, k: int, omega: torch.Tensor,
+               power_iters: int, feature_dim: int, out=None):
+    """The unfused randomized SVD of the PPMI matrix given as row-disjoint
+    CSR pieces (cleora_tpu/algorithms.py:2190-2226), then the sign rule and
+    ``_finalize``."""
+    u_su = rsvd_sparse(pieces, k, omega, power_iters)
+    del omega, pieces
+    return _finalize_factor(u_su, feature_dim, out)
+
+
+def _pipeline_fit(n: int, r: int, nnz: int, device, hint: str) -> None:
+    """The PPMI factorization's device-memory check, with the walk
+    pipeline's hint appended to the message."""
+    try:
+        memory.check_device_fit(n, max(1, (3 * r) // 2), nnz, device=device)
+    except ValueError as e:
+        raise ValueError(
+            f"{e} For the walk pipeline specifically: {hint}") from None
+
+
+def _counts_to_embeddings(keys, counts, n: int, feature_dim: int,
+                          factorization: str = "host", seed: int = 0,
+                          oversample: int = 16, power_iters: int = 4,
+                          device=None):
+    """Sparse positive-PMI factorization of host counts
+    (cleora_tpu/algorithms.py:2310-2413): the PMI in float64 on the host,
+    then ARPACK ``svds`` (``factorization="host"``) or the randomized SVD
+    on the device over the float32 PPMI matrix as one CSR in original row
+    order (kernel K1) and an omega drawn from ``default_rng(seed)``, as
+    the JAX package draws it."""
+    if keys.shape[0] == 0:
+        return _finalize(np.zeros((n, 1), dtype=np.float64), feature_dim)
+    rows = keys // n
+    cols = keys % n
+    counts = counts.astype(np.float64)
+    total = counts.sum()
+    row_sums = np.zeros(n)
+    col_sums = np.zeros(n)
+    np.add.at(row_sums, rows, counts)
+    np.add.at(col_sums, cols, counts)
+    rs = np.maximum(row_sums, 1e-10)
+    cs = np.maximum(col_sums, 1e-10)
+    pmi = np.log(
+        np.maximum(counts * total / (rs[rows] * cs[cols]), 1e-15)
+    )
+    keep = pmi > 0
+    k = min(feature_dim, n - 1)
+    if k < 1 or not bool(keep.any()):
+        return _finalize(np.zeros((n, 1), dtype=np.float64), feature_dim)
+
+    if factorization == "device":
+        dev = resolve_device(device)
+        krows = rows[keep].astype(np.int64)
+        kcols = cols[keep].astype(np.int64)
+        kvals = pmi[keep].astype(np.float32)
+        order = np.argsort(krows, kind="stable")
+        r = min(n, k + oversample)
+        _pipeline_fit(n, r, krows.shape[0], dev,
+                      "fewer walks, a smaller window, or "
+                      "factorization='host' (ARPACK) all shrink or avoid the "
+                      "device PPMI factorization.")
+        csr = CsrMatrix.from_coo(krows[order], kcols[order], kvals[order], n,
+                                 dev)
+        rng = np.random.default_rng(seed)
+        omega = torch.from_numpy(
+            rng.standard_normal((n, r)).astype(np.float32)).to(dev)
+        return _rsvd_flat([csr], n, k, omega, power_iters, feature_dim)
+    if factorization != "host":
+        raise ValueError(
+            f"Unknown factorization '{factorization}'. Use 'host' or "
+            "'device'."
+        )
+
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.linalg import svds
+
+    M = coo_matrix(
+        (pmi[keep], (rows[keep], cols[keep])), shape=(n, n)
+    ).tocsr()
+    if M.nnz == 0:
+        return _finalize(np.zeros((n, 1), dtype=np.float64), feature_dim)
+    u, s, _ = svds(M, k=k)
+    order = np.argsort(-s)
+    u = u[:, order]
+    # canonical column signs (ARPACK's are run-dependent): largest-|u| entry
+    # positive per column, ties broken by the first such row
+    pick = np.argmax(np.abs(u), axis=0)
+    sign = np.sign(u[pick, np.arange(u.shape[1])])
+    sign[sign == 0] = 1.0
+    emb = (u * sign) * np.sqrt(np.maximum(s[order], 0))
+    return _finalize(emb, feature_dim)
+
+
+def _validate_cooccurrence(cooccurrence: str, backend: str,
+                           factorization) -> str:
+    """Validate the walk-pipeline mode combination; resolve the
+    factorization default (None → 'host'; 'device' under device counting)
+    (cleora_tpu/algorithms.py:2416-2449)."""
+    if cooccurrence not in ("host", "device"):
+        raise ValueError(
+            f"Unknown cooccurrence '{cooccurrence}'. Use 'host' or 'device'."
+        )
+    if factorization not in (None, "host", "device", "sharded"):
+        raise ValueError(
+            f"Unknown factorization '{factorization}'. Use 'host', "
+            "'device' or 'sharded'."
+        )
+    if cooccurrence == "device":
+        if backend != "device":
+            raise ValueError(
+                "cooccurrence='device' requires backend='device'")
+        if factorization == "host":
+            raise ValueError(
+                "cooccurrence='device' runs the PPMI factorization on "
+                "device; omit factorization or pass 'device'/'sharded'"
+            )
+        return factorization or "device"
+    if factorization == "sharded":
+        raise ValueError(
+            "factorization='sharded' requires cooccurrence='device' (it "
+            "factorizes the device-resident count ranges in place)"
+        )
+    return factorization or "host"
+
+
+def _walk_fingerprint(graph, with_vals: bool, params: dict) -> str:
+    """Content fingerprint of a walk-pipeline run: every byte of the walk
+    CSR plus the walk and counting parameters
+    (cleora_tpu/algorithms.py:2452-2471)."""
+    import hashlib
+    import json
+
+    h = hashlib.blake2b(digest_size=16)
+    arrs = _walk_csr(graph, with_vals=with_vals)
+    indptr, cols = arrs[0], arrs[1]
+    h.update(np.ascontiguousarray(indptr).data)
+    h.update(np.ascontiguousarray(cols).data)
+    if with_vals:
+        h.update(np.ascontiguousarray(arrs[4]).data)
+    h.update(json.dumps(params, sort_keys=True, default=str).encode())
+    return h.hexdigest()
+
+
+def _validate_lifecycle(graph, backend: str, cooccurrence: str,
+                        checkpoint_dir) -> None:
+    """Lifecycle-argument validation for the walk pipeline
+    (cleora_tpu/algorithms.py:2490-2506)."""
+    if checkpoint_dir is not None and cooccurrence != "device":
+        raise ValueError(
+            "checkpoint_dir requires cooccurrence='device' (the counting "
+            "checkpoint is per device counting pass)"
+        )
+    if backend != "device" and not hasattr(graph, "to_sparse_csr"):
+        raise ValueError(
+            "DiskGraph input requires backend='device' (or materialize "
+            "with graph.to_sparse_matrix() for the host walker)"
+        )
+
+
+# a counting pass's sort-merge working set stays well under device memory
+# when the pass sees at most this many (pre-dedup) pairs; the JAX package's
+# budget, so that both packages partition a corpus alike
+_COOC_PASS_PAIRS = 200_000_000
+
+
+def _cooc_passes(graph, num_walks: int, walk_length: int,
+                 window_size: int) -> int:
+    """Hash partitions for :func:`ops.cooccur.device_pair_counts`, from the
+    worst-case (all-unique) pair count of the walk corpus
+    (cleora_tpu/algorithms.py:2523-2534)."""
+    deg = _walk_csr(graph)[2]
+    starts = int((deg > 0).sum()) * num_walks
+    w = min(window_size, walk_length - 1)
+    per_walk = 2 * (w * walk_length - w * (w + 1) // 2)
+    return max(1, -(-starts * per_walk // _COOC_PASS_PAIRS))
+
+
+def _walks_ppmi_device(graph, feature_dim, window_size, seed, batches_fn,
+                       passes=1, oversample=16, power_iters=4,
+                       checkpoint_dir=None, checkpoint_every=1, out=None,
+                       fp_params=None, factorization="device", device=None):
+    """Walks → co-occurrence → PPMI → randomized SVD, all on the device
+    (cleora_tpu/algorithms.py:2537-2621, single device).  ``batches_fn()``
+    returns a fresh iterable of resident ``(walks, pad)`` batches.
+
+    ``checkpoint_dir`` makes the counting durable per hash partition
+    (:class:`ops.cooccur.CountCheckpoint`, keyed by a full-content
+    fingerprint of the walk CSR and the parameters); a killed run resumes
+    from the counted partitions and a finished run returns its memmap.
+    ``out`` streams the final embedding into one ``.npy`` (defaults to
+    ``<checkpoint_dir>/embedding.npy`` when checkpointing)."""
+    dev = resolve_device(device)
+    checkpoint = None
+    fact_params = dict(feature_dim=feature_dim, oversample=oversample,
+                       power_iters=power_iters,
+                       factorization=factorization)
+    if checkpoint_dir is not None:
+        fp = _walk_fingerprint(
+            graph,
+            bool(fp_params and fp_params.get("engine") == "walk2"),
+            dict(fp_params or {}, window=window_size, passes=passes,
+                 n=graph.num_entities, seed=seed),
+        )
+        checkpoint = CountCheckpoint(checkpoint_dir, fp,
+                                     every=checkpoint_every)
+        if out is None:
+            out = os.path.join(checkpoint_dir, "embedding.npy")
+        done = checkpoint.done_result(feature_dim, fact_params)
+        if done is not None:
+            return done
+
+    n = graph.num_entities
+    ranges, m_total = device_pair_counts(batches_fn, n, window_size,
+                                         passes=passes,
+                                         checkpoint=checkpoint, device=dev)
+    emb = _factorize_ranges(ranges, m_total, n, feature_dim, seed,
+                            oversample=oversample, power_iters=power_iters,
+                            out=out, factorization=factorization, device=dev)
+    if checkpoint is not None:
+        checkpoint.mark_done(out, emb.shape, fact_params)
+    return emb
+
+
+def _factorize_ranges(ranges, m_total, n, feature_dim, seed,
+                      oversample=16, power_iters=4, out=None,
+                      factorization="device", device=None):
+    """Factorization of counted ranges on one card
+    (cleora_tpu/algorithms.py:2624-2665); the mesh-sharded factorization
+    is the multi-GPU slice."""
+    if factorization == "sharded":
+        raise NotImplementedError(_SHARDED_WALKS_NOT_PORTED)
+    return _device_counts_to_embeddings(ranges, m_total, n, feature_dim,
+                                        seed, oversample=oversample,
+                                        power_iters=power_iters, out=out,
+                                        device=device)
+
+
+def _device_counts_to_embeddings(ranges, m_total, n, feature_dim, seed,
+                                 oversample=16, power_iters=4, out=None,
+                                 device=None):
+    """PPMI + randomized SVD over device-resident count ranges
+    (cleora_tpu/algorithms.py:2668-2737).  Each range becomes one CSR of
+    the PPMI matrix in original row order (kernel K11), and each product of
+    the rsvd is K1 on the first range plus K5 with ``acc`` on the others:
+    the ranges are row-disjoint, so the sum is exact.  The sketch omega is
+    drawn on the host from ``default_rng(seed ^ 0x5EED)`` in float32, so the
+    card and ``device="cpu"`` factor the same sketch.  Consumes ``ranges``.
+    ``out`` streams the result into a ``.npy``."""
+    dev = resolve_device(device)
+    k = min(feature_dim, n - 1)
+    if m_total == 0 or k < 1:
+        empty = _finalize(np.zeros((n, 1), dtype=np.float64), feature_dim)
+        return _write_npy(empty, out) if out is not None else empty
+    r = min(n, k + oversample)
+    slots = sum(int(c.shape[0]) for c, _, _, _ in ranges)
+    _pipeline_fit(n, r, slots, dev,
+                  "fewer walks, a smaller window, or cooccurrence='host' "
+                  "with factorization='host' all shrink the device "
+                  "footprint.")
+    pieces = ppmi_csrs(ranges, n)
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    omega = torch.from_numpy(
+        rng.standard_normal((n, r)).astype(np.float32)).to(dev)
+    return _rsvd_flat(pieces, n, k, omega, power_iters, feature_dim, out=out)
+
+
+def _deepwalk_device(graph, feature_dim, num_walks, walk_length, window_size,
+                     seed, factorization="host", mesh=None, n_devices=None,
+                     cooccurrence="host", checkpoint_dir=None,
+                     checkpoint_every=1, out=None, walk_tables="auto",
+                     device=None):
+    _check_not_sharded(mesh, n_devices)
+    dev = resolve_device(device)
+    if cooccurrence == "device":
+        # half-size batches: the counting sort shares the card with the
+        # finished ranges
+        return _walks_ppmi_device(
+            graph, feature_dim, window_size, seed,
+            lambda: _device_walks(graph, num_walks, walk_length, seed,
+                                  batch=_WALK_BATCH // 2, resident=True,
+                                  walk_tables=walk_tables, device=dev),
+            passes=_cooc_passes(graph, num_walks, walk_length, window_size),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, out=out,
+            fp_params=dict(engine=_WALK_ENGINE, num_walks=num_walks,
+                           walk_length=walk_length),
+            factorization=factorization, device=dev,
+        )
+    batches = _device_walks(graph, num_walks, walk_length, seed,
+                            walk_tables=walk_tables, device=dev)
+    keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
+    emb = _counts_to_embeddings(keys, counts, graph.num_entities,
+                                feature_dim, factorization=factorization,
+                                seed=seed, device=dev)
+    return _write_npy(emb, out) if out is not None else emb
+
+
+# -------------------------------------------------------------- random walks
+def _build_adj_list(graph):
+    """Out-neighbor lists + weights, self-loops dropped
+    (reference algorithms.py:248-259)."""
+    rows, cols, vals, n, _ = graph.to_sparse_csr()
+    adj = [[] for _ in range(n)]
+    weights = [[] for _ in range(n)]
+    for r, c, v in zip(rows, cols, vals):
+        if r != c:
+            adj[r].append(int(c))
+            weights[r].append(float(v))
+    return adj, weights, n
+
+
+def _random_walks(adj, weights, n, num_walks, walk_length, p, q, seed):
+    """p/q-biased second-order walks; identical RNG stream to the reference
+    (algorithms.py:262-312): uniform first step, alpha-reweighted after."""
+    rng = np.random.default_rng(seed)
+    walks = []
+    uniform = p == 1.0 and q == 1.0
+    for _ in range(num_walks):
+        for start in range(n):
+            if not adj[start]:
+                continue
+            walk = [start]
+            prev, curr = -1, start
+            for _ in range(walk_length - 1):
+                neighbors = adj[curr]
+                if not neighbors:
+                    break
+                if prev == -1 or uniform:
+                    nxt = neighbors[rng.integers(len(neighbors))]
+                else:
+                    w = np.array(weights[curr], dtype=np.float64)
+                    alpha = np.ones(len(neighbors), dtype=np.float64)
+                    prev_nb = set(adj[prev]) if adj[prev] else set()
+                    for j, nb in enumerate(neighbors):
+                        if nb == prev:
+                            alpha[j] = 1.0 / p
+                        elif nb not in prev_nb:
+                            alpha[j] = 1.0 / q
+                    probs = w * alpha
+                    total = probs.sum()
+                    if total < 1e-15:
+                        break
+                    nxt = neighbors[rng.choice(len(neighbors), p=probs / total)]
+                walk.append(nxt)
+                prev, curr = curr, nxt
+            walks.append(walk)
+    return walks
+
+
+def _walks_to_embeddings(walks, n, feature_dim, window_size):
+    """Windowed co-occurrence → positive PMI → SVD
+    (reference algorithms.py:315-349)."""
+    cooccur = np.zeros((n, n), dtype=np.float64)
+    for walk in walks:
+        arr = np.asarray(walk)
+        L = len(arr)
+        for offset in range(1, min(window_size, L - 1) + 1):
+            np.add.at(cooccur, (arr[:-offset], arr[offset:]), 1.0)
+            np.add.at(cooccur, (arr[offset:], arr[:-offset]), 1.0)
+
+    row_sums = np.maximum(cooccur.sum(axis=1, keepdims=True), 1e-10)
+    col_sums = np.maximum(cooccur.sum(axis=0, keepdims=True), 1e-10)
+    total = cooccur.sum()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pmi = np.log(np.maximum(cooccur * total / (row_sums * col_sums), 1e-15))
+    pmi = np.maximum(pmi, 0.0)
+    return _finalize(_svd_sqrt(pmi, min(feature_dim, pmi.shape[1])), feature_dim)
+
+
+def embed_deepwalk(
+    graph,
+    feature_dim: int = 256,
+    num_walks: int = 10,
+    walk_length: int = 80,
+    window_size: int = 5,
+    seed: int = 0,
+    backend: str = "host",
+    factorization: Optional[str] = None,
+    mesh=None,
+    n_devices: Optional[int] = None,
+    cooccurrence: str = "host",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    out: Optional[str] = None,
+    walk_tables: str = "auto",
+    device=None,
+) -> np.ndarray:
+    """DeepWalk = uniform walks + PMI + SVD (reference algorithms.py:352-361).
+
+    ``backend="host"`` (the default, as in the JAX signature) is the
+    reference's Python walker and dense float64 PMI/SVD, copied word for
+    word; it touches no device.  ``backend="device"`` generates the walks on
+    ``device`` (kernel K8, one thread per walk, Philox uniforms) and
+    factorizes a SPARSE positive-PMI matrix: with ``cooccurrence="host"``
+    the pairs are counted on the host (native radix sort) and
+    ``factorization`` picks ARPACK on the host (default) or the randomized
+    SVD on the device; ``cooccurrence="device"`` keeps everything on the
+    device — pair keys (K9), ``torch.sort``, run-length counts (K10), the
+    PPMI (K11) and the randomized SVD (K1/K5 products, torch QR/SVD) —
+    with integer-exact counts.  Same semantics as the JAX package, another
+    walk stream (Philox, not jax.random).
+
+    ``checkpoint_dir=`` (device counting) makes the counting durable per
+    hash partition and resumes a killed run; ``out="path.npy"`` streams the
+    final embedding to disk and returns a read-only memmap.
+    ``walk_tables`` 'auto'/'replicated' keep the walk CSR on the card;
+    'sharded', ``factorization='sharded'`` and ``mesh=``/``n_devices=`` are
+    the multi-GPU slice and raise NotImplementedError."""
+    factorization = _validate_cooccurrence(cooccurrence, backend,
+                                           factorization)
+    _validate_lifecycle(graph, backend, cooccurrence, checkpoint_dir)
+    if backend == "device":
+        return _deepwalk_device(
+            graph, feature_dim, num_walks, walk_length, window_size, seed,
+            factorization=factorization, mesh=mesh, n_devices=n_devices,
+            cooccurrence=cooccurrence, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, out=out,
+            walk_tables=walk_tables, device=device,
+        )
+    if factorization == "device":
+        raise ValueError("factorization='device' requires backend='device'")
+    adj, weights, n = _build_adj_list(graph)
+    walks = _random_walks(adj, weights, n, num_walks, walk_length, 1.0, 1.0, seed)
+    emb = _walks_to_embeddings(walks, n, feature_dim, window_size)
+    return _write_npy(emb, out) if out is not None else emb
+
+
+def embed_node2vec(
+    graph,
+    feature_dim: int = 256,
+    num_walks: int = 10,
+    walk_length: int = 80,
+    window_size: int = 5,
+    p: float = 1.0,
+    q: float = 1.0,
+    seed: int = 0,
+    backend: str = "host",
+    factorization: Optional[str] = None,
+    mesh=None,
+    n_devices: Optional[int] = None,
+    cooccurrence: str = "host",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    out: Optional[str] = None,
+    walk_tables: str = "auto",
+    device=None,
+) -> np.ndarray:
+    """Node2Vec = p/q-biased walks + PMI + SVD (reference algorithms.py:364-369).
+
+    ``backend="host"`` is the reference's walker for any p, q.
+    ``backend="device"`` with ``p == q == 1`` (the reference default) is
+    exactly :func:`embed_deepwalk`'s device pipeline; ``p != 1`` or
+    ``q != 1`` needs the second-order walk kernel, the next slice of the
+    port, and raises NotImplementedError."""
+    if p <= 0.0 or q <= 0.0:
+        raise ValueError("p and q must be positive")
+    factorization = _validate_cooccurrence(cooccurrence, backend,
+                                           factorization)
+    _validate_lifecycle(graph, backend, cooccurrence, checkpoint_dir)
+    if backend == "device":
+        if p != 1.0 or q != 1.0:
+            raise NotImplementedError(_WALK2_NOT_PORTED)
+        return _deepwalk_device(
+            graph, feature_dim, num_walks, walk_length, window_size,
+            seed, factorization=factorization, mesh=mesh,
+            n_devices=n_devices, cooccurrence=cooccurrence,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, out=out,
+            walk_tables=walk_tables, device=device,
+        )
+    if factorization == "device":
+        raise ValueError("factorization='device' requires backend='device'")
+    adj, weights, n = _build_adj_list(graph)
+    walks = _random_walks(adj, weights, n, num_walks, walk_length, p, q, seed)
+    emb = _walks_to_embeddings(walks, n, feature_dim, window_size)
+    return _write_npy(emb, out) if out is not None else emb
+
+
+def list_algorithms() -> List[Dict]:
+    """Registry (reference algorithms.py:372-389)."""
+    return [
+        {"name": "prone", "function": "embed_prone",
+         "description": "ProNE: Spectral propagation with Chebyshev polynomials. "
+                        "Fast and high quality."},
+        {"name": "randne", "function": "embed_randne",
+         "description": "RandNE: Random projection embedding. Extremely fast, "
+                        "good for very large graphs."},
+        {"name": "hope", "function": "embed_hope",
+         "description": "HOPE: High-Order Proximity Embedding. Asymmetric, good "
+                        "for directed graphs."},
+        {"name": "netmf", "function": "embed_netmf",
+         "description": "NetMF: Network Matrix Factorization. Theoretical "
+                        "generalization of DeepWalk."},
+        {"name": "grarep", "function": "embed_grarep",
+         "description": "GraRep: Multi-scale matrix factorization with k-step "
+                        "transitions."},
+        {"name": "deepwalk", "function": "embed_deepwalk",
+         "description": "DeepWalk: Random walk + SVD. The original graph "
+                        "embedding algorithm."},
+        {"name": "node2vec", "function": "embed_node2vec",
+         "description": "Node2Vec: Biased random walk with p,q parameters "
+                        "controlling BFS/DFS balance."},
+    ]

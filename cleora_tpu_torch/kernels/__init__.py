@@ -1,8 +1,10 @@
 """ctypes bindings of the port's hand-written CUDA kernels.
 
 K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
-``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu`` and K7
-``log_clip.cu`` are built at first use (:mod:`.build`).  Each wrapper
+``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu``, K7
+``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
+``run_length.cu`` and K11 ``ppmi.cu`` are built at first use
+(:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -55,13 +57,37 @@ _ARGTYPES = {
     # x, r, c, n, m, floor, offset, vec4, stream
     "log_clip": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                  _c.c_int64, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # indptr, cols, deg, starts, walks, batch, walk_length, base, k0, k1, n,
+    # stream
+    "walk_uniform": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                     _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
+                     _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_void_p],
+    # walks, batch, walk_length, n_valid, n, passes, window, keys, stream
+    "pair_enum": [_c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_int64,
+                  _c.c_int64, _c.c_int, _c.c_void_p, _c.c_void_p],
+    # keys, len, heads, stream
+    "run_length_heads": [_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_void_p],
+    # keys, counts, heads, pos, len, n, passes, cen, ctx, cnt, m_per, stream
+    "run_length": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                   _c.c_int64, _c.c_int64, _c.c_int, _c.c_void_p,
+                   _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p],
+    # ctx, cnt, m, col, total, stream
+    "ppmi_colsum": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                    _c.c_void_p, _c.c_void_p],
+    # cen, ctx, cnt, m, n, col, total, vals, indptr, stream
+    "ppmi": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64,
+             _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+             _c.c_void_p],
 }
 
 
-def _bound(name: str):
-    fn = getattr(build.load(name), f"{name}_launch")
+def _bound(name: str, entry: Optional[str] = None):
+    """The launch function ``<entry>_launch`` of kernel library ``name``
+    (``entry`` defaults to ``name``; K10 and K11 export two)."""
+    entry = entry or name
+    fn = getattr(build.load(name), f"{entry}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
+    fn.argtypes = _ARGTYPES[entry]
     return fn
 
 
@@ -70,9 +96,13 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_launch(name: str, rc: int) -> None:
+def _check_rc(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _check_launch(name: str, rc: int) -> None:
+    _check_rc(name, rc)
     LAUNCHES[name] += 1
 
 
@@ -300,3 +330,167 @@ def log_clip_(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("log_clip", rc)
     return x
+
+
+_U32 = 0xFFFFFFFF
+
+
+def walk_uniform(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+                 starts: torch.Tensor, walk_length: int, seed: int,
+                 base: int, n: int) -> torch.Tensor:
+    """K8: one first-order uniform walk of ``walk_length`` nodes from each
+    of ``starts`` (int32 (B,); the sentinel ``n`` marks a pad lane) over the
+    walk CSR (``indptr`` row starts, ``cols``, ``deg``: int32).  Lane ``b``
+    is the walk of global index ``base + b`` and draws from Philox4x32-10
+    keyed by ``seed``.  Returns a new int32 (B, walk_length) tensor.  The
+    tables must be valid (``ops/walk.py:WalkTables`` checks them once)."""
+    name = "walk_uniform"
+    for t in (indptr, cols, deg, starts):
+        _require(t.dtype == torch.int32 and t.dim() == 1,
+                 f"{name}: int32 1-D tables and starts expected")
+    _require(indptr.shape == deg.shape and indptr.shape[0] == n,
+             f"{name}: indptr and deg must have one entry per node")
+    _require(walk_length >= 1 and base >= 0,
+             f"{name}: walk_length >= 1 and base >= 0 expected")
+    _require_cuda_contiguous(name, starts.device, indptr, cols, deg, starts)
+    batch = starts.shape[0]
+    walks = torch.empty((batch, walk_length), dtype=torch.int32,
+                        device=starts.device)
+    key = int(seed) & ((1 << 64) - 1)
+    fn = _bound(name)
+    with torch.cuda.device(starts.device):
+        rc = fn(indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
+                starts.data_ptr(), walks.data_ptr(), batch, int(walk_length),
+                int(base), key & _U32, key >> 32, int(n),
+                torch.cuda.current_stream(starts.device).cuda_stream)
+    _check_launch(name, rc)
+    return walks
+
+
+def pair_keys_fit(n: int, passes: int) -> None:
+    """K9's packed key ``((cen % passes)·n + cen)·n + ctx`` is exact while
+    ``passes·n² < 2⁶³``; raise ValueError past it."""
+    if passes * n * n >= 1 << 63:
+        raise ValueError(
+            f"co-occurrence keys need passes * n^2 < 2^63 (passes={passes}, "
+            f"n={n}); a walk CSR of that many nodes cannot fit one card")
+
+
+def pair_enum(walks: torch.Tensor, n_valid: int, n: int, window: int,
+              passes: int) -> torch.Tensor:
+    """K9: the packed int64 sort keys of every windowed (center, context)
+    pair of the first ``n_valid`` rows of int32 (B, L) ``walks``, both
+    directions, in the JAX program's order; masked lanes hold INT64_MAX."""
+    name = "pair_enum"
+    _require(walks.dtype == torch.int32 and walks.dim() == 2,
+             f"{name}: walks must be a 2-D int32 tensor")
+    _require(passes >= 1 and window >= 1, f"{name}: passes, window >= 1")
+    pair_keys_fit(n, passes)
+    _require_cuda_contiguous(name, walks.device, walks)
+    batch, length = walks.shape
+    w = min(window, length - 1)
+    lanes = 2 * batch * sum(length - o for o in range(1, w + 1))
+    keys = torch.empty((lanes,), dtype=torch.int64, device=walks.device)
+    if lanes == 0:
+        return keys
+    fn = _bound(name)
+    with torch.cuda.device(walks.device):
+        rc = fn(walks.data_ptr(), batch, length, int(n_valid), int(n),
+                int(passes), w, keys.data_ptr(),
+                torch.cuda.current_stream(walks.device).cuda_stream)
+    _check_launch(name, rc)
+    return keys
+
+
+_MAX_PASSES = 8192  # run_reduce's per-block partition counts: 32 KB shared
+
+
+def run_length(keys: torch.Tensor, counts: Optional[torch.Tensor], n: int,
+               passes: int):
+    """K10: the runs of ascending int64 ``keys`` (INT64_MAX = dead, at the
+    end) as exactly sized int32 ``(cen, ctx, cnt)`` in key order, with
+    ``cnt`` the run's sum of ``counts`` (int32, or 1 each when None) modulo
+    2³², and int32 ``m_per`` (passes,), the runs of each partition.  A call
+    launches the head-marking kernel, ``torch.cumsum`` and the reduce
+    kernel."""
+    name = "run_length"
+    _require(keys.dtype == torch.int64 and keys.dim() == 1,
+             f"{name}: keys must be a 1-D int64 tensor")
+    _require(counts is None or (counts.dtype == torch.int32
+                                and counts.shape == keys.shape),
+             f"{name}: counts must be int32 with one entry per key")
+    _require(1 <= passes <= _MAX_PASSES,
+             f"{name}: passes must be in [1, {_MAX_PASSES}]")
+    _require(keys.shape[0] < 1 << 31, f"{name}: at most 2^31 - 1 keys")
+    dense = [keys] + ([] if counts is None else [counts])
+    _require_cuda_contiguous(name, keys.device, *dense)
+    dev = keys.device
+    length = keys.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    heads = torch.empty((length,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _bound(name, "run_length_heads")(keys.data_ptr(), length,
+                                              heads.data_ptr(), stream)
+    _check_rc(name, rc)
+    pos = torch.cumsum(heads, 0, dtype=torch.int32)
+    m = int(pos[-1]) if length else 0
+    cen, ctx, cnt = (torch.empty((m,), dtype=torch.int32, device=dev)
+                     for _ in range(3))
+    m_per = torch.zeros((passes,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _bound(name)(keys.data_ptr(),
+                          None if counts is None else counts.data_ptr(),
+                          heads.data_ptr(), pos.data_ptr(), length, int(n),
+                          int(passes), cen.data_ptr(), ctx.data_ptr(),
+                          cnt.data_ptr(), m_per.data_ptr(), stream)
+    _check_launch(name, rc)
+    return cen, ctx, cnt, m_per
+
+
+def ppmi_colsum_(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,
+                 total: torch.Tensor) -> None:
+    """K11, first pass: ``col[ctx] += cnt`` and ``total += Σcnt`` in place,
+    as int64 sums (``col`` int64 (n,), ``total`` int64 (1,))."""
+    name = "ppmi"
+    _require(ctx.dtype == torch.int32 and cnt.dtype == torch.int32
+             and ctx.shape == cnt.shape and ctx.dim() == 1,
+             f"{name}: ctx and cnt must be int32 of one shape")
+    _require(col.dtype == torch.int64 and total.dtype == torch.int64
+             and total.shape == (1,) and col.dim() == 1,
+             f"{name}: col (n,) and total (1,) must be int64")
+    _require_cuda_contiguous(name, ctx.device, ctx, cnt, col, total)
+    with torch.cuda.device(ctx.device):
+        rc = _bound(name, "ppmi_colsum")(
+            ctx.data_ptr(), cnt.data_ptr(), ctx.shape[0], col.data_ptr(),
+            total.data_ptr(), torch.cuda.current_stream(ctx.device).cuda_stream)
+    _check_rc(name, rc)
+
+
+def ppmi(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+         col: torch.Tensor, total: torch.Tensor, n: int):
+    """K11, second pass: the float32 positive-PMI value of every entry of
+    one (cen, ctx)-sorted range, given the int64 column sums and total of
+    every range, and the range's CSR row pointer (int64 (n+1,)).  Returns
+    ``(vals, indptr)``."""
+    name = "ppmi"
+    m = cen.shape[0]
+    for t in (cen, ctx, cnt):
+        _require(t.dtype == torch.int32 and t.shape == (m,),
+                 f"{name}: cen, ctx and cnt must be int32 of one 1-D shape")
+    _require(col.dtype == torch.int64 and col.shape == (n,)
+             and total.dtype == torch.int64 and total.shape == (1,),
+             f"{name}: col (n,) and total (1,) must be int64")
+    _require_cuda_contiguous(name, cen.device, cen, ctx, cnt, col, total)
+    # the kernel writes indptr[cen[i]]: the centers must be sorted, in range
+    _require(m == 0 or (int(cen[0]) >= 0 and int(cen[-1]) < n
+                        and bool(torch.all(cen[1:] >= cen[:-1]))),
+             f"{name}: cen must be non-decreasing node ids below n")
+    vals = torch.empty((m,), dtype=torch.float32, device=cen.device)
+    indptr = torch.zeros((n + 1,), dtype=torch.int64, device=cen.device)
+    with torch.cuda.device(cen.device):
+        rc = _bound(name)(cen.data_ptr(), ctx.data_ptr(), cnt.data_ptr(), m,
+                          int(n), col.data_ptr(), total.data_ptr(),
+                          vals.data_ptr(), indptr.data_ptr(),
+                          torch.cuda.current_stream(cen.device).cuda_stream)
+    _check_launch(name, rc)
+    return vals, indptr

@@ -20,7 +20,8 @@ from typing import Dict
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 KERNELS = ("spmm_csr", "row_normalize", "hash_init", "edge_attention",
-           "spmm_axpy", "dense_markov", "log_clip")
+           "spmm_axpy", "dense_markov", "log_clip", "walk_uniform",
+           "pair_enum", "run_length", "ppmi")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -76,7 +76,29 @@ def _bind(lib):
     lib.ct_id_bytes.argtypes = [c.c_void_p, c.c_void_p]
     lib.ct_free.restype = None
     lib.ct_free.argtypes = [c.c_void_p]
+    lib.ct_sort_u64.restype = c.c_int
+    lib.ct_sort_u64.argtypes = [c.c_void_p, c.c_int64, c.c_int]
     return lib
+
+
+def sort_u64(a, num_workers: int = 0):
+    """Ascending sort of a 1-D uint64 numpy array via the native parallel
+    radix core.  Sorts IN PLACE when ``a`` is contiguous (and also returns
+    it); falls back to ``np.sort`` when the native library is unavailable
+    (cleora_tpu/native/__init__.py:sort_u64)."""
+    import numpy as np
+
+    a = np.asarray(a)
+    if a.dtype != np.uint64:
+        raise TypeError(f"sort_u64 needs uint64, got {a.dtype}")
+    lib = get_lib()
+    if lib is None:
+        return np.sort(a, kind="stable")
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    lib.ct_sort_u64(a.ctypes.data_as(ctypes.c_void_p), a.shape[0],
+                    int(num_workers))
+    return a
 
 
 def get_lib():

@@ -1,0 +1,406 @@
+"""Windowed co-occurrence counting and the PPMI transform on the device.
+
+Counterpart of the JAX package's cleora_tpu/ops/cooccur.py (single-device
+branches).  The walks stay on the device; per walk batch:
+
+1. kernel K9 (``kernels/pair_enum.cu``) writes every windowed
+   (center, context) pair in both directions as one int64 sort key
+   ``((cen % passes)·n + cen)·n + ctx`` (INT64_MAX for a masked lane), so
+   one ascending sort orders the batch by hash partition, center, context;
+2. ``torch.sort`` sorts the keys (a library call, as ``lax.sort`` is an XLA
+   primitive in the JAX program);
+3. kernel K10 (``kernels/run_length.cu``) reduces the runs to exactly sized
+   (cen, ctx, cnt) triples and counts each partition's runs; every
+   partition's segment is chain-merged into its accumulator (concatenate,
+   sort with the counts as payload, K10 again).
+
+Partition ``s`` holds the centers with ``cen % passes == s``, so the ranges
+are row-disjoint.  ``passes`` bounds one partition's merge working set, as
+in the JAX package, but a single sweep over the corpus counts every
+partition (the JAX package's ``_run_sweep``): the int64 key has no
+``passes·n < 2³¹`` gate, so the per-pass path (``_run_pass``) and its walk
+cache are not needed, and a resumed run sweeps once for the partitions its
+checkpoint lacks.
+
+The PPMI transform is kernel K11 (``kernels/ppmi.cu``): exact int64 column
+sums and pair total over every range, then per range the row sums, the
+positive-PMI values in float32 and the range's CSR row pointer, so each
+range becomes one CSR in original row order (:func:`ppmi_csrs`).
+
+Counts are integer-exact against the JAX package and the host sort-reduce
+(``tests/test_torch_walks.py``).  On CUDA the wrappers launch the kernels;
+on the CPU they run the plain versions beside them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .._util import resolve_device
+from .spmm import CsrMatrix
+
+_DEAD = torch.iinfo(torch.int64).max
+
+
+# ------------------------------------------------------------- K9: pair keys
+def pair_keys(walks: torch.Tensor, n_valid: int, n: int, window: int,
+              passes: int) -> torch.Tensor:
+    """int64 sort keys of every windowed pair of the first ``n_valid`` rows
+    of int32 (B, L) ``walks``.  On CUDA this launches K9; on the CPU it
+    runs :func:`pair_keys_plain`."""
+    if walks.is_cuda:
+        return kernels.pair_enum(walks, n_valid, n, window, passes)
+    return pair_keys_plain(walks, n_valid, n, window, passes)
+
+
+def pair_keys_plain(walks: torch.Tensor, n_valid: int, n: int, window: int,
+                    passes: int) -> torch.Tensor:
+    """Plain PyTorch version of K9: the enumeration of
+    ``_reduce_walks_sweep_impl`` (cleora_tpu/ops/cooccur.py:220-234), in
+    the same order, with the partition packed into an int64 key."""
+    kernels.pair_keys_fit(n, passes)
+    b, length = walks.shape
+    w = walks.long()
+    live = (torch.arange(b, device=walks.device) < n_valid)[:, None]
+    parts = []
+    for off in range(1, min(window, length - 1) + 1):
+        a, c = w[:, :-off], w[:, off:]
+        ok = (a >= 0) & (a < n) & (c >= 0) & (c < n) & live
+        parts += [torch.where(ok, ((a % passes) * n + a) * n + c,
+                              _DEAD).reshape(-1),
+                  torch.where(ok, ((c % passes) * n + c) * n + a,
+                              _DEAD).reshape(-1)]
+    if not parts:
+        return torch.empty((0,), dtype=torch.int64, device=walks.device)
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------- K10: run-length reduce
+def run_length(keys: torch.Tensor, counts: Optional[torch.Tensor], n: int,
+               passes: int):
+    """``(cen, ctx, cnt, m_per)`` of the runs of ascending ``keys``.  On
+    CUDA this launches K10; on the CPU it runs :func:`run_length_plain`."""
+    if keys.is_cuda:
+        return kernels.run_length(keys, counts, n, passes)
+    return run_length_plain(keys, counts, n, passes)
+
+
+def run_length_plain(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                     n: int, passes: int):
+    """Plain PyTorch version of K10: the run heads, a cumsum, an int64
+    ``index_add_`` of the counts wrapped to int32 (the JAX program's int32
+    ``segment_sum``), the decoded heads and a bincount of partitions."""
+    live = keys != _DEAD
+    head = live.clone()
+    head[1:] &= keys[1:] != keys[:-1]
+    ids = torch.cumsum(head, 0) - 1
+    hk = keys[head]
+    m = hk.shape[0]
+    c = (torch.ones_like(keys) if counts is None else counts.long())
+    sums = torch.zeros((m,), dtype=torch.int64, device=keys.device)
+    sums.index_add_(0, ids[live], c[live])
+    nn = n * n
+    cen = ((hk % nn) // n).to(torch.int32)
+    ctx = (hk % n).to(torch.int32)
+    m_per = torch.bincount(hk // nn, minlength=passes)[:passes]
+    return cen, ctx, sums.to(torch.int32), m_per.to(torch.int32)
+
+
+# ------------------------------------------------------------ sweep + merges
+def _reduce_sweep(walks: torch.Tensor, pad: int, n: int, window: int,
+                  passes: int):
+    """One batch's all-partition reduce (``_reduce_walks_sweep_impl``):
+    K9, ``torch.sort``, K10.  Returns (cen, ctx, cnt, m_per as a host
+    list)."""
+    keys = pair_keys(walks, walks.shape[0] - pad, n, window, passes)
+    keys = torch.sort(keys).values
+    cen, ctx, cnt, m_per = run_length(keys, None, n, passes)
+    return cen, ctx, cnt, [int(v) for v in m_per.cpu()]
+
+
+def _merge(a, b, n: int):
+    """Sort-reduce two ranges of one partition into one
+    (``_merge_impl``): the (cen, ctx) pairs packed as ``cen·n + ctx``,
+    sorted with the counts as payload, reduced by K10."""
+    keys = torch.cat([a[0].long() * n + a[1], b[0].long() * n + b[1]])
+    keys, order = torch.sort(keys)
+    counts = torch.cat([a[2], b[2]])[order]
+    del order
+    cen, ctx, cnt, m_per = run_length(keys, counts, n, 1)
+    return cen, ctx, cnt, int(cen.shape[0])
+
+
+def _run_sweep(batches_fn, passes: int, n: int, window: int, skip=()):
+    """Count every hash partition not in ``skip`` in one sweep over the
+    corpus (``_run_sweep``, cleora_tpu/ops/cooccur.py:303-336): per batch,
+    one reduce emits every partition's segment, which chain-merges into
+    that partition's accumulator.  Returns one range per partition (None
+    for a skipped one), or None for an empty corpus."""
+    acc: List = [None] * passes
+    seen = False
+    for walks, pad in batches_fn():
+        seen = True
+        cen, ctx, cnt, m_per = _reduce_sweep(walks, pad, n, window, passes)
+        start = 0
+        for s, m_s in enumerate(m_per):
+            end = start + m_s
+            if s not in skip:
+                r_s = (cen[start:end], ctx[start:end], cnt[start:end], m_s)
+                acc[s] = r_s if acc[s] is None else _merge(acc[s], r_s, n)
+            start = end
+        del cen, ctx, cnt
+    return acc if seen else None
+
+
+class CountCheckpoint:
+    """Per-pass durable checkpoint of the counting stage
+    (cleora_tpu/ops/cooccur.py:398-525, the same ``.npz`` format): one
+    finished hash partition's (cen, ctx, cnt, m) per file, written by atomic
+    rename and stamped with the run's ``fingerprint``, so a resume rejects
+    ranges of another corpus and recounts.  ``every=k`` persists only the
+    passes with ``s % k == 0``.  The finished embedding is marked done
+    with :meth:`mark_done`."""
+
+    _DONE = "embedding.json"
+
+    def __init__(self, directory: str, fingerprint: str, every: int = 1):
+        self.dir = directory
+        self.fp = str(fingerprint)
+        self.every = max(1, int(every))
+        os.makedirs(directory, exist_ok=True)
+
+    def _pass_path(self, s: int) -> str:
+        return os.path.join(self.dir, f"counts_pass_{s:05d}.npz")
+
+    def has_pass(self, s: int) -> bool:
+        try:
+            with np.load(self._pass_path(s)) as z:
+                return str(z["fingerprint"]) == self.fp
+        except Exception:  # missing, truncated (BadZipFile), foreign file —
+            return False   # any unreadable pass simply recounts
+
+    def load_pass(self, s: int, device):
+        """(cen, ctx, cnt, m) on ``device``, or None when the pass is
+        absent or from a different corpus."""
+        try:
+            with np.load(self._pass_path(s)) as z:
+                if str(z["fingerprint"]) != self.fp:
+                    return None
+                m = int(z["m"])
+                cen, ctx, cnt = (z[k][:m] for k in ("cen", "ctx", "cnt"))
+        except Exception:  # see has_pass — unreadable means recount
+            return None
+        put = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return put(cen), put(ctx), put(cnt), m
+
+    def save_pass(self, s: int, r) -> None:
+        """Persist one completed pass."""
+        if r is None or s % self.every:
+            return
+        cen, ctx, cnt, m = r
+        payload = {
+            "fingerprint": np.asarray(self.fp),
+            "m": np.int64(m),
+            "cen": cen.cpu().numpy(),
+            "ctx": ctx.cpu().numpy(),
+            "cnt": cnt.cpu().numpy(),
+        }
+        path = self._pass_path(s)
+        tmp = path + f".tmp{s}.npz"
+        np.savez(tmp, **payload)
+        os.replace(tmp, path)
+
+    def done_result(self, feature_dim: int, fact_params=None):
+        """The finished embedding of a completed earlier run (read-only
+        memmap), or None.  Validated against the fingerprint, the recorded
+        output path, the expected shape and the factorization parameters,
+        so a rerun with other factorization parameters refactorizes from
+        the counted passes."""
+        try:
+            with open(os.path.join(self.dir, self._DONE)) as f:
+                meta = json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return None
+        if meta.get("fingerprint") != self.fp:
+            return None
+        if json.dumps(fact_params, sort_keys=True, default=str) != \
+                json.dumps(meta.get("fact_params"), sort_keys=True,
+                           default=str):
+            return None
+        try:
+            mm = np.load(meta["path"], mmap_mode="r")
+        except (FileNotFoundError, OSError, ValueError, KeyError):
+            return None
+        if mm.ndim != 2 or mm.shape[1] != feature_dim or \
+                list(mm.shape) != meta.get("shape"):
+            return None
+        return mm
+
+    def mark_done(self, path: str, shape, fact_params=None) -> None:
+        meta = {
+            "fingerprint": self.fp,
+            "path": os.path.abspath(path),
+            "shape": [int(x) for x in shape],
+            "fact_params": fact_params,
+        }
+        tmp = os.path.join(self.dir, self._DONE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1)
+        os.replace(tmp, os.path.join(self.dir, self._DONE))
+
+
+def device_pair_counts(batches_fn, n: int, window: int, passes: int = 1,
+                       checkpoint: Optional[CountCheckpoint] = None,
+                       device=None):
+    """Reduce device walk batches to device-resident unique
+    (center, context, count) ranges.
+
+    ``batches_fn()`` returns a fresh iterable of ``(walks, pad)``: int32
+    (B, L) walks on the device (sentinel ``n`` for dead ends) and the
+    number of trailing pad rows to ignore.  ``passes`` hash-partitions the
+    counts by center id; one sweep counts every partition.  A
+    ``checkpoint`` supplies the partitions it already holds (loaded onto
+    ``device``); the sweep counts the rest and each is saved.
+
+    Returns ``(ranges, m_total)``: one ``(cen, ctx, cnt, m)`` per partition,
+    in partition order, exactly ``m`` int32 entries each, sorted by
+    (center, context); ``[]`` for an empty corpus."""
+    passes = max(1, int(passes))
+    loaded = [None] * passes
+    if checkpoint is not None:
+        dev = resolve_device(device)
+        loaded = [checkpoint.load_pass(s, dev) if checkpoint.has_pass(s)
+                  else None for s in range(passes)]
+    skip = {s for s, r in enumerate(loaded) if r is not None}
+    if len(skip) < passes:
+        counted = _run_sweep(batches_fn, passes, n, window, skip)
+        if counted is None:
+            return [], 0
+        for s, r in enumerate(counted):
+            if s not in skip:
+                loaded[s] = r
+                if checkpoint is not None:
+                    checkpoint.save_pass(s, r)
+    ranges = [r for r in loaded if r is not None]
+    _check_count_overflow(ranges, n)
+    return ranges, sum(r[3] for r in ranges)
+
+
+def _check_count_overflow(ranges, n: int) -> None:
+    """Counts are int32 (the host path counts in int64); a pair seen more
+    than 2³¹ - 1 times wraps negative.  One reduction per range catches
+    that first wrap (cleora_tpu/ops/cooccur.py:902-923)."""
+    for _, _, cnt, m in ranges:
+        if m and int(cnt.min()) < 0:
+            raise ValueError(
+                "co-occurrence count overflow: one (center, context) pair "
+                "exceeds 2^31 occurrences — use cooccurrence='host' "
+                "(int64 counts) for this corpus"
+            )
+
+
+def pair_total(ranges, n: int) -> int:
+    """Total counted pairs across ranges, summed exactly on the device."""
+    return sum(int(cnt.sum(dtype=torch.int64)) for _, _, cnt, _ in ranges)
+
+
+# ------------------------------------------------------------- K11: the PPMI
+def ppmi_colsum_(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,
+                 total: torch.Tensor) -> None:
+    """``col[ctx] += cnt``, ``total += Σcnt`` (int64, in place).  On CUDA
+    this launches K11's first pass; on the CPU it runs
+    :func:`ppmi_colsum_plain`."""
+    if ctx.is_cuda:
+        kernels.ppmi_colsum_(ctx, cnt, col, total)
+    else:
+        ppmi_colsum_plain(ctx, cnt, col, total)
+
+
+def ppmi_colsum_plain(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,
+                      total: torch.Tensor) -> None:
+    """Plain PyTorch version of K11's first pass."""
+    col.index_add_(0, ctx.long(), cnt.long())
+    total += cnt.sum(dtype=torch.int64)
+
+
+def ppmi_values(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+                col: torch.Tensor, total: torch.Tensor, n: int):
+    """``(vals, indptr)`` of one (cen, ctx)-sorted range.  On CUDA this
+    launches K11; on the CPU it runs :func:`ppmi_values_plain`."""
+    if cen.is_cuda:
+        return kernels.ppmi(cen, ctx, cnt, col, total, n)
+    return ppmi_values_plain(cen, ctx, cnt, col, total, n)
+
+
+def ppmi_values_plain(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+                      col: torch.Tensor, total: torch.Tensor, n: int):
+    """Plain PyTorch version of K11: exact int64 row sums, one conversion
+    of each sum to float32, then ``_ppmi_range_impl``'s float32 arithmetic
+    in its order (cleora_tpu/ops/cooccur.py:951-962)."""
+    c64 = cen.long()
+    rows = torch.zeros((n,), dtype=torch.int64, device=cen.device)
+    rows.index_add_(0, c64, cnt.long())
+    rs = torch.clamp_min(rows[c64].to(torch.float32), 1e-10)
+    cs = torch.clamp_min(col[ctx.long()].to(torch.float32), 1e-10)
+    q = cnt.to(torch.float32) * total.to(torch.float32) / (rs * cs)
+    vals = torch.clamp_min(torch.log(torch.clamp_min(q, 1e-15)), 0.0)
+    indptr = torch.zeros((n + 1,), dtype=torch.int64, device=cen.device)
+    torch.cumsum(torch.bincount(c64, minlength=n), 0, out=indptr[1:])
+    return vals, indptr
+
+
+def range_col_sums(ranges, n: int, device):
+    """(col int64 (n,), total int64 (1,)) over every range: the
+    cross-range phase of the transform (contexts span every range)."""
+    col = torch.zeros((n,), dtype=torch.int64, device=device)
+    total = torch.zeros((1,), dtype=torch.int64, device=device)
+    for _, ctx, cnt, _ in ranges:
+        ppmi_colsum_(ctx, cnt, col, total)
+    return col, total
+
+
+def ppmi_transform(ranges: list, n: int, col: torch.Tensor,
+                   total: torch.Tensor):
+    """Count ranges → one ``(rows, cols, vals, indptr)`` per range, yielded
+    in order, given the reduced column sums and total.  Consumes ``ranges``
+    (the caller's list empties), so each range's counts are freed once its
+    values exist."""
+    while ranges:
+        cen, ctx, cnt, _ = ranges.pop(0)
+        vals, indptr = ppmi_values(cen, ctx, cnt, col, total, n)
+        del cnt
+        yield cen, ctx, vals, indptr
+
+
+def ppmi_ranges(ranges, n: int):
+    """[(rows, cols, vals), ...] positive-PMI COO, one triple per range
+    (cleora_tpu/ops/cooccur.py:1012-1020, without its padding: every
+    triple is exactly the range's size)."""
+    ranges = list(ranges)
+    if not ranges:
+        return ()
+    col, total = range_col_sums(ranges, n, ranges[0][0].device)
+    return tuple(p[:3] for p in ppmi_transform(ranges, n, col, total))
+
+
+def ppmi_coo(cen, ctx, cnt, n: int):
+    """Single-range convenience wrapper around :func:`ppmi_ranges`."""
+    return ppmi_ranges([(cen, ctx, cnt, int(cen.shape[0]))], n)[0]
+
+
+def ppmi_csrs(ranges: list, n: int) -> List[CsrMatrix]:
+    """The PPMI matrix as one (n, n) CSR per range, in original row order
+    (each row lives in exactly one range): the range's contexts are the
+    column indices, its values the PPMI.  Consumes ``ranges``."""
+    if not ranges:
+        return []
+    col, total = range_col_sums(ranges, n, ranges[0][0].device)
+    return [CsrMatrix(indptr, cols, vals)
+            for _, cols, vals, indptr in ppmi_transform(ranges, n, col, total)]

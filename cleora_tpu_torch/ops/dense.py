@@ -1,21 +1,25 @@
-"""Dense building blocks of the log-factorisations (NetMF, GraRep).
+"""Dense building blocks of the log-factorisations (NetMF, GraRep) and the
+randomized SVDs.
 
 Counterpart of cleora_tpu/algorithms.py:376-404: the dense transition
 matrix scattered from the sparse one (kernel K6), the scaled log-clip
-(kernel K7) and the randomized ``U_k·√S_k``.  The large float32 products,
-QR and SVD are library calls (``torch.matmul``, ``torch.linalg``), as the
-JAX package hands them to XLA's libraries; they run in full float32.
+(kernel K7) and the randomized ``U_k·√S_k``; and of the walk pipeline's
+unfused randomized SVD of the sparse PPMI matrix (``_rsvd_step_jits``,
+cleora_tpu/algorithms.py:2142-2226), whose products are kernels K1 and K5.
+The large float32 products, QR and SVD are library calls (``torch.matmul``,
+``torch.linalg``), as the JAX package hands them to XLA's libraries; they
+run in full float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from .. import kernels
 from .._util import full_float32_matmul
-from .spmm import CsrMatrix
+from .spmm import CsrMatrix, spmm, spmm_axpy
 
 
 def dense_markov(csr: CsrMatrix):
@@ -80,3 +84,32 @@ def rsvd_u_sqrt(M: torch.Tensor, omega: torch.Tensor, k: int,
     Ub, s, _ = torch.linalg.svd(C.T, full_matrices=False)
     su = torch.sqrt(torch.clamp_min(s[:k], 0.0))
     return torch.matmul(Q, Ub[:, :k]) * su
+
+
+def _apply_pieces(pieces: List[CsrMatrix], x: torch.Tensor) -> torch.Tensor:
+    """``M·x`` for M given as row-disjoint CSR pieces (every row of M lives
+    in one piece): the first piece by K1, each further one added by K5's
+    ``acc`` (the JAX program's ``apply`` and ``apply_add``).  Exact: each
+    row gets its one piece's value plus zeros."""
+    x = x.contiguous()  # a CUDA QR's Q is column-major: copy once, not per piece
+    y = spmm(pieces[0], x)
+    for piece in pieces[1:]:
+        spmm_axpy(piece, x, 1.0, acc=y, d=1.0)
+    return y
+
+
+@full_float32_matmul()
+def rsvd_sparse(pieces: List[CsrMatrix], k: int, omega: torch.Tensor,
+                power_iters: int) -> torch.Tensor:
+    """``U_k·√S_k`` of a symmetric sparse matrix M by randomized subspace
+    iteration over the sketch ``omega`` (n, r): the steps of
+    ``_rsvd_flat`` (cleora_tpu/algorithms.py:2211-2225) in its order."""
+    y = _apply_pieces(pieces, omega)
+    for _ in range(power_iters):  # M symmetric
+        y = _apply_pieces(pieces, _apply_pieces(pieces, torch.linalg.qr(y)[0]))
+    q = torch.linalg.qr(y)[0]
+    del y
+    c = _apply_pieces(pieces, q)
+    ub, s, _ = torch.linalg.svd(c.T, full_matrices=False)
+    su = torch.sqrt(torch.clamp_min(s[:k], 0.0))
+    return torch.matmul(q, ub[:, :k]) * su

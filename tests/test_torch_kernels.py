@@ -14,7 +14,10 @@ rtol=1e-5, atol=1e-6 (dot products and row sums in another order); K5
 rtol=1e-5, atol=1e-6 (the row sum in another order; the tail is rounded
 like the plain version's); K6 P and deg atol=1e-6, vol rtol=1e-6 (float32
 row sums and the float64 total in another order); K7 atol=1e-6 (the same
-float32 operations and the same logf).
+float32 operations and the same logf); K8, K9 and K10 bitwise (integer
+arithmetic and one exactly repeated float32 product per hop); K11 column
+sums and row pointers bitwise, values rtol=1e-6 (the same float32
+operations in the same order, another logf).
 """
 
 import numpy as np
@@ -39,12 +42,14 @@ from cleora_tpu_torch.ops.normalize import (
 )
 from cleora_tpu_torch.algorithms import _GRAREP_FLOOR, _GRAREP_OFFSET
 from cleora_tpu_torch.kernels import build
+from cleora_tpu_torch.ops import cooccur
 from cleora_tpu_torch.ops.dense import (
     dense_markov,
     dense_markov_plain,
     log_clip,
     log_clip_plain,
 )
+from cleora_tpu_torch.ops.walk import WalkTables, walk_uniform_plain
 from cleora_tpu_torch.ops.spmm import (
     CsrMatrix,
     spmm,
@@ -212,6 +217,116 @@ def test_k7_matches_plain(cuda_device, shape, mode, scaled):
         atol=1e-6)
 
 
+def walk_tables(n, seed, device):
+    """A walk CSR with dead ends (every 9th node has degree 0) and one hub
+    of degree 3000."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(5, size=n)
+    deg[::9] = 0
+    deg[1] = 3000
+    indptr = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    cols = rng.integers(0, n, size=int(deg.sum()))
+    return WalkTables(indptr, cols, deg, n, device)
+
+
+def sample_walks(device, n=2000, batch=1500, length=12, seed=3):
+    t = walk_tables(n, seed, device)
+    starts = torch.randint(0, n + 1, (batch,), device=device,
+                           dtype=torch.int32)  # n: pad lanes
+    return kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, length,
+                                seed, 0, n), n
+
+
+@cuda
+@pytest.mark.parametrize("length", [1, 2, 80])
+@pytest.mark.parametrize("seed", [0, 2**40 + 3, -1])
+@pytest.mark.parametrize("base", [0, 2**33 + 5])
+def test_k8_bitwise(cuda_device, length, seed, base):
+    n = 3000
+    t = walk_tables(n, 1, cuda_device)
+    starts = torch.randint(0, n + 1, (4099,), device=cuda_device,
+                           dtype=torch.int32)
+    before = kernels.LAUNCHES["walk_uniform"]
+    got = kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
+                               base, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk_uniform"] == before + 1
+    want = walk_uniform_plain(t.indptr, t.cols, t.deg, starts, length, seed,
+                              base, n)
+    assert got.shape == (4099, length) and torch.equal(got, want)
+    cpu = walk_uniform_plain(t.indptr.cpu(), t.cols.cpu(), t.deg.cpu(),
+                             starts.cpu(), length, seed, base, n)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@cuda
+@pytest.mark.parametrize("window", [1, 5, 11, 40])
+@pytest.mark.parametrize("passes", [1, 3, 8])
+def test_k9_bitwise(cuda_device, window, passes):
+    walks, n = sample_walks(cuda_device)
+    n_valid = walks.shape[0] - 7
+    before = kernels.LAUNCHES["pair_enum"]
+    got = kernels.pair_enum(walks, n_valid, n, window, passes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pair_enum"] == before + 1
+    assert torch.equal(got, cooccur.pair_keys_plain(walks, n_valid, n, window,
+                                                    passes))
+
+
+@cuda
+@pytest.mark.parametrize("passes", [1, 3, 8])
+def test_k10_bitwise_after_the_sweep_and_a_merge(cuda_device, passes):
+    walks, n = sample_walks(cuda_device)
+    keys = torch.sort(kernels.pair_enum(walks, walks.shape[0] - 5, n, 5,
+                                        passes)).values
+    before = kernels.LAUNCHES["run_length"]
+    got = kernels.run_length(keys, None, n, passes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["run_length"] == before + 1
+    want = cooccur.run_length_plain(keys, None, n, passes)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # a merge: two halves of the runs, concatenated, sorted with payload
+    cen, ctx, cnt, _ = got
+    h = cen.shape[0] // 2
+    a = (cen[:h], ctx[:h], cnt[:h], h)
+    b = (cen[h // 2:], ctx[h // 2:], cnt[h // 2:] * 3, cen.shape[0] - h // 2)
+    merged = cooccur._merge(a, b, n)
+    k2 = torch.sort(torch.cat([a[0].long() * n + a[1],
+                               b[0].long() * n + b[1]]))
+    plain = cooccur.run_length_plain(
+        k2.values, torch.cat([a[2], b[2]])[k2.indices], n, 1)
+    for x, y in zip(merged[:3], plain[:3]):
+        assert torch.equal(x, y)
+    assert merged[3] == cen.shape[0]
+
+
+@cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_k11_matches_plain(cuda_device, passes):
+    walks, n = sample_walks(cuda_device)
+    ranges, _ = cooccur.device_pair_counts(lambda: [(walks, 3)], n, 5,
+                                           passes=passes)
+    z = lambda: (torch.zeros(n, dtype=torch.int64, device=cuda_device),
+                 torch.zeros(1, dtype=torch.int64, device=cuda_device))
+    col, total = z()
+    col_p, total_p = z()
+    for _, ctx, cnt, _ in ranges:
+        kernels.ppmi_colsum_(ctx, cnt, col, total)
+        cooccur.ppmi_colsum_plain(ctx, cnt, col_p, total_p)
+    torch.cuda.synchronize()
+    assert torch.equal(col, col_p) and torch.equal(total, total_p)
+    for cen, ctx, cnt, _ in ranges:
+        before = kernels.LAUNCHES["ppmi"]
+        vals, indptr = kernels.ppmi(cen, ctx, cnt, col, total, n)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["ppmi"] == before + 1
+        want_vals, want_indptr = cooccur.ppmi_values_plain(cen, ctx, cnt, col,
+                                                           total, n)
+        assert torch.equal(indptr, want_indptr)
+        torch.testing.assert_close(vals, want_vals, rtol=1e-6, atol=0.0)
+
+
 # ------------------------------------------- argument checks (need no card)
 def _cpu_csr(n=20):
     indptr = torch.arange(n + 1, dtype=torch.int64)
@@ -293,4 +408,46 @@ def test_k7_wrapper_rejects_bad_operands():
         kernels.log_clip_(torch.ones((8, 6)).T, None, None, 1.0, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.log_clip_(x, torch.ones(12)[::2], None, 1.0, 0.0)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+def test_walk_and_count_wrappers_reject_bad_operands():
+    t = WalkTables(np.array([0, 1]), np.array([1, 0]), np.array([1, 1]), 2,
+                   torch.device("cpu"))
+    starts = torch.zeros(4, dtype=torch.int32)
+    walks = torch.zeros((4, 6), dtype=torch.int32)
+    keys = torch.arange(10, dtype=torch.int64)
+    i32 = torch.zeros(10, dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 5, 0, 0, 2)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts.long(), 5, 0, 0,
+                             2)
+    with pytest.raises(ValueError, match="one entry per node"):
+        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 5, 0, 0, 3)
+    with pytest.raises(ValueError, match="walk_length >= 1"):
+        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 0, 0, 0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.pair_enum(walks, 4, 2, 5, 1)
+    with pytest.raises(ValueError, match="2-D int32"):
+        kernels.pair_enum(walks.long(), 4, 2, 5, 1)
+    with pytest.raises(ValueError, match="2\\^63"):
+        kernels.pair_enum(walks, 4, 1 << 31, 5, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.run_length(keys, None, 4, 1)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.run_length(keys.int(), None, 4, 1)
+    with pytest.raises(ValueError, match="one entry per key"):
+        kernels.run_length(keys, i32[:5], 4, 1)
+    with pytest.raises(ValueError, match="passes"):
+        kernels.run_length(keys, None, 4, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ppmi_colsum_(i32, i32, torch.zeros(4, dtype=torch.int64),
+                             torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="int64"):
+        kernels.ppmi(i32, i32, i32, torch.zeros(4), torch.zeros(1), 4)
+    with pytest.raises(ValueError, match="one 1-D shape"):
+        kernels.ppmi(i32, i32, i32[:3], torch.zeros(4, dtype=torch.int64),
+                     torch.zeros(1, dtype=torch.int64), 4)
     assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
