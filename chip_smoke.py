@@ -10,9 +10,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/hash_init.cu), K4 (kernels/edge_attention.cu), K5
    (kernels/spmm_axpy.cu), K6 (kernels/dense_markov.cu), K7
    (kernels/log_clip.cu), K8 (kernels/walk_uniform.cu), K9
-   (kernels/pair_enum.cu), K10 (kernels/run_length.cu) and K11
-   (kernels/ppmi.cu) are compiled from the checkout's sources, one nvcc
-   each, in parallel;
+   (kernels/pair_enum.cu), K10 (kernels/run_length.cu), K11
+   (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu) and K13 (kernels/pq_adc.cu)
+   are compiled from the checkout's sources, one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
    {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
@@ -29,7 +29,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    order); K6 at n in {1, 257, 4096} with duplicate entries and an empty
    row (P and deg atol=1e-6, vol rtol=1e-6); K7 on (4096, 4096) and
    (1000, 300), NetMF's and GraRep's modes, with and without scales
-   (atol=1e-6: the same float32 operations);
+   (atol=1e-6: the same float32 operations); K12 bitwise on a random
+   weighted 100,000-node CSR with a hub of degree 50,000, a row whose
+   weights are all 0, an isolated node and pad lanes, (p, q) in {(0.5, 2),
+   (4, 0.25), (0.01, 1), (1, 100)}, 5,000 walks of 10 launched in batches
+   of 5,000 and of 1,000; K13 bitwise at (Q, M, C, N) in {(1, 8, 256,
+   1000), (37, 8, 256, 100000), (64, 4, 300, 5000) with uint16 codes, (3,
+   64, 1024, 2000) with int32 codes, whose tables are gathered from HBM};
 4. slice parity: a 20,000-node random graph through the card and through
    device="cpu": embed() unwhitened allclose, whitened Gram matrices of
    2,000 sampled rows, bf16 storage, and the same early-stop iteration under
@@ -84,7 +90,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of 2,000 rows against device="cpu" (atol=1e-3: a value perturbation of
    1e-6 moves it by 2e-5 on this graph; the graph is a ring plus random
    edges, connected, because a small component's rows are rounding noise
-   after the factorization on any backend); at full width, scripts/deepwalk_e2e.py's corpus (1,000,000 nodes,
+   after the factorization on any backend), and embed_node2vec(p=0.5, q=2)
+   on the same graph: K12's walks bitwise equal on the card and the CPU,
+   the same three modes by the Gram matrix (atol=1e-3); at full width,
+   scripts/deepwalk_e2e.py's corpus (1,000,000 nodes,
    5,500,000 undirected edges from default_rng(7), 2 walks of 80 per node,
    window 5; num_walks cut from the API's 10 to 2) through
    embed_deepwalk(feature_dim=256, backend="device", cooccurrence="device")
@@ -93,7 +102,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    corpus shape), K8-K11 against their plain versions at the main path's
    shapes and timed beside torch.sort and torch.unique_consecutive; and
    scripts/walk_quality_probe.py's 100,000-node, 50-community planted
-   partition, whose centroid accuracy must reach 0.99.
+   partition, whose centroid accuracy must reach 0.99;
+8. Node2Vec at full width on phase 7's graph: embed_node2vec(feature_dim=
+   256, num_walks=1, walk_length=80, window_size=5, p=0.5, q=2,
+   backend="device", cooccurrence="device", factorization="device") once
+   untouched (launch counts, peak memory, unit rows) and once under the
+   stage stopwatch; the count alone (exactly 769,985,370 pairs, unique
+   pairs within 1 % of the JAX package's 295.5 M on this configuration);
+   K12 at the main path's batch bitwise against its plain version and
+   timed; the planted partition with p=0.5, q=2 (accuracy >= 0.99);
+9. retrieval over phase 5's embed() output (1,958,363 x 256 float32):
+   ANNIndex(method="device").query_batch and ShardedDeviceIndex (float32,
+   bfloat16) of 1,024 table rows at top_k=10 (float32: every top-1 the
+   query's own row or a tie within 1e-6, and 64 queries against the host
+   brute force: indices equal but for ties within 1e-6, scores atol=1e-5;
+   bfloat16, top-1 only: the query's own row or a row whose exact cosine
+   with it is within 2^-7 of 1, which 8-bit mantissas cannot order);
+   PQIndex with codebooks from product_quantize(M=8, C=256) on 100,000
+   sampled rows (a cut: the host k-means of every row would take minutes)
+   and every row encoded on the card, search_batch(backend="device") of the
+   1,024 queries as a main path (K13 launched once) against
+   backend="host" on 64; K13 at (Q, N) = (1,024, 1,958,363) bitwise against
+   its plain version and timed; detect_communities_kmeans(k=50) on phase
+   8's planted-partition embedding, the card against device="cpu" (labels
+   equal on >= 99.9 % of rows).  Phases 8 and 9 print their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -150,6 +182,35 @@ JAX_UNIQUE_PAIRS = 810_145_222
 WALK_PARITY_LENGTH = 40
 WALK_PARITY_DIM = 32
 WALK_PARITY_PASSES = 3
+# phase 3's K12 check: a weighted graph with phase 3's hub; walks short
+# enough that the plain version's rejection rounds (up to 800 per hop at
+# q = 100, where the hub's proposals are accepted 1 time in ~200) stay
+# within seconds
+K12_CHECK_NODES = 100_000
+K12_CHECK_WALKS = 5_000
+K12_CHECK_BATCHES = (5_000, 1_000)
+K12_CHECK_LENGTH = 10
+K12_PQ = ((0.5, 2.0), (4.0, 0.25), (0.01, 1.0), (1.0, 100.0))
+# phase 3's K13 check: (Q, M, C, N, codes); the last gathers from HBM
+K13_CASES = ((1, 8, 256, 1_000, torch.uint8),
+             (37, 8, 256, 100_000, torch.uint8),
+             (64, 4, 300, 5_000, torch.uint16),
+             (3, 64, 1_024, 2_000, torch.int32))
+# phase 8: Node2Vec on phase 7's corpus, one walk per node, so that the pair
+# count is exactly 999,981 x 770; the JAX package counted 295.5 M unique
+# pairs on this configuration (RESULTS.md:87-96)
+N2V_P, N2V_Q = 0.5, 2.0
+N2V_WALKS = 1
+N2V_PAIRS = 769_985_370
+JAX_N2V_UNIQUE_PAIRS = 295_500_000
+# phase 9: retrieval over phase 5's embed() output
+QUERIES = 1_024
+TOP_K = 10
+HELD_QUERIES = 64
+PQ_SAMPLE = 100_000
+PQ_SUBSPACES = 8
+PQ_CENTROIDS = 256
+KMEANS_K = 50
 # scripts/walk_quality_probe.py's defaults
 QUALITY_NODES = 100_000
 QUALITY_COMMUNITIES = 50
@@ -294,6 +355,8 @@ def check_kernels(dev: torch.device) -> None:
     check_k5(dev, csr)
     check_k6(dev)
     check_k7(dev)
+    check_k12(dev)
+    check_k13(dev)
 
 
 def check_k3(dev: torch.device) -> None:
@@ -459,6 +522,89 @@ def check_k7(dev: torch.device) -> None:
                                      c if scaled else None, floor, offset)
                 log(f"K7 ({n}, {m}) {mode} scales={scaled}: max |err| "
                     f"{err:.3e}")
+
+
+def weighted_walk_tables(n: int, seed: int, dev: torch.device,
+                         hub_degree: int):
+    """A weighted walk CSR with (row, col)-sorted rows: node 1 a hub of
+    degree ``hub_degree``, node 2 a row whose weights are all 0 (a dead
+    row), node n - 1 isolated (degree 0)."""
+    from cleora_tpu_torch.ops.walk import WalkTables2
+
+    rng = np.random.default_rng(seed)
+    m = 3 * n
+    src = np.concatenate([rng.integers(0, n - 1, m),
+                          np.ones(hub_degree, np.int64)])
+    dst = np.concatenate([rng.integers(0, n - 1, m),
+                          rng.choice(n - 1, hub_degree, replace=False)])
+    keys = np.unique(np.concatenate([src * n + dst, dst * n + src]))
+    rows, cols = keys // n, keys % n
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(0.05, 3.0, rows.shape[0]).astype(np.float32)
+    vals[rows == 2] = 0.0
+    deg = np.bincount(rows, minlength=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    wmax = np.zeros(n, np.float32)
+    np.maximum.at(wmax, rows, vals)
+    wsum = np.zeros(n, np.float64)
+    np.add.at(wsum, rows, vals.astype(np.float64))
+    return WalkTables2(indptr, cols, deg, n, vals, wmax,
+                       wsum.astype(np.float32), dev)
+
+
+def check_k12(dev: torch.device) -> None:
+    """K12 against its plain version, bitwise, for four (p, q), the walks
+    launched in two batch sizes."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.walk import walk2_tries, walk_p_q_plain
+
+    n = K12_CHECK_NODES
+    t = weighted_walk_tables(n, 5, dev, HUB_DEGREE)
+    assert int(t.deg[1]) >= HUB_DEGREE and int(t.deg[n - 1]) == 0
+    rng = np.random.default_rng(6)
+    starts = rng.integers(0, n + 1, K12_CHECK_WALKS)  # n: pad lanes
+    for i, node in enumerate((1, 2, n - 1, n)):  # hub, dead, isolated, pad
+        starts[64 * i:64 * (i + 1)] = node
+    starts = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    tables = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum)
+    for p, q in K12_PQ:
+        walk = (K12_CHECK_LENGTH, 1.0 / p, 1.0 / q, walk2_tries(q), 11)
+        t0 = time.perf_counter()
+        want = walk_p_q_plain(*tables, starts, *walk, 0, n)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for batch in K12_CHECK_BATCHES:
+            got = torch.cat([
+                kernels.walk_p_q(*tables, starts[lo:lo + batch], *walk, lo, n)
+                for lo in range(0, K12_CHECK_WALKS, batch)])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (p, q, batch)
+        assert torch.all(want[64:128, 1:] == n)  # the dead row stops
+        assert torch.all(want[128:256, 1:] == n)  # isolated node, pad lanes
+        hub_hops = int((want[:, :-1] == 1).sum())
+        log(f"K12 p={p} q={q} tries={walk[3]}: {K12_CHECK_WALKS} walks of "
+            f"{K12_CHECK_LENGTH} (hub of degree {int(t.deg[1])} left "
+            f"{hub_hops} times) bitwise equal to plain in batches of "
+            f"{K12_CHECK_BATCHES} (plain {plain_s:.1f} s)")
+
+
+def check_k13(dev: torch.device) -> None:
+    """K13 against its plain version, bitwise."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.pq import pq_adc_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for q, m, c, n, dtype in K13_CASES:
+        tables = torch.randn((q, m, c), device=dev, generator=gen)
+        codes = torch.randint(0, c, (n, m), device=dev, generator=gen,
+                              dtype=torch.int32).to(dtype)
+        got = kernels.pq_adc(tables, codes)
+        want = pq_adc_plain(tables, codes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (q, m, c, n, dtype)
+        log(f"K13 (Q, M, C, N) = ({q}, {m}, {c}, {n}) {str(dtype)[6:]} "
+            "codes: bitwise equal to plain")
 
 
 def random_graph(n_nodes: int, n_und_edges: int, seed: int,
@@ -680,7 +826,6 @@ def full_width(dev: torch.device, card: str) -> tuple:
         "spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
         "hash_init": 1}, launches
     check_covariance(out, dev)
-    del out
 
     # ---- the attention path, through the user's entry point
     att_out, att_launches = run_main_path(
@@ -848,7 +993,7 @@ def full_width(dev: torch.device, card: str) -> tuple:
                    "cleora_tpu/__init__.py:502", k4_ms, k4_plain_ms, None,
                    k4_err, k4_bytes, k4_flops,
                    att_launches["edge_attention"]),
-    ], g
+    ], g, out
 
 
 @contextlib.contextmanager
@@ -1444,6 +1589,34 @@ def walk_parity(dev: torch.device) -> None:
             f"|err| {err:.3e} of max |G| {scale:.3e}")
         assert np.isfinite(a).all() and err <= 1e-3, err
 
+    # Node2Vec: K12's walks bitwise equal to the plain version's on the
+    # CPU, so every count is equal; the embeddings by their Gram matrix
+    def walks2(d):
+        return np.concatenate(list(alg._device_walks2(
+            g, WALKS_PER_NODE, WALK_PARITY_LENGTH, N2V_P, N2V_Q, 0,
+            device=d)))
+
+    t0 = time.perf_counter()
+    wa = walks2(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wb = walks2(cpu)
+    assert np.array_equal(wa, wb)
+    log(f"phase 7 parity: {wa.shape[0]} Node2Vec walks (p={N2V_P}, "
+        f"q={N2V_Q}) bitwise equal on the card ({card_s:.2f} s) and the CPU "
+        f"({time.perf_counter() - t0:.2f} s)")
+    n2v = dict(base, p=N2V_P, q=N2V_Q)
+    for kw in (dict(cooccurrence="device"),
+               dict(cooccurrence="host", factorization="device"),
+               dict(cooccurrence="host", factorization="host")):
+        a = alg.embed_node2vec(g, device=dev, **n2v, **kw)
+        b = alg.embed_node2vec(g, device=cpu, **n2v, **kw)
+        err, scale = gram_err(a, b, rows)
+        log(f"parity embed_node2vec({kw}) Gram ({PARITY_SAMPLE} rows): max "
+            f"|err| {err:.3e} of max |G| {scale:.3e}")
+        assert np.isfinite(a).all() and err <= 1e-3, err
+
 
 def walk_full_width(dev: torch.device, card: str) -> list:
     """Phase 7 at full width: embed_deepwalk through its entry point on
@@ -1506,6 +1679,7 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         f"package's {JAX_UNIQUE_PAIRS} on this corpus shape); per partition "
         + ", ".join(str(r[3]) for r in ranges))
     assert abs(m_total / JAX_UNIQUE_PAIRS - 1) <= 0.01, m_total
+    log_rsvd_bound(m_total, n, card)
     col, total, k11_err = ppmi_vs_plain(ranges, n, dev, "phase 7 full size")
     cen, ctx, cnt, m0 = ranges[0]
     k11_ms = time_ms(lambda: cooccur.ppmi_values(cen, ctx, cnt, col, total,
@@ -1535,6 +1709,10 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     k9_bytes = 4 * b * WALK_LENGTH + 8 * lanes
     keys = cooccur.pair_keys(walks, b, n, WINDOW, passes)
     sort_ms = time_ms(lambda: torch.sort(keys), reps=5)
+    # keys read once, sorted keys and their int64 indices written once
+    sort_bytes = 3 * 8 * keys.shape[0]
+    log(f"torch.sort ({keys.shape[0]} int64 keys) {sort_ms:.3f} ms, bound "
+        f"{sort_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); [{card}]")
     del keys
     k10_ms = time_ms(lambda: cooccur.run_length(sorted_keys, None, n,
                                                 passes))
@@ -1585,7 +1763,468 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         kernel_row("ppmi", src + "ppmi.cu", "cleora_tpu/ops/cooccur.py:939",
                    k11_ms, k11_plain_ms, None, k11_err, k11_bytes, 0,
                    launches["ppmi"]),
-    ]
+    ], g
+
+
+def log_rsvd_bound(m_total: int, n: int, card: str) -> None:
+    """The bound of one rsvd apply of ops/dense.py:rsvd_sparse over the
+    PPMI CSR of ``m_total`` entries at width DIM + 16: its inputs read once
+    (column ids and values, row pointers, x) and its output written once;
+    and, beside it, the bytes of the gather that reads one row of x per
+    entry."""
+    from cleora_tpu_torch.algorithms import _device_counts_to_embeddings
+
+    r = DIM + inspect.signature(_device_counts_to_embeddings).parameters[
+        "oversample"].default
+    once = 8 * m_total + 8 * (n + 1) + 2 * 4 * n * r
+    gather = 4 * r * m_total
+    log(f"  rsvd apply over {m_total} PPMI entries at width {r}: bound "
+        f"{once / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, each input once); "
+        f"one x row per entry {gather / 1e9:.3f} GB -> "
+        f"{gather / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S:.3g} "
+        f"B/s; [{card}]")
+
+
+# ------------------------------------------------------ phase 8: Node2Vec
+def timed_once(fn) -> tuple:
+    """``fn()`` once and its device time in ms, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+SECTOR_ENTRIES = 8  # 4-byte entries per 32-byte sector
+
+
+def lower_bound_probes(cols: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, x: torch.Tensor) -> tuple:
+    """K12's lower-bound search in ``cols[lo:hi]`` for ``x``, one lane per
+    entry: the positions found, and the sector of ``cols`` each step
+    probes (-1 for a lane that had stopped)."""
+    lo, hi = lo.clone(), hi.clone()
+    probes = []
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return lo, probes
+        mid = lo + (hi - lo) // 2
+        below = active & (cols[torch.where(active, mid, 0)] < x)
+        probes.append(torch.where(active, mid // SECTOR_ENTRIES, -1))
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+
+
+def distinct_sectors(sectors: list) -> torch.Tensor:
+    """Per lane, the number of distinct non-negative sector ids among the
+    columns of ``sectors``."""
+    s = torch.stack(sectors, dim=1).sort(dim=1).values
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return (new & (s >= 0)).sum(dim=1)
+
+
+def k12_sector_bytes(walks: torch.Tensor, t, chunk: int = 16384) -> int:
+    """The bytes K12's walks need, in 32-byte sectors: K12's reads replayed
+    for the round each hop accepted (the rejected rounds are not visible in
+    the output, so this is a floor), each distinct sector counted once per
+    hop.  A hop from a live node reads deg of cur and, when its degree is
+    positive, indptr, wmax and wsum (prev's indptr and deg are cur's of the
+    hop before); the cols sectors that the backtrack search in cur's row,
+    the proposal and the common-neighbour search in prev's row touch; the
+    vals sectors of the backtrack edge and of the accepted proposal.  The
+    walks are written and the starts read once."""
+    n, entries = t.n, int(t.cols.shape[0])
+    total = 4 * walks.numel() + 4 * walks.shape[0]
+    for i in range(0, walks.shape[0], chunk):
+        w = walks[i:i + chunk].long()
+        cur, nxt = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+        prev = torch.cat([torch.full_like(w[:, :1], n), w[:, :-2]],
+                         dim=1).reshape(-1)
+        live = cur < n
+        cur, nxt, prev = cur[live], nxt[live], prev[live]
+        d = t.deg[cur].long()
+        total += 32 * int(live.sum())
+        has = d > 0
+        cur, nxt, prev, d = cur[has], nxt[has], prev[has], d[has]
+        total += 3 * 32 * cur.shape[0]
+        lo = t.indptr[cur].long()
+        hi = lo + d
+        first = prev >= n
+        prev_c = torch.where(first, 0, prev)
+        # the backtrack search in cur's row, then the test of its position
+        bt_hi = torch.where(first, lo, hi)
+        pos, cols_s = lower_bound_probes(t.cols, lo, bt_hi, prev)
+        probe = (~first) & (pos < hi)
+        cols_s.append(torch.where(probe, pos // SECTOR_ENTRIES, -1))
+        found = probe & (t.cols[torch.where(probe, pos, 0)] == prev)
+        vals_s = [torch.where(found, pos // SECTOR_ENTRIES, -1)]
+        # the accepted proposal at its position in cur's row; after the
+        # first hop its weight and the common-neighbour search in prev's row
+        took = (nxt < n) & (first | (nxt != prev))
+        e, _ = lower_bound_probes(t.cols, lo, torch.where(took, hi, lo), nxt)
+        cols_s.append(torch.where(took, e // SECTOR_ENTRIES, -1))
+        later = took & ~first
+        vals_s.append(torch.where(later, e // SECTOR_ENTRIES, -1))
+        plo = t.indptr[prev_c].long()
+        phi = torch.where(later, plo + t.deg[prev_c].long(), plo)
+        cpos, probes = lower_bound_probes(t.cols, plo, phi, nxt)
+        cols_s += probes
+        cols_s.append(torch.where(later & (cpos < phi),
+                                  cpos // SECTOR_ENTRIES, -1))
+        total += 32 * int(distinct_sectors(cols_s).sum()
+                          + distinct_sectors(vals_s).sum())
+    return total
+
+
+def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
+    """Phase 8: embed_node2vec through its entry point on phase 7's graph,
+    its stages, K12 at the main path's batch against plain and timed, and
+    the planted partition's quality.  Returns (kernel rows, the planted
+    graph, its embedding)."""
+    import cleora_tpu_torch as ctt
+    import cleora_tpu_torch.algorithms as alg
+    import cleora_tpu_torch.ops.cooccur as cooccur
+    import cleora_tpu_torch.ops.dense as dense
+    import cleora_tpu_torch.ops.walk as walk
+
+    n = g.num_entities
+    passes = alg._cooc_passes(g, N2V_WALKS, WALK_LENGTH, WINDOW)
+    indptr, cols, deg, _, vals, wmax, wsum = alg._walk_csr(g, with_vals=True)
+    n_walks = int((deg > 0).sum()) * N2V_WALKS
+    batch = alg._WALK2_BATCH
+    batches = -(-n_walks // batch)
+    power_iters = inspect.signature(
+        alg._device_counts_to_embeddings).parameters["power_iters"].default
+    applies = 2 + 2 * power_iters
+    tries = walk.walk2_tries(N2V_Q)
+    log(f"phase 8, Node2Vec p={N2V_P} q={N2V_Q} (tries {tries}) on {n} "
+        f"entities: {n_walks} walks of {WALK_LENGTH} in {batches} batches, "
+        f"window {WINDOW}, {passes} hash partitions, D={DIM}")
+
+    def node2vec():
+        return alg.embed_node2vec(
+            g, feature_dim=DIM, num_walks=N2V_WALKS, walk_length=WALK_LENGTH,
+            window_size=WINDOW, p=N2V_P, q=N2V_Q, backend="device",
+            cooccurrence="device", factorization="device")
+
+    expected = {"walk_p_q": batches, "pair_enum": batches,
+                "run_length": batches + (batches - 1) * passes,
+                "ppmi": passes, "spmm_csr": applies,
+                "spmm_axpy": applies * (passes - 1)}
+    launches = run_spectral("embed_node2vec()", node2vec, expected)
+    groups = {"K12 walks": ("walk_p_q",),
+              "counting": ("pair_keys", "sort", "run_length"),
+              "PPMI": ("ppmi_colsum_", "ppmi_values"),
+              "rsvd products": ("spmm", "spmm_axpy"),
+              "QR/SVD": ("qr", "svd"), "finalize": ("_finalize_factor",)}
+    with stopwatch((walk, "walk_p_q"), (cooccur, "pair_keys"),
+                   (torch, "sort"), (cooccur, "run_length"),
+                   (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
+                   (dense, "spmm"), (dense, "spmm_axpy"),
+                   (torch.linalg, "qr"), (torch.linalg, "svd"),
+                   (alg, "_finalize_factor")) as stages:
+        t0 = time.perf_counter()
+        node2vec()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    split = {k: sum(stages.get(x, 0.0) for x in v) for k, v in groups.items()}
+    split["other host"] = wall_s - sum(split.values())
+    walk_s = stages["walk_p_q"]
+    log(f"  embed_node2vec(): second run under the stopwatch {wall_s:.3f} s; "
+        "seconds by stage " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in split.items())
+        + f"; K12 {walk_s / batches * 1e3:.3f} ms per batch, "
+        f"{n_walks * (WALK_LENGTH - 1) / walk_s:.4e} hops/s; [{card}]")
+    torch.cuda.empty_cache()
+
+    # ---- the counts alone: pairs and unique pairs
+    def batches_fn():
+        return alg._device_walks2(g, N2V_WALKS, WALK_LENGTH, N2V_P, N2V_Q, 0,
+                                  resident=True, device=dev)
+
+    t0 = time.perf_counter()
+    ranges, m_total = cooccur.device_pair_counts(batches_fn, n, WINDOW,
+                                                 passes=passes, device=dev)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    pairs = cooccur.pair_total(ranges, n)
+    log(f"  counting alone {count_s:.3f} s: {pairs} pairs -> {m_total} "
+        f"unique ({m_total / JAX_N2V_UNIQUE_PAIRS - 1:+.4%} against the JAX "
+        f"package's {JAX_N2V_UNIQUE_PAIRS} on this configuration)")
+    assert pairs == N2V_PAIRS, pairs
+    assert abs(m_total / JAX_N2V_UNIQUE_PAIRS - 1) <= 0.01, m_total
+    log_rsvd_bound(m_total, n, card)
+    del ranges
+    torch.cuda.empty_cache()
+
+    # ---- K12 at the main path's batch, against plain, and timed
+    t = walk.WalkTables2(indptr, cols, deg, n, vals, wmax, wsum, dev)
+    starts = np.tile(np.nonzero(deg > 0)[0].astype(np.int32), N2V_WALKS)
+    starts = torch.from_numpy(starts[:batch]).to(dev)
+    args = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, starts,
+            WALK_LENGTH, 1.0 / N2V_P, 1.0 / N2V_Q, tries, 0, 0, n)
+    walks = walk.walk_p_q(*args)
+    want, k12_plain_ms = timed_once(lambda: walk.walk_p_q_plain(*args))
+    assert torch.equal(walks, want)
+    k12_err = max_err(walks, want)
+    del want
+    k12_ms = time_ms(lambda: walk.walk_p_q(*args))
+    k12_bytes = k12_sector_bytes(walks, t)
+    log(f"K12 ({walks.shape[0]} walks of {WALK_LENGTH}) {k12_ms:.3f} ms "
+        f"(plain {k12_plain_ms:.3f}), bitwise equal; "
+        f"{walks.shape[0] * (WALK_LENGTH - 1) / (k12_ms * 1e-3):.4e} hops/s; "
+        f"[{card}]")
+    del t, walks, args
+    torch.cuda.empty_cache()
+
+    # ---- quality: the planted partition, biased walks
+    t0 = time.perf_counter()
+    src, dst, comm = planted_edges(QUALITY_NODES, QUALITY_COMMUNITIES,
+                                   QUALITY_DEG_IN, QUALITY_DEG_OUT,
+                                   np.random.default_rng(3))
+    gq = ctt.SparseMatrix.from_edge_arrays(src, dst)
+    labels = comm[np.array([int(e) for e in gq.entity_ids])]
+    emb = alg.embed_node2vec(gq, QUALITY_DIM, num_walks=WALKS_PER_NODE,
+                             walk_length=QUALITY_WALK_LENGTH, p=N2V_P,
+                             q=N2V_Q, backend="device", cooccurrence="device")
+    acc = centroid_accuracy(emb, labels, np.random.default_rng(1))
+    log(f"quality: planted partition, Node2Vec p={N2V_P} q={N2V_Q}, "
+        f"{gq.num_entities} nodes, {QUALITY_COMMUNITIES} communities, "
+        f"D={QUALITY_DIM}: centroid accuracy {acc:.4f} "
+        f"({time.perf_counter() - t0:.3f} s with ingest)")
+    assert acc >= 0.99, acc
+
+    row = kernel_row("walk_p_q", "cleora_tpu_torch/kernels/walk_p_q.cu",
+                     "cleora_tpu/algorithms.py:1768", k12_ms, k12_plain_ms,
+                     None, k12_err, k12_bytes, 0, launches["walk_p_q"])
+    return [row], gq, emb
+
+
+# ----------------------------------------------------- phase 9: retrieval
+# bfloat16 keeps 8 significant bits: rounding the query and a row moves
+# their product by up to 2 * 2^-9 of its size, so a bfloat16 table cannot
+# tell the query's row from one whose exact cosine is within 2^-7 of 1
+BF16_COSINE_SLACK = 2.0 ** -7
+
+
+def check_neighbours(name: str, got, qrows, held=None, table=None):
+    """Each query's top-1 is the query's own row or ties it within 1e-6;
+    then the first queries against ``held`` (the host brute force): the
+    same indices except where scores tie within 1e-6, scores atol=1e-5.
+    With ``table`` (a bfloat16 index) only the top-1 is checked: the
+    query's own row, or a row whose exact float64 cosine with it is within
+    BF16_COSINE_SLACK of 1."""
+    others = []
+    for res, row in zip(got, qrows):
+        top = res[0]["index"]
+        if top == row:
+            continue
+        if table is not None:
+            a, b = (table[i].astype(np.float64) for i in (row, top))
+            others.append(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+            assert others[-1] >= 1.0 - BF16_COSINE_SLACK, (name, row, top)
+        else:
+            own = [r["similarity"] for r in res if r["index"] == row]
+            assert own and res[0]["similarity"] - own[0] <= 1e-6, (name, row)
+    if table is not None:
+        log(f"  {name}: {len(qrows) - len(others)} of {len(qrows)} top-1 "
+            f"are the query's row; the other top-1 rows' exact cosines with "
+            f"it are >= {min(others, default=1.0):.6f}")
+        return
+    err = 0.0
+    for res, want in zip(got, held):
+        for rg, rw in zip(res, want):
+            diff = abs(rg["similarity"] - rw["similarity"])
+            err = max(err, diff)
+            assert diff <= 1e-5, (name, rg, rw)
+            if rg["index"] != rw["index"]:
+                assert diff <= 1e-6, (name, rg, rw)
+    log(f"  {name}: every top-1 is its query's row (or ties it); "
+        f"{len(held)} queries against the host brute force: max |score "
+        f"err| {err:.3e}")
+
+
+def timed_query(name: str, call):
+    """One warm call, then one timed call as a main path (launch counts
+    zeroed before, read after); returns (result, launches)."""
+    call()
+    t0 = time.perf_counter()
+    out, launches = run_main_path(name, call)
+    log(f"  {name}: {(time.perf_counter() - t0) * 1e3:.3f} ms per batch")
+    return out, launches
+
+
+def encode_rows(table: np.ndarray, codebooks: np.ndarray,
+                dev: torch.device) -> np.ndarray:
+    """Every row's nearest centroid per subspace on the card
+    (product_quantize's assignment rule), as uint8 codes."""
+    from cleora_tpu_torch._util import full_float32_matmul
+
+    m, c, sd = codebooks.shape
+    codes = np.empty((table.shape[0], m), np.uint8)
+    x = torch.from_numpy(table).to(dev)
+    with full_float32_matmul():
+        for i in range(m):
+            sub = x[:, i * sd:(i + 1) * sd]
+            cb = torch.from_numpy(codebooks[i]).to(dev)
+            d2 = ((sub * sub).sum(1, keepdim=True) - 2 * sub @ cb.T
+                  + (cb * cb).sum(1))
+            codes[:, i] = torch.argmin(d2, dim=1).to(torch.uint8).cpu().numpy()
+    return codes
+
+
+def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
+                         gq, emb_q: np.ndarray) -> list:
+    """Phase 9: exact cosine top-k (ANNIndex, ShardedDeviceIndex in both
+    dtypes), PQ search with K13 and k-means over the full-width embedding;
+    k-means card against CPU on the planted partition's embedding."""
+    import torch.nn.functional as F
+
+    import cleora_tpu_torch.community as community
+    import cleora_tpu_torch.compress as compress
+    import cleora_tpu_torch.search as search
+    from cleora_tpu_torch._util import full_float32_matmul
+    from cleora_tpu_torch.ops.pq import device_codes, pq_adc, pq_adc_plain
+
+    n, d = table.shape
+    rng = np.random.default_rng(9)
+    qrows = rng.choice(n, QUERIES, replace=False)
+    queries = table[qrows]
+    log(f"phase 9, retrieval over embed()'s output ({n} x {d} float32, "
+        f"{table.nbytes / 1e9:.3f} GB): {QUERIES} queries, top_k={TOP_K}")
+    t0 = time.perf_counter()
+    held = search.ANNIndex(g, table, method="brute").query_batch(
+        queries[:HELD_QUERIES], TOP_K)
+    log(f"  host brute force, {HELD_QUERIES} queries: "
+        f"{time.perf_counter() - t0:.3f} s with its build")
+
+    t0 = time.perf_counter()
+    ann = search.ANNIndex(g, table, method="device")
+    log(f"  ANNIndex(method='device') built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    got, launches = timed_query("ANNIndex.query_batch",
+                                lambda: ann.query_batch(queries, TOP_K))
+    assert launches == dict.fromkeys(launches, 0)  # library calls only
+    check_neighbours("ANNIndex.query_batch", got, qrows, held)
+    del ann
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        idx = search.ShardedDeviceIndex(g, table, dtype=dtype)
+        log(f"  ShardedDeviceIndex({dtype}) built in "
+            f"{time.perf_counter() - t0:.3f} s")
+        got, _ = timed_query(f"ShardedDeviceIndex({dtype}).query_batch",
+                             lambda: idx.query_batch(queries, TOP_K))
+        check_neighbours(f"ShardedDeviceIndex({dtype})", got, qrows, held,
+                         table if dtype == "bfloat16" else None)
+        del idx
+        torch.cuda.empty_cache()
+
+    # ---- PQ: codebooks from a sample on the host, every row encoded here
+    t0 = time.perf_counter()
+    sample = table[rng.choice(n, PQ_SAMPLE, replace=False)]
+    trained = compress.product_quantize(sample, PQ_SUBSPACES, PQ_CENTROIDS,
+                                        seed=0)
+    kmeans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = encode_rows(table, trained._codebooks, dev)
+    log(f"  product_quantize(M={PQ_SUBSPACES}, C={PQ_CENTROIDS}) on "
+        f"{PQ_SAMPLE} sampled rows: {kmeans_s:.3f} s on the host; "
+        f"{n} rows encoded on the card in {time.perf_counter() - t0:.3f} s")
+    pq = compress.PQIndex(codes, trained._codebooks, PQ_SUBSPACES,
+                          d // PQ_SUBSPACES, table.shape, device=dev)
+    res, launches = timed_query(
+        "PQIndex.search_batch(backend='device')",
+        lambda: pq.search_batch(queries, TOP_K, backend="device"))
+    assert launches == dict.fromkeys(launches, 0) | {"pq_adc": 1}, launches
+    t0 = time.perf_counter()
+    host = pq.search_batch(queries[:HELD_QUERIES], TOP_K, backend="host")
+    log(f"  PQIndex.search_batch(backend='host'), {HELD_QUERIES} queries: "
+        f"{time.perf_counter() - t0:.3f} s")
+    qn = queries[:HELD_QUERIES] / np.linalg.norm(
+        queries[:HELD_QUERIES], axis=1, keepdims=True)
+    tabs = np.einsum("qmd,mcd->qmc",
+                     qn.reshape(HELD_QUERIES, PQ_SUBSPACES, -1),
+                     pq._normalized_codebooks()).astype(np.float32)
+
+    def host_scores(qi, rows):
+        return sum(tabs[qi, m, codes[rows, m]] for m in range(PQ_SUBSPACES))
+
+    np.testing.assert_allclose(res["scores"][:HELD_QUERIES], host["scores"],
+                               rtol=0, atol=1e-5)
+    for qi in range(HELD_QUERIES):
+        got_idx, want_idx = res["indices"][qi], host["indices"][qi]
+        diff = np.abs(host_scores(qi, got_idx) - host_scores(qi, want_idx))
+        assert np.all((got_idx == want_idx) | (diff <= 1e-6)), qi
+    log(f"  PQ device search against the host on {HELD_QUERIES} queries: "
+        "scores atol=1e-5, the same indices but for ties")
+
+    # ---- K13 at the main path's shape, against plain, and timed
+    codes_dev = device_codes(codes, PQ_CENTROIDS, dev)
+    qall = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    cb = torch.from_numpy(pq._normalized_codebooks().astype(np.float32)).to(
+        dev)
+    with full_float32_matmul():
+        tables = torch.einsum("qmd,mcd->qmc", torch.from_numpy(
+            qall.reshape(QUERIES, PQ_SUBSPACES, -1)).to(dev), cb).contiguous()
+    got = pq_adc(tables, codes_dev)
+    want, k13_plain_ms = timed_once(lambda: pq_adc_plain(tables, codes_dev))
+    assert torch.equal(got, want)
+    k13_err = max_err(got, want)
+    del got, want
+    k13_ms = time_ms(lambda: pq_adc(tables, codes_dev), reps=5)
+    k13_bytes = 4 * tables.numel() + codes.size + 4 * QUERIES * n
+    # the library's gather-sum on the same inputs: one embedding_bag over
+    # the (M*C, Q) transposed tables, each row's bag its M codes offset by
+    # m*C; gives the (N, Q) scores
+    t0 = time.perf_counter()
+    weight = tables.permute(1, 2, 0).reshape(PQ_SUBSPACES * PQ_CENTROIDS,
+                                             QUERIES)
+    bags = codes_dev.long() + PQ_CENTROIDS * torch.arange(PQ_SUBSPACES,
+                                                          device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    lib = F.embedding_bag(bags, weight, mode="sum")
+    got = pq_adc(tables, codes_dev)
+    step = 1 << 17
+    lib_err = max(float((got[:, i:i + step].T - lib[i:i + step]).abs().max())
+                  for i in range(0, n, step))
+    del got, lib
+    # M terms of magnitude <= 1 added in another order: a few ulps of M
+    assert lib_err <= 1e-5, lib_err
+    lib_ms = time_ms(lambda: F.embedding_bag(bags, weight, mode="sum"),
+                     reps=5)
+    log(f"K13 (Q={QUERIES}, N={n}, M={PQ_SUBSPACES}, C={PQ_CENTROIDS}) "
+        f"{k13_ms:.3f} ms (plain {k13_plain_ms:.3f}), bitwise equal; "
+        f"bound {k13_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; library "
+        f"embedding_bag {lib_ms:.3f} ms (its index offsets and transposed "
+        f"tables made beforehand in {prep_s * 1e3:.3f} ms), max |err| "
+        f"against K13 {lib_err:.3e}; [{card}]")
+    del tables, codes_dev, pq, weight, bags
+    torch.cuda.empty_cache()
+
+    # ---- k-means assignment on the planted partition's embedding: the
+    # card against the CPU
+    t0 = time.perf_counter()
+    a = community.detect_communities_kmeans(gq, emb_q, KMEANS_K, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = community.detect_communities_kmeans(gq, emb_q, KMEANS_K, device="cpu")
+    agree = np.mean([a[e] == b[e] for e in gq.entity_ids])
+    log(f"  detect_communities_kmeans(k={KMEANS_K}) on the planted "
+        f"partition's embedding ({emb_q.shape[0]} x {emb_q.shape[1]}): card "
+        f"{card_s:.3f} s, CPU {time.perf_counter() - t0:.3f} s, labels "
+        f"agree on {agree:.5f} of rows")
+    assert agree >= 0.999, agree
+
+    return [kernel_row("pq_adc", "cleora_tpu_torch/kernels/pq_adc.cu",
+                       "cleora_tpu/compress.py:149", k13_ms, k13_plain_ms,
+                       lib_ms, k13_err, k13_bytes, 0, launches["pq_adc"])]
 
 
 def main() -> int:
@@ -1600,10 +2239,19 @@ def main() -> int:
     check_kernels(dev)
     slice_parity(dev)
     walk_parity(dev)
-    rows, graph = full_width(dev, card)
+    rows, graph, table = full_width(dev, card)
     rows += spectral_full_width(dev, card, graph)
-    del graph
-    rows += walk_full_width(dev, card)
+    graph._device_cache.clear()  # phase 9 reads its entity ids only
+    walk_rows, walk_graph = walk_full_width(dev, card)
+    rows += walk_rows
+    t0 = time.perf_counter()
+    n2v_rows, gq, emb_q = node2vec_full_width(dev, card, walk_graph)
+    rows += n2v_rows
+    del walk_graph
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += retrieval_full_width(dev, card, graph, table, gq, emb_q)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

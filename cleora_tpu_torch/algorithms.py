@@ -31,13 +31,13 @@ of the card's free memory); past the gate, or with ``block_rows=``, a
 blocked path materializes one row block of the log matrix at a time.
 
 The walk-based siblings (cleora_tpu/algorithms.py:1122-3024): DeepWalk
-and Node2Vec with ``p == q == 1`` run on the card as walks (kernel K8,
-``kernels/walk_uniform.cu``), co-occurrence counts on the host or on the
-card (kernels K9 ``pair_enum.cu`` and K10 ``run_length.cu`` around
-``torch.sort``, ``ops/cooccur.py``), the PPMI transform (K11
-``ppmi.cu``) and a randomized SVD whose products are K1 and K5.  Node2Vec
-with ``p != 1`` or ``q != 1`` on the card needs the second-order walk
-kernel of the next slice; its ``backend="host"`` takes any p, q.
+and Node2Vec run on the card as walks (kernel K8,
+``kernels/walk_uniform.cu``, for DeepWalk and Node2Vec with ``p == q ==
+1``; kernel K12, ``kernels/walk_p_q.cu``, the second-order p/q walk, for
+any other p, q), co-occurrence counts on the host or on the card (kernels
+K9 ``pair_enum.cu`` and K10 ``run_length.cu`` around ``torch.sort``,
+``ops/cooccur.py``), the PPMI transform (K11 ``ppmi.cu``) and a randomized
+SVD whose products are K1 and K5.
 """
 
 from __future__ import annotations
@@ -54,7 +54,14 @@ from .ops import memory
 from .ops.cooccur import CountCheckpoint, device_pair_counts, ppmi_csrs
 from .ops.dense import dense_markov, log_clip, rsvd_sparse, rsvd_u_sqrt
 from .ops.spmm import CsrMatrix, spmm, spmm_axpy
-from .ops.walk import WALK_BATCH, WalkTables, device_walks
+from .ops.walk import (
+    WALK_BATCH,
+    WalkTables,
+    WalkTables2,
+    device_walks,
+    device_walks2,
+    walk2_tries,
+)
 
 _SHARDED_NOT_PORTED = (
     "mesh=/n_devices= (the sharded device backends) are not ported yet: "
@@ -849,16 +856,28 @@ _WALK_BATCH = WALK_BATCH
 # (jax.random), so its checkpoints carry their own engine tag and a port run
 # never resumes from counts the JAX package wrote
 _WALK_ENGINE = "walk1-philox"
-_WALK2_NOT_PORTED = (
-    "embed_node2vec(backend='device') with p != 1 or q != 1 needs the "
-    "second-order (p/q) walk kernel, the next slice of the port (ROADMAP.md, "
-    "queue B item 11); p == q == 1 runs the first-order engine on the "
-    "device, and backend='host' takes any p, q"
-)
+_WALK2_ENGINE = "walk2-philox"
+# Second-order walks per device batch.  The JAX package's 65,536
+# (cleora_tpu/algorithms.py:1982-1986) is a limit of its TPU worker; here
+# the batch is the first-order path's device-counting batch, whose pair keys
+# the counting sort already holds beside the finished ranges.
+_WALK2_BATCH = _WALK_BATCH // 2
 _SHARDED_WALKS_NOT_PORTED = (
     "walk_tables='sharded' and factorization='sharded' are not ported yet: "
     "they are the multi-GPU slice of the port (ROADMAP.md, queue A item 8)"
 )
+
+
+def _cached(graph, key, build):
+    """``build()``, kept in the graph's cache under ``key`` (graphs without
+    a cache build every time)."""
+    cache = getattr(graph, "_device_cache", None)
+    value = cache.get(key) if cache is not None else None
+    if value is None:
+        value = build()
+        if cache is not None:
+            cache[key] = value
+    return value
 
 
 def _walk_csr(graph, with_vals: bool = False):
@@ -866,14 +885,8 @@ def _walk_csr(graph, with_vals: bool = False):
     cached per graph: ``(indptr[:-1] int32, cols int32, deg int32, n)``
     (cleora_tpu/algorithms.py:1165-1186).  ``with_vals`` additionally
     returns the edge weights, the per-row max and the per-row sum."""
-    cache = getattr(graph, "_device_cache", None)
-    key = ("walk_csr", with_vals)
-    if cache is not None and key in cache:
-        return cache[key]
-    out = _walk_csr_build(graph, with_vals)
-    if cache is not None:
-        cache[key] = out
-    return out
+    return _cached(graph, ("walk_csr", with_vals),
+                   lambda: _walk_csr_build(graph, with_vals))
 
 
 def _walk_csr_build(graph, with_vals: bool):
@@ -907,10 +920,12 @@ def _walk_csr_build(graph, with_vals: bool):
     return ip32, cols, deg, n, v, wmax, wsum.astype(np.float32)
 
 
-def _walk_table_mode(mode: str, n: int, nnz: int, device) -> None:
+def _walk_table_mode(mode: str, n: int, nnz: int, device,
+                     second_order: bool = False) -> None:
     """The walk-table placement on one card (cleora_tpu/algorithms.py:
     1483-1528): the CSR is replicated on the card, fit-checked against its
-    free memory; 'sharded' is the multi-GPU slice."""
+    free memory (the second-order tables add the edge weights and the
+    per-row wmax/wsum); 'sharded' is the multi-GPU slice."""
     if mode not in ("auto", "replicated", "sharded"):
         raise ValueError(
             f"Unknown walk_tables '{mode}'. Use 'auto', 'replicated' or "
@@ -923,9 +938,11 @@ def _walk_table_mode(mode: str, n: int, nnz: int, device) -> None:
     limit = memory.device_memory_limit(device)
     if limit is None:
         return
-    # cols + indptr + deg + ~3 batch-sized (B, L) buffers
-    table = n * 8 + nnz * 4
-    batch = 3 * _WALK_BATCH * 4 * 80
+    # cols + indptr + deg (+vals/wmax/wsum for the second-order engine) +
+    # ~3 batch-sized (B, L) buffers
+    per_edge = 8 if second_order else 4
+    table = n * 8 + nnz * per_edge + (n * 12 if second_order else 0)
+    batch = 3 * (_WALK2_BATCH if second_order else _WALK_BATCH) * 4 * 80
     if table + batch > int(limit * 0.9):
         raise ValueError(
             f"walk tables need ~{table / (1 << 30):.1f} GiB (replicated "
@@ -947,15 +964,36 @@ def _device_walks(graph, num_walks: int, walk_length: int, seed: int,
     starts = np.nonzero(deg > 0)[0].astype(np.int32)
     if starts.shape[0] == 0:
         return
-    cache = getattr(graph, "_device_cache", None)
-    key = ("walk_tables", dev)
-    tables = cache.get(key) if cache is not None else None
-    if tables is None:
-        tables = WalkTables(indptr, cols, deg, n, dev)
-        if cache is not None:
-            cache[key] = tables
+    tables = _cached(graph, ("walk_tables", dev),
+                     lambda: WalkTables(indptr, cols, deg, n, dev))
     yield from device_walks(tables, starts, num_walks, walk_length, seed,
                             batch=batch, resident=resident)
+
+
+def _device_walks2(graph, num_walks: int, walk_length: int, p: float,
+                   q: float, seed: int, batch: int = _WALK2_BATCH,
+                   tries: Optional[int] = None, resident: bool = False,
+                   walk_tables: str = "auto", device=None):
+    """Yield (B, walk_length) int32 host batches of p/q-biased walks
+    (sentinel == n), or ``(walks, pad)`` left on the device with
+    ``resident=True`` (cleora_tpu/algorithms.py:1989-2063, single device):
+    one walk from each node of degree > 0 per round, ``num_walks`` rounds,
+    by kernel K12.  ``tries`` defaults to ``min(1024, max(64, ⌈8q⌉))``;
+    the walks do not depend on ``batch``."""
+    dev = resolve_device(device)
+    indptr, cols, deg, n, vals, wmax, wsum = _walk_csr(graph, with_vals=True)
+    _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev,
+                     second_order=True)
+    if tries is None:
+        tries = walk2_tries(q)
+    starts = np.nonzero(deg > 0)[0].astype(np.int32)
+    if starts.shape[0] == 0:
+        return
+    tables = _cached(graph, ("walk_tables2", dev),
+                     lambda: WalkTables2(indptr, cols, deg, n, vals, wmax,
+                                         wsum, dev))
+    yield from device_walks2(tables, starts, num_walks, walk_length, p, q,
+                             tries, seed, batch, resident=resident)
 
 
 def _unique_counts_u64(keys: np.ndarray):
@@ -1250,7 +1288,7 @@ def _walks_ppmi_device(graph, feature_dim, window_size, seed, batches_fn,
     if checkpoint_dir is not None:
         fp = _walk_fingerprint(
             graph,
-            bool(fp_params and fp_params.get("engine") == "walk2"),
+            bool(fp_params and fp_params.get("engine") == _WALK2_ENGINE),
             dict(fp_params or {}, window=window_size, passes=passes,
                  n=graph.num_entities, seed=seed),
         )
@@ -1341,6 +1379,35 @@ def _deepwalk_device(graph, feature_dim, num_walks, walk_length, window_size,
         )
     batches = _device_walks(graph, num_walks, walk_length, seed,
                             walk_tables=walk_tables, device=dev)
+    keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
+    emb = _counts_to_embeddings(keys, counts, graph.num_entities,
+                                feature_dim, factorization=factorization,
+                                seed=seed, device=dev)
+    return _write_npy(emb, out) if out is not None else emb
+
+
+def _node2vec_device(graph, feature_dim, num_walks, walk_length, window_size,
+                     p, q, seed, factorization="host", mesh=None,
+                     n_devices=None, cooccurrence="host", checkpoint_dir=None,
+                     checkpoint_every=1, out=None, walk_tables="auto",
+                     device=None):
+    _check_not_sharded(mesh, n_devices)
+    dev = resolve_device(device)
+    if cooccurrence == "device":
+        return _walks_ppmi_device(
+            graph, feature_dim, window_size, seed,
+            lambda: _device_walks2(graph, num_walks, walk_length, p, q,
+                                   seed, resident=True,
+                                   walk_tables=walk_tables, device=dev),
+            passes=_cooc_passes(graph, num_walks, walk_length, window_size),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, out=out,
+            fp_params=dict(engine=_WALK2_ENGINE, num_walks=num_walks,
+                           walk_length=walk_length, p=p, q=q),
+            factorization=factorization, device=dev,
+        )
+    batches = _device_walks2(graph, num_walks, walk_length, p, q, seed,
+                             walk_tables=walk_tables, device=dev)
     keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
     emb = _counts_to_embeddings(keys, counts, graph.num_entities,
                                 feature_dim, factorization=factorization,
@@ -1502,24 +1569,37 @@ def embed_node2vec(
 
     ``backend="host"`` is the reference's walker for any p, q.
     ``backend="device"`` with ``p == q == 1`` (the reference default) is
-    exactly :func:`embed_deepwalk`'s device pipeline; ``p != 1`` or
-    ``q != 1`` needs the second-order walk kernel, the next slice of the
-    port, and raises NotImplementedError."""
+    exactly :func:`embed_deepwalk`'s device pipeline; any other p, q walks
+    with kernel K12 (one thread per walk, uniform first hop, then the p/q
+    bias by composition and rejection with Philox uniforms: the walks are
+    bitwise the same on the card and the CPU, and another stream than the
+    JAX package's) and then counts and factorizes as DeepWalk does, in
+    every ``cooccurrence``/``factorization`` mode.  After ``min(1024,
+    max(64, ⌈8q⌉))`` rejected proposals a hop takes the last uniform
+    proposal, as in the JAX package.  Host-path semantics otherwise,
+    dead-row stops included; checkpoints carry the edge weights in their
+    fingerprint."""
     if p <= 0.0 or q <= 0.0:
         raise ValueError("p and q must be positive")
     factorization = _validate_cooccurrence(cooccurrence, backend,
                                            factorization)
     _validate_lifecycle(graph, backend, cooccurrence, checkpoint_dir)
     if backend == "device":
-        if p != 1.0 or q != 1.0:
-            raise NotImplementedError(_WALK2_NOT_PORTED)
-        return _deepwalk_device(
-            graph, feature_dim, num_walks, walk_length, window_size,
+        if p == 1.0 and q == 1.0:
+            return _deepwalk_device(
+                graph, feature_dim, num_walks, walk_length, window_size,
+                seed, factorization=factorization, mesh=mesh,
+                n_devices=n_devices, cooccurrence=cooccurrence,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, out=out,
+                walk_tables=walk_tables, device=device,
+            )
+        return _node2vec_device(
+            graph, feature_dim, num_walks, walk_length, window_size, p, q,
             seed, factorization=factorization, mesh=mesh,
             n_devices=n_devices, cooccurrence=cooccurrence,
-            checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, out=out,
-            walk_tables=walk_tables, device=device,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            out=out, walk_tables=walk_tables, device=device,
         )
     if factorization == "device":
         raise ValueError("factorization='device' requires backend='device'")

@@ -3,8 +3,8 @@
 K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu``, K7
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
-``run_length.cu`` and K11 ``ppmi.cu`` are built at first use
-(:mod:`.build`).  Each wrapper
+``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu`` and K13
+``pq_adc.cu`` are built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -62,6 +62,15 @@ _ARGTYPES = {
     "walk_uniform": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                      _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
                      _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_void_p],
+    # indptr, cols, vals, deg, wmax, wsum, starts, walks, batch, walk_length,
+    # base, k0, k1, n, inv_p, inv_q, tries, stream
+    "walk_p_q": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                 _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                 _c.c_int64, _c.c_int, _c.c_int64, _c.c_uint32, _c.c_uint32,
+                 _c.c_int32, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # tables, codes, code_bytes, scores, q, n, m, c, stream
+    "pq_adc": [_c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int64,
+               _c.c_int64, _c.c_int, _c.c_int, _c.c_void_p],
     # walks, batch, walk_length, n_valid, n, passes, window, keys, stream
     "pair_enum": [_c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p, _c.c_void_p],
@@ -365,6 +374,85 @@ def walk_uniform(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
                 torch.cuda.current_stream(starts.device).cuda_stream)
     _check_launch(name, rc)
     return walks
+
+
+def walk_p_q(indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             deg: torch.Tensor, wmax: torch.Tensor, wsum: torch.Tensor,
+             starts: torch.Tensor, walk_length: int, inv_p: float,
+             inv_q: float, tries: int, seed: int, base: int,
+             n: int) -> torch.Tensor:
+    """K12: one second-order (Node2Vec p/q) walk of ``walk_length`` nodes
+    from each of ``starts`` (int32 (B,); the sentinel ``n`` marks a pad
+    lane) over the weighted walk CSR (``indptr``, ``cols``, ``deg``: int32;
+    ``vals`` float32 per column; ``wmax``, ``wsum`` float32 per node), with
+    ``inv_p``/``inv_q`` rounded to float32 and at most ``tries`` proposals
+    per hop.  Lane ``b`` is the walk of global index ``base + b`` and draws
+    from Philox4x32-10 keyed by ``seed``.  Returns a new int32
+    (B, walk_length) tensor.  The tables must be valid
+    (``ops/walk.py:WalkTables2`` checks them once)."""
+    name = "walk_p_q"
+    for t in (indptr, cols, deg, starts):
+        _require(t.dtype == torch.int32 and t.dim() == 1,
+                 f"{name}: int32 1-D tables and starts expected")
+    for t in (vals, wmax, wsum):
+        _require(t.dtype == torch.float32 and t.dim() == 1,
+                 f"{name}: float32 1-D vals, wmax and wsum expected")
+    _require(indptr.shape == deg.shape == wmax.shape == wsum.shape
+             and indptr.shape[0] == n,
+             f"{name}: indptr, deg, wmax and wsum must have one entry per "
+             "node")
+    _require(vals.shape == cols.shape, f"{name}: vals must match cols")
+    _require(walk_length >= 1 and base >= 0 and tries >= 1,
+             f"{name}: walk_length >= 1, base >= 0 and tries >= 1 expected")
+    _require_cuda_contiguous(name, starts.device, indptr, cols, vals, deg,
+                             wmax, wsum, starts)
+    batch = starts.shape[0]
+    walks = torch.empty((batch, walk_length), dtype=torch.int32,
+                        device=starts.device)
+    key = int(seed) & ((1 << 64) - 1)
+    fn = _bound(name)
+    with torch.cuda.device(starts.device):
+        rc = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                deg.data_ptr(), wmax.data_ptr(), wsum.data_ptr(),
+                starts.data_ptr(), walks.data_ptr(), batch, int(walk_length),
+                int(base), key & _U32, key >> 32, int(n),
+                float(np.float32(inv_p)), float(np.float32(inv_q)),
+                int(tries),
+                torch.cuda.current_stream(starts.device).cuda_stream)
+    _check_launch(name, rc)
+    return walks
+
+
+_CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+
+
+def pq_adc(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """K13: the asymmetric-distance scores ``scores[q, i] = Σ_m
+    tables[q, m, codes[i, m]]``, summed in ``m`` order in float32, from
+    float32 (Q, M, C) ``tables`` and (N, M) ``codes`` (uint8, uint16 or
+    int32).  Every code must lie in [0, C): the codes are uploaded once and
+    checked there (``ops/pq.py:device_codes``), not on every search.
+    Returns a new float32 (Q, N) tensor."""
+    name = "pq_adc"
+    _require(tables.dtype == torch.float32 and tables.dim() == 3,
+             f"{name}: tables must be a 3-D float32 tensor")
+    _require(codes.dtype in _CODE_BYTES and codes.dim() == 2,
+             f"{name}: codes must be a 2-D uint8, uint16 or int32 tensor")
+    q, m, c = tables.shape
+    _require(codes.shape[1] == m and m >= 1 and c >= 1,
+             f"{name}: codes need one column per subspace of tables")
+    _require_cuda_contiguous(name, tables.device, tables, codes)
+    n = codes.shape[0]
+    scores = torch.empty((q, n), dtype=torch.float32, device=tables.device)
+    if q == 0 or n == 0:
+        return scores
+    fn = _bound(name)
+    with torch.cuda.device(tables.device):
+        rc = fn(tables.data_ptr(), codes.data_ptr(), _CODE_BYTES[codes.dtype],
+                scores.data_ptr(), q, n, m, c,
+                torch.cuda.current_stream(tables.device).cuda_stream)
+    _check_launch(name, rc)
+    return scores
 
 
 def pair_keys_fit(n: int, passes: int) -> None:

@@ -17,7 +17,9 @@ row sums and the float64 total in another order); K7 atol=1e-6 (the same
 float32 operations and the same logf); K8, K9 and K10 bitwise (integer
 arithmetic and one exactly repeated float32 product per hop); K11 column
 sums and row pointers bitwise, values rtol=1e-6 (the same float32
-operations in the same order, another logf).
+operations in the same order, another logf); K12 bitwise (the same Philox
+words and the same round-to-nearest float32 operations in the same order);
+K13 bitwise (the same float32 adds in the same order).
 """
 
 import numpy as np
@@ -49,7 +51,14 @@ from cleora_tpu_torch.ops.dense import (
     log_clip,
     log_clip_plain,
 )
-from cleora_tpu_torch.ops.walk import WalkTables, walk_uniform_plain
+from cleora_tpu_torch.ops.pq import pq_adc_plain
+from cleora_tpu_torch.ops.walk import (
+    WalkTables,
+    WalkTables2,
+    walk2_tries,
+    walk_p_q_plain,
+    walk_uniform_plain,
+)
 from cleora_tpu_torch.ops.spmm import (
     CsrMatrix,
     spmm,
@@ -327,6 +336,79 @@ def test_k11_matches_plain(cuda_device, passes):
         torch.testing.assert_close(vals, want_vals, rtol=1e-6, atol=0.0)
 
 
+def weighted_walk_tables(n, seed, device, hub_degree=3000):
+    """A weighted walk CSR with (row, col)-sorted rows, one hub (node 1), a
+    row whose weights are all 0 (node 2) and an isolated node (n - 1)."""
+    rng = np.random.default_rng(seed)
+    m = 3 * n
+    src = np.concatenate([rng.integers(0, n - 1, m), np.ones(hub_degree,
+                                                             np.int64)])
+    dst = np.concatenate([rng.integers(0, n - 1, m),
+                          rng.choice(n - 1, hub_degree, replace=False)])
+    keys = np.unique(np.concatenate([src * n + dst, dst * n + src]))
+    rows, cols = keys // n, keys % n
+    keep = rows != cols
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(0.05, 3.0, rows.shape[0]).astype(np.float32)
+    vals[rows == 2] = 0.0
+    deg = np.bincount(rows, minlength=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    wmax = np.zeros(n, np.float32)
+    np.maximum.at(wmax, rows, vals)
+    wsum = np.zeros(n, np.float64)
+    np.add.at(wsum, rows, vals.astype(np.float64))
+    return WalkTables2(indptr, cols, deg, n, vals, wmax,
+                       wsum.astype(np.float32), device)
+
+
+@cuda
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25), (0.01, 1.0),
+                                 (1.0, 100.0)])
+@pytest.mark.parametrize("batch", [1, 4099])
+def test_k12_bitwise(cuda_device, p, q, batch):
+    n = 4000
+    t = weighted_walk_tables(n, 2, cuda_device)
+    starts = torch.randint(0, n + 1, (batch,), device=cuda_device,
+                           dtype=torch.int32)  # n: pad lanes
+    starts[0] = 1  # the hub
+    args = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, starts, 20,
+            1.0 / p, 1.0 / q, walk2_tries(q), 2**40 + 7, 3)
+    before = kernels.LAUNCHES["walk_p_q"]
+    got = kernels.walk_p_q(*args, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk_p_q"] == before + 1
+    assert got.shape == (batch, 20)
+    assert torch.equal(got, walk_p_q_plain(*args, n))
+    cpu = walk_p_q_plain(*(a.cpu() if torch.is_tensor(a) else a
+                           for a in args), n)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def _adc_case(q, m, c, n, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    tables = torch.randn((q, m, c), generator=gen)
+    codes = torch.randint(0, c, (n, m), generator=gen, dtype=torch.int32)
+    return tables.to(device), codes.to(dtype).to(device)
+
+
+@cuda
+@pytest.mark.parametrize("q,m,c,n,dtype", [
+    (1, 8, 256, 1000, torch.uint8),
+    (37, 8, 256, 20000, torch.uint8),
+    (64, 4, 300, 5000, torch.uint16),
+    (9, 16, 16, 777, torch.int32),
+    (3, 64, 1024, 500, torch.int32),  # 256 KiB per query: gathers from HBM
+])
+def test_k13_bitwise(cuda_device, q, m, c, n, dtype):
+    tables, codes = _adc_case(q, m, c, n, dtype, cuda_device)
+    before = kernels.LAUNCHES["pq_adc"]
+    got = kernels.pq_adc(tables, codes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pq_adc"] == before + 1
+    assert got.shape == (q, n) and torch.equal(got, pq_adc_plain(tables,
+                                                                 codes))
+
+
 # ------------------------------------------- argument checks (need no card)
 def _cpu_csr(n=20):
     indptr = torch.arange(n + 1, dtype=torch.int64)
@@ -451,3 +533,51 @@ def test_walk_and_count_wrappers_reject_bad_operands():
         kernels.ppmi(i32, i32, i32[:3], torch.zeros(4, dtype=torch.int64),
                      torch.zeros(1, dtype=torch.int64), 4)
     assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+def test_k12_and_k13_wrappers_reject_bad_operands():
+    t = WalkTables2(np.array([0, 1]), np.array([1, 0]), np.array([1, 1]), 2,
+                    np.ones(2), np.ones(2), np.ones(2), torch.device("cpu"))
+    starts = torch.zeros(4, dtype=torch.int32)
+    tab = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 64, 0, 0, 2)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.walk_p_q(*tab, starts.long(), 5, 1.0, 1.0, 64, 0, 0, 2)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.walk_p_q(t.indptr, t.cols, t.vals.double(), *tab[3:], starts,
+                         5, 1.0, 1.0, 64, 0, 0, 2)
+    with pytest.raises(ValueError, match="one entry per node"):
+        kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 64, 0, 0, 3)
+    with pytest.raises(ValueError, match="vals must match cols"):
+        kernels.walk_p_q(t.indptr, t.cols, t.vals[:1], *tab[3:], starts, 5,
+                         1.0, 1.0, 64, 0, 0, 2)
+    with pytest.raises(ValueError, match="tries >= 1"):
+        kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 0, 0, 0, 2)
+    tables, codes = _adc_case(2, 4, 16, 10, torch.uint8, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.pq_adc(tables, codes)
+    with pytest.raises(ValueError, match="3-D float32"):
+        kernels.pq_adc(tables.double(), codes)
+    with pytest.raises(ValueError, match="uint8, uint16 or int32"):
+        kernels.pq_adc(tables, codes.long())
+    with pytest.raises(ValueError, match="one column per subspace"):
+        kernels.pq_adc(tables, codes[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.pq_adc(tables, codes.T.contiguous().T)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+def test_walk_tables2_reject_unsorted_rows_and_bad_weights():
+    cpu = torch.device("cpu")
+    one = np.ones(3)
+    with pytest.raises(ValueError, match="sorted"):
+        WalkTables2(np.array([0, 2, 3]), np.array([2, 1, 0]),
+                    np.array([2, 1, 0]), 3, one, one, one, cpu)
+    with pytest.raises(ValueError, match="vals need one entry"):
+        WalkTables2(np.array([0, 2, 3]), np.array([1, 2, 0]),
+                    np.array([2, 1, 0]), 3, one[:2], one, one, cpu)
+    # a descent between two rows is no fault
+    WalkTables2(np.array([0, 2, 3]), np.array([1, 2, 0]),
+                np.array([2, 1, 0]), 3, one, one, one, cpu)

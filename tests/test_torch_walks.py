@@ -1,5 +1,5 @@
 """The port's walk pipeline (DeepWalk, Node2Vec with p = q = 1) against the
-JAX package's, on the CPU.
+JAX package's, on the CPU (the second-order walk: test_torch_node2vec.py).
 
 A seeded 150-node graph (the fixture of ``tests/test_cooccur_device.py``)
 and a planted-partition graph of 300 nodes are built by the JAX package and
@@ -419,10 +419,18 @@ def test_multi_gpu_arguments_raise_not_implemented(graphs, kw):
 
 
 def test_biased_node2vec_on_the_device_names_the_next_slice(graphs):
+    """A biased Node2Vec on one device runs (kernel K12) and returns finite
+    unit rows; what it still lacks, the sharded walk tables, names the
+    multi-GPU slice that comes next."""
     _, g = graphs
-    with pytest.raises(NotImplementedError, match="second-order"):
-        talg.embed_node2vec(g, feature_dim=8, p=0.5, backend="device",
-                            device="cpu")
+    kw = dict(feature_dim=8, p=0.5, num_walks=2, walk_length=10,
+              backend="device", device="cpu")
+    e = talg.embed_node2vec(g, **kw)
+    assert e.shape == (g.num_entities, 8) and np.isfinite(e).all()
+    norms = np.linalg.norm(e, axis=1)
+    assert np.all((np.abs(norms - 1) < 1e-5) | (norms < 1e-6))
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        talg.embed_node2vec(g, walk_tables="sharded", **kw)
 
 
 def test_device_backend_without_a_card_raises(graphs):
