@@ -11,8 +11,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/spmm_axpy.cu), K6 (kernels/dense_markov.cu), K7
    (kernels/log_clip.cu), K8 (kernels/walk_uniform.cu), K9
    (kernels/pair_enum.cu), K10 (kernels/run_length.cu), K11
-   (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu) and K13 (kernels/pq_adc.cu)
-   are compiled from the checkout's sources, one nvcc each, in parallel;
+   (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu), K13 (kernels/pq_adc.cu),
+   K14 (kernels/label_prop.cu) and K15 (kernels/relu_dropout.cu) are
+   compiled from the checkout's sources, one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
    {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
@@ -36,6 +37,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of 5,000 and of 1,000; K13 bitwise at (Q, M, C, N) in {(1, 8, 256,
    1000), (37, 8, 256, 100000), (64, 4, 300, 5000) with uint16 codes, (3,
    64, 1024, 2000) with int32 codes, whose tables are gathered from HBM};
+   K14 on K1's hub CSR at C in {2, 7, 40, 47} and alpha in {0.5, 0.3}
+   (clamped rows bitwise, the rest rtol=1e-5, atol=1e-6: the row sum in
+   another order than the plain version's atomics; also whether it equals
+   the plain version on the CPU, which adds in edge order); K15's forward
+   and backward bitwise at p in {0, 0.5} on odd shapes, and against the
+   CPU's masks; the GCN SpMM's backward (K1 over the transpose, through
+   ops/gcn.py's CsrSpmm) against the plain SpMM (rtol=1e-5, atol=1e-6);
 4. slice parity: a 20,000-node random graph through the card and through
    device="cpu": embed() unwhitened allclose, whitened Gram matrices of
    2,000 sampled rows, bf16 storage, and the same early-stop iteration under
@@ -125,7 +133,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    backend="host" on 64; K13 at (Q, N) = (1,024, 1,958,363) bitwise against
    its plain version and timed; detect_communities_kmeans(k=50) on phase
    8's planted-partition embedding, the card against device="cpu" (labels
-   equal on >= 99.9 % of rows).  Phases 8 and 9 print their seconds.
+   equal on >= 99.9 % of rows);
+10. node classification: BASELINE config 3 at full width, the
+   ogbn-arxiv-shaped graph of datasets.load_dataset("ogbn_arxiv") (169,343
+   nodes, 1,166,243 edges, 40 classes, seed 1001) generated into a
+   temporary cache, embed(D=256, 40 iterations, whitened), the centroid
+   accuracy of metrics.node_classification_scores (>= 0.99; the JAX
+   package recorded 0.998), then as main paths with launch counts, wall
+   seconds and peak memory: mlp_classify(hidden_dim=0) (the linear probe,
+   library calls only; 10 epochs, a cut from 200), label_propagation_predict (K14 30 times) and
+   gcn_classify (K1 3 times an epoch and twice an evaluation, K15 twice an
+   epoch and once an evaluation); card against CPU on the same embedding:
+   label propagation's predictions equal but for near-ties (top two within
+   1e-6), 5 GCN steps at dropout 0.5 and one epoch of the linear probe
+   with parameters within 1e-4 relative; K14 at C = 47 and 40, K15 at
+   width 64 and K1 over the GCN operator's transpose at width 64 on phase
+   5's 1,958,363-row graph against their plain versions, timed beside
+   torch.sparse.mm + tail + where, F.dropout(F.relu) and torch.sparse.mm;
+   BASELINE config 4 (scripts/e2e_configs.py:75-120) card against CPU,
+   link-prediction AUC within 0.01.  Phases 8 to 10 print their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -211,6 +237,28 @@ PQ_SAMPLE = 100_000
 PQ_SUBSPACES = 8
 PQ_CENTROIDS = 256
 KMEANS_K = 50
+# phase 3's K14 widths: the class counts of karate (2), cora (7), ogbn-arxiv
+# (40) and ogbn-products (47); K15's shapes, odd ones among them
+K14_WIDTHS = (2, 7, 40, 47)
+K15_SHAPES = ((1, 1), (33, 7), (20_001, 64), (517, 3))
+# phase 10: BASELINE config 3 (scripts/e2e_configs.py:57-72), the
+# ogbn-arxiv-shaped synthetic graph of datasets.load_ogbn_arxiv, and the
+# classifiers at their defaults; the JAX package's centroid accuracy on it
+# was 0.998 (RESULTS.md:641-643)
+ARXIV_NODES = 169_343
+ARXIV_EDGES = 1_166_243
+ARXIV_CLASSES = 40
+CENTROID_MIN = 0.99
+# a cut from mlp_classify's 200 epochs: the probe is host-bound at about
+# 1.3 ms per minibatch step on the card's host (136 s for 200 epochs of 530
+# steps, PERF.md section 5); the accuracy it reaches is printed
+PROBE_EPOCHS = 10
+GCN_EPOCHS = 200
+LP_ITERATIONS = 30
+GCN_PARITY_EPOCHS = 5
+GCN_HIDDEN = 64
+# K14 at full size: ogbn-products' class count (47) and ogbn-arxiv's (40)
+K14_FULL_WIDTHS = (47, 40)
 # scripts/walk_quality_probe.py's defaults
 QUALITY_NODES = 100_000
 QUALITY_COMMUNITIES = 50
@@ -239,19 +287,18 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_share(csr, x0, iterations: int = 3) -> None:
-    """Device busy share of a few loop iterations, and the kernels that
-    take the time, from a torch.profiler trace."""
+def device_busy(what: str, call, per: int, unit: str) -> None:
+    """Device busy share of ``call``, and the kernels that take the time
+    (per ``unit``, ``per`` of them in the call), from a torch.profiler
+    trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from cleora_tpu_torch.ops.loop import embed_loop
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        embed_loop(csr, x0, iterations, 0.0, "l2", True)
+        call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: a CPU op's row repeats its kernels' time
@@ -261,13 +308,22 @@ def device_share(csr, x0, iterations: int = 3) -> None:
                   and e.self_device_time_total > 0]
     busy_us = sum(us for _, us in kernels_us)
     if not busy_us:
-        log("device busy share: not measured (the trace holds no device time)")
+        log(f"device busy share over {what}: not measured (the trace holds "
+            "no device time)")
         return
-    log(f"device busy share over {iterations} traced iterations: "
-        f"{busy_us / wall_us:.3f} ({busy_us / 1e3:.3f} of "
-        f"{wall_us / 1e3:.3f} ms)")
+    log(f"device busy share over {what}: {busy_us / wall_us:.3f} "
+        f"({busy_us / 1e3:.3f} of {wall_us / 1e3:.3f} ms)")
     for key, us in sorted(kernels_us, key=lambda t: -t[1])[:8]:
-        log(f"  {us / 1e3 / iterations:9.3f} ms/it  {key[:90]}")
+        log(f"  {us / 1e3 / per:9.3f} ms/{unit}  {key[:90]}")
+
+
+def device_share(csr, x0, iterations: int = 3) -> None:
+    """Device busy share of a few loop iterations."""
+    from cleora_tpu_torch.ops.loop import embed_loop
+
+    device_busy(f"{iterations} traced iterations",
+                lambda: embed_loop(csr, x0, iterations, 0.0, "l2", True),
+                iterations, "it")
 
 
 def environment() -> str:
@@ -357,6 +413,108 @@ def check_kernels(dev: torch.device) -> None:
     check_k7(dev)
     check_k12(dev)
     check_k13(dev)
+    check_k14(dev, csr)
+    check_k15(dev)
+    check_gcn_backward(dev, csr)
+
+
+def label_state(n: int, c: int, dev: torch.device, seed: int):
+    """Random F in [0, 1), one-hot Y on about 30 % of the rows and their
+    mask, as label propagation gives K14."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.rand((n, c), device=dev, generator=gen)
+    mask = torch.rand((n,), device=dev, generator=gen) < 0.3
+    y = torch.zeros((n, c), device=dev)
+    cls = torch.randint(0, c, (n,), device=dev, generator=gen)
+    y[mask, cls[mask]] = 1.0
+    return f, y, mask
+
+
+def check_k14(dev: torch.device, csr) -> None:
+    """K14 against its plain version on the hub CSR: clamped rows bitwise,
+    the rest rtol=1e-5, atol=1e-6 (the row sum in another order than the
+    plain version's atomics, about 7e-6 relative on the hub's 50,000
+    edges); also whether it equals the plain version run on the CPU, which
+    adds in edge order as K14 does."""
+    from cleora_tpu_torch.ops.label_prop import (
+        label_prop_step,
+        label_prop_step_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
+
+    host = CsrMatrix(csr.indptr.cpu(), csr.indices.cpu(), csr.vals.cpu())
+    for c in K14_WIDTHS:
+        f, y, mask = label_state(csr.n_rows, c, dev, 14 + c)
+        for alpha in (0.5, 0.3):
+            beta = float(np.float32(1) - np.float32(alpha))
+            got = label_prop_step(csr, f, y, mask, alpha, beta)
+            want = label_prop_step_plain(csr, f, y, mask, alpha, beta)
+            torch.cuda.synchronize()
+            assert torch.equal(got[mask], y[mask]), c
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            rel = float(((got - want).abs()
+                         / want.abs().clamp_min(1e-30)).max())
+            on_cpu = label_prop_step_plain(host, f.cpu(), y.cpu(), mask.cpu(),
+                                           alpha, beta)
+            log(f"K14 C={c} alpha={alpha}: max |err| {max_err(got, want):.3e}"
+                f", max relative {rel:.3e}, clamped rows bitwise; bitwise "
+                f"equal to the plain version on the CPU: "
+                f"{torch.equal(got.cpu(), on_cpu)}")
+
+
+def check_k15(dev: torch.device) -> None:
+    """K15's forward and backward bitwise against their plain versions, on
+    the card and against the CPU's masks."""
+    from cleora_tpu_torch.ops.gcn import (
+        relu_dropout,
+        relu_dropout_backward,
+        relu_dropout_backward_plain,
+        relu_dropout_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for shape in K15_SHAPES:
+        z = torch.randn(shape, device=dev, generator=gen)
+        z[0, 0] = 0.0
+        dh = torch.randn(shape, device=dev, generator=gen)
+        for p in (0.0, 0.5):
+            for epoch, layer, seed in ((0, 0, 42), (199, 1, 2**40 + 3)):
+                args = (p, seed, epoch, layer)
+                h = relu_dropout(z, *args)
+                dz = relu_dropout_backward(z, dh, *args)
+                torch.cuda.synchronize()
+                assert torch.equal(h, relu_dropout_plain(z, *args)), shape
+                assert torch.equal(
+                    dz, relu_dropout_backward_plain(z, dh, *args)), shape
+                assert torch.equal(h.cpu(), relu_dropout_plain(z.cpu(), *args))
+            kept = float(((h != 0).sum() / (z > 0).sum().clamp_min(1)))
+            log(f"K15 {shape} p={p}: forward and backward bitwise equal to "
+                f"plain (and to the CPU's masks); kept {kept:.4f} of the "
+                "positive entries")
+
+
+def check_gcn_backward(dev: torch.device, csr) -> None:
+    """The GCN SpMM's backward (K1 over the transpose) against the plain
+    SpMM over the transpose, on the hub CSR, rtol=1e-5, atol=1e-6."""
+    from cleora_tpu_torch.ops.gcn import CsrSpmm
+    from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
+
+    n = csr.n_rows
+    rows = np.repeat(np.arange(n), np.diff(csr.indptr.cpu().numpy()))
+    cols, vals = csr.indices.cpu().numpy(), csr.vals.cpu().numpy()
+    a = CsrMatrix.from_coo(rows, cols, vals, n, dev)
+    at = CsrMatrix.transpose_from_coo(rows, cols, vals, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    h = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen,
+                    requires_grad=True)
+    w = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
+    (CsrSpmm.apply(h, a, at) * w).sum().backward()
+    want = spmm_plain(at, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h.grad, want, rtol=1e-5, atol=1e-6)
+    assert max_err(spmm(a, w), h.grad) > 1e-3  # A is not symmetric
+    log(f"CsrSpmm backward (K1 over the transpose) d={GCN_HIDDEN}: max |err| "
+        f"{max_err(h.grad, want):.3e} against plain")
 
 
 def check_k3(dev: torch.device) -> None:
@@ -965,6 +1123,12 @@ def full_width(dev: torch.device, card: str) -> tuple:
     k4_bytes = 4 * n * DIM + 8 * (n + 1) + 8 * nnz + 4 * nnz
     k4_flops = 2 * nnz * DIM
     gather_bytes = nnz * (8 + 4 * DIM) + 4 * n * DIM
+    loop_bound_ms = ITERATIONS * (
+        max(k1_bytes / HBM_BYTES_PER_S, k1_flops / FP32_FLOP_PER_S)
+        + max(k2_bytes / HBM_BYTES_PER_S, k2_flops / FP32_FLOP_PER_S)
+        + max(wh_ops_ms, wh_bytes_ms) * 1e-3) * 1e3
+    log(f"loop bound: {ITERATIONS} x (K1 + K2 + whiten bounds) = "
+        f"{loop_bound_ms:.3f} ms against {loop_s * 1e3:.3f} ms measured")
     log(f"K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, torch.sparse.mm "
         f"{k1_lib_ms:.3f}); one x row per edge = {gather_bytes / 1e9:.3f} GB "
         f"-> {gather_bytes / (k1_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
@@ -1783,6 +1947,12 @@ def log_rsvd_bound(m_total: int, n: int, card: str) -> None:
         f"one x row per entry {gather / 1e9:.3f} GB -> "
         f"{gather / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S:.3g} "
         f"B/s; [{card}]")
+    # the count reductions (pair sums, the minimum count) read the int32
+    # counts once; the column signs read the (n, DIM) factor once
+    log(f"  bounds of the count reductions, one pass over {m_total} int32 "
+        f"counts: {4 * m_total / HBM_BYTES_PER_S * 1e3:.3f} ms; of the "
+        f"column signs over ({n}, {DIM}) float32: "
+        f"{4 * n * DIM / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
 
 
 # ------------------------------------------------------ phase 8: Node2Vec
@@ -2111,6 +2281,13 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
                                 lambda: ann.query_batch(queries, TOP_K))
     assert launches == dict.fromkeys(launches, 0)  # library calls only
     check_neighbours("ANNIndex.query_batch", got, qrows, held)
+    # exact top-k: the full-float32 product's flops, against reading the
+    # table and the queries once and writing the top-k once
+    ops_ms = 2 * QUERIES * n * d / FP32_FLOP_PER_S * 1e3
+    bytes_ms = (4 * (n + QUERIES) * d + 12 * QUERIES * TOP_K) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"  exact top-k bound per batch: {max(ops_ms, bytes_ms):.3f} ms "
+        f"(operations {ops_ms:.3f}, bytes {bytes_ms:.3f})")
     del ann
     torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
@@ -2163,6 +2340,16 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
         assert np.all((got_idx == want_idx) | (diff <= 1e-6)), qi
     log(f"  PQ device search against the host on {HELD_QUERIES} queries: "
         "scores atol=1e-5, the same indices but for ties")
+    sub = d // PQ_SUBSPACES
+    tab_ops_ms = 2 * QUERIES * PQ_SUBSPACES * PQ_CENTROIDS * sub \
+        / FP32_FLOP_PER_S * 1e3
+    tab_bytes_ms = 4 * (QUERIES * d + PQ_SUBSPACES * PQ_CENTROIDS * sub
+                        + QUERIES * PQ_SUBSPACES * PQ_CENTROIDS) \
+        / HBM_BYTES_PER_S * 1e3
+    topk_ms = (4 * QUERIES * n + 12 * QUERIES * TOP_K) / HBM_BYTES_PER_S * 1e3
+    log(f"  PQ bounds per batch: tables {max(tab_ops_ms, tab_bytes_ms):.4f}"
+        f" ms (operations {tab_ops_ms:.4f}, bytes {tab_bytes_ms:.4f}); "
+        f"top-k over the {QUERIES} x {n} scores {topk_ms:.3f} ms (bytes)")
 
     # ---- K13 at the main path's shape, against plain, and timed
     codes_dev = device_codes(codes, PQ_CENTROIDS, dev)
@@ -2221,10 +2408,334 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
         f"{card_s:.3f} s, CPU {time.perf_counter() - t0:.3f} s, labels "
         f"agree on {agree:.5f} of rows")
     assert agree >= 0.999, agree
+    rows_q, dim_q = emb_q.shape
+    as_ops = 2 * rows_q * dim_q * KMEANS_K / FP32_FLOP_PER_S * 1e3
+    as_bytes = 4 * (rows_q * dim_q + KMEANS_K * dim_q) / HBM_BYTES_PER_S \
+        * 1e3 + 8 * rows_q / HBM_BYTES_PER_S * 1e3
+    log(f"  k-means assignment bound per iteration: "
+        f"{max(as_ops, as_bytes):.4f} ms (operations {as_ops:.4f}, bytes "
+        f"{as_bytes:.4f})")
 
     return [kernel_row("pq_adc", "cleora_tpu_torch/kernels/pq_adc.cu",
                        "cleora_tpu/compress.py:149", k13_ms, k13_plain_ms,
                        lib_ms, k13_err, k13_bytes, 0, launches["pq_adc"])]
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|, over lists of arrays."""
+    return max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+               for a, b in zip(got, want))
+
+
+def config4_auc(device) -> float:
+    """BASELINE config 4 (scripts/e2e_configs.py:75-120) through the port:
+    per-relation embeds, an 80/20 edge split, Cleora + ProNE concatenated,
+    link-prediction AUC."""
+    import cleora_tpu_torch as ctt
+    from cleora_tpu_torch import algorithms, ensemble, metrics
+    from cleora_tpu_torch.hetero import HeteroGraph
+    from cleora_tpu_torch.sampling import train_test_split_edges
+
+    rng = np.random.default_rng(5)
+    h = HeteroGraph()
+    h.add_node_type("user")
+    h.add_node_type("item")
+
+    def biased_pair():
+        group = rng.integers(0, 5)
+        u = group * 40 + rng.integers(0, 40)
+        if rng.random() < 0.85:
+            i = group * 20 + rng.integers(0, 20)
+        else:
+            i = rng.integers(0, 100)
+        return f"u{u}", f"i{i}"
+
+    h.add_edge_type("buys", "user", "item", [biased_pair() for _ in range(2000)])
+    h.add_edge_type("views", "user", "item",
+                    [biased_pair() for _ in range(3000)])
+    h.embed_per_relation(feature_dim=64, num_iterations=10, device=device)
+    g = ctt.SparseMatrix.from_iterator(iter(h.to_homogeneous_edges()),
+                                       "complex::reflexive::node")
+    split = train_test_split_edges(g, test_ratio=0.2)
+    train_g = ctt.SparseMatrix.from_iterator(
+        iter(split["train_edge_strings"]), "complex::reflexive::node")
+    cleora = ctt.embed(train_g, feature_dim=64, num_iterations=10,
+                       whiten=False, device=device)
+    prone = algorithms.embed_prone(train_g, feature_dim=64)
+    combo = ensemble.combine([cleora, prone], method="concat")
+    known = set(train_g.entity_ids)
+    test = [(a, b) for a, b in split["test_edges"]
+            if a in known and b in known]
+    return metrics.link_prediction_scores(train_g, combo, test)["auc"]
+
+
+def node_classification(dev: torch.device, card: str, big) -> list:
+    """Phase 10: BASELINE config 3 at full width, the classifiers card
+    against CPU, K14/K15/K1-over-the-transpose at phase 5's size, and
+    BASELINE config 4."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    import cleora_tpu_torch as ctt
+    import cleora_tpu_torch.classify as cl
+    import cleora_tpu_torch.datasets as datasets
+    import cleora_tpu_torch.metrics as metrics
+    from cleora_tpu_torch.ops.gcn import (
+        relu_dropout,
+        relu_dropout_backward,
+        relu_dropout_backward_plain,
+        relu_dropout_plain,
+    )
+    from cleora_tpu_torch.ops.label_prop import (
+        label_prop_step,
+        label_prop_step_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
+
+    # ---- (a) BASELINE config 3: ogbn-arxiv's shape, embed, classifiers
+    with tempfile.TemporaryDirectory() as cache:
+        datasets._CACHE_DIR = datasets._COMPAT_CACHE_DIR = cache
+        t0 = time.perf_counter()
+        d = datasets.load_dataset("ogbn_arxiv")
+        gen_s = time.perf_counter() - t0
+    assert (d["num_nodes"], d["num_edges"], d["num_classes"]) == (
+        ARXIV_NODES, ARXIV_EDGES, ARXIV_CLASSES), d["num_edges"]
+    t0 = time.perf_counter()
+    g = ctt.SparseMatrix.from_iterator(iter(d["edges"]), d["columns"])
+    ingest_s = time.perf_counter() - t0
+    labels = d["labels"]
+    log(f"phase 10, BASELINE config 3: ogbn-arxiv's shape generated in "
+        f"{gen_s:.3f} s ({ARXIV_NODES} nodes, {ARXIV_EDGES} edges, "
+        f"{ARXIV_CLASSES} classes), ingested in {ingest_s:.3f} s: "
+        f"{g.num_entities} entities, {g.num_edges} nnz")
+    emb, launches = run_main_path("  embed(D=256, 40 iterations)",
+                                  lambda: ctt.embed(
+                                      g, feature_dim=DIM,
+                                      num_iterations=ITERATIONS, whiten=True))
+    none = dict.fromkeys(launches, 0)
+    assert launches == none | {"spmm_csr": ITERATIONS,
+                               "row_normalize": ITERATIONS,
+                               "hash_init": 1}, launches
+    check_covariance(emb, dev)
+    t0 = time.perf_counter()
+    cent = metrics.node_classification_scores(g, emb, labels)["accuracy"]
+    log(f"  node_classification_scores (centroid, host): accuracy "
+        f"{cent:.4f} in {time.perf_counter() - t0:.3f} s (JAX package: "
+        "0.998)")
+    assert cent >= CENTROID_MIN, cent
+
+    t0 = time.perf_counter()
+    probe, launches = run_main_path(
+        f"  mlp_classify(hidden_dim=0, num_epochs={PROBE_EPOCHS})",
+        lambda: cl.mlp_classify(g, emb, labels, hidden_dim=0,
+                                num_epochs=PROBE_EPOCHS))
+    probe_s = time.perf_counter() - t0
+    assert launches == none, launches  # library calls only
+    steps = PROBE_EPOCHS * -(-probe["train_size"] // 256)
+    # one step's bound: a (256, D) batch and its labels read, W and b read
+    # and written; forward and backward GEMMs, 6·B·D·C flops
+    b, c = 256, ARXIV_CLASSES
+    step_bytes = 4 * b * DIM + 8 * b + 2 * 4 * (DIM * c + c)
+    step_bound = max(step_bytes / HBM_BYTES_PER_S,
+                     6 * b * DIM * c / FP32_FLOP_PER_S) * 1e3
+    log(f"  linear probe: accuracy {probe['accuracy']:.4f}, macro-F1 "
+        f"{probe['macro_f1']:.4f}, {steps} SGD steps, "
+        f"{probe_s / steps * 1e3:.3f} ms per step with the evaluations "
+        f"(bound of one step {step_bound:.5f} ms)")
+    lp, launches = run_main_path(
+        "  label_propagation_predict()",
+        lambda: cl.label_propagation_predict(g, emb, labels))
+    assert launches == none | {"label_prop": LP_ITERATIONS}, launches
+    lp_launches = launches["label_prop"]
+    log(f"  label propagation: accuracy {lp['accuracy']:.4f}")
+    gcn, launches = run_main_path(
+        "  gcn_classify()", lambda: cl.gcn_classify(g, emb, labels))
+    evals = sum(1 for e in range(GCN_EPOCHS)
+                if e % 10 == 0 or e == GCN_EPOCHS - 1) + 1
+    assert launches == none | {
+        "spmm_csr": 3 * GCN_EPOCHS + 2 * evals,
+        "relu_dropout": 2 * GCN_EPOCHS + evals}, launches
+    gcn_launches = launches
+    log(f"  GCN: accuracy {gcn['accuracy']:.4f}, macro-F1 "
+        f"{gcn['macro_f1']:.4f} ({evals} forward passes to evaluate)")
+
+    # ---- card against CPU on the same embedding
+    train, _ = cl._propagation_split(g, labels, 0.8, 42)
+    Y, labeled, _ = cl._label_matrix(g, train)
+    rows, cols, svals, n = cl._row_normalized(g)
+    f_dev = cl._propagate_labels(
+        CsrMatrix.from_coo(rows, cols, svals, n, dev),
+        torch.from_numpy(Y).to(dev), torch.from_numpy(labeled).to(dev), 0.5,
+        LP_ITERATIONS).cpu().numpy()
+    t0 = time.perf_counter()
+    f_cpu = cl._propagate_labels(
+        CsrMatrix.from_coo(rows, cols, svals, n, "cpu"), torch.from_numpy(Y),
+        torch.from_numpy(labeled), 0.5, LP_ITERATIONS).numpy()
+    top2 = np.sort(f_cpu, axis=1)[:, -2:]
+    tie = top2[:, 1] - top2[:, 0] <= 1e-6
+    same = f_dev.argmax(1) == f_cpu.argmax(1)
+    assert np.all(same | tie), int((~same & ~tie).sum())
+    log(f"  label propagation card vs CPU ({time.perf_counter() - t0:.3f} s "
+        f"on the CPU): max |F err| {np.abs(f_dev - f_cpu).max():.3e}, "
+        f"predictions equal on {same.mean():.6f} of rows, every other row a "
+        f"near-tie ({int(tie.sum())} rows within 1e-6)")
+
+    node_idx, y_mapped, classes, tr, te, rng = cl._labeled_split(
+        g, labels, 0.8, 42)
+    dims = [DIM, GCN_HIDDEN, len(classes)]
+    init = [cl._he(rng, dims[i], dims[i + 1]) for i in range(2)]
+
+    def gcn_steps(device):
+        adj = cl._gcn_operators(g, device)
+        params = init
+        for epoch in range(GCN_PARITY_EPOCHS):
+            params = cl._gcn_step(params, emb, adj, node_idx[tr],
+                                  y_mapped[tr], 0.01, 1e-4, 0.5, 42, epoch)
+        return params
+
+    t0 = time.perf_counter()
+    err = rel_err(gcn_steps(dev), gcn_steps("cpu"))
+    log(f"  GCN {GCN_PARITY_EPOCHS} epochs at dropout 0.5, card vs CPU "
+        f"({time.perf_counter() - t0:.3f} s): parameters within {err:.3e} "
+        "relative (the same Philox masks)")
+    assert err <= 1e-4, err
+    X = emb[node_idx]
+    probe_init = cl._mlp_init(np.random.default_rng(3), DIM, 0, len(classes))
+    t0 = time.perf_counter()
+    runs = [cl._mlp_train(probe_init, X[tr], y_mapped[tr], X[te],
+                          y_mapped[te], np.random.default_rng(7), 1, 0.01,
+                          1e-4, device)[0] for device in (dev, "cpu")]
+    err = rel_err(*[[v.detach().cpu().numpy() for v in r.values()]
+                    for r in runs])
+    log(f"  linear probe, one epoch card vs CPU ({time.perf_counter() - t0:.3f}"
+        f" s): parameters within {err:.3e} relative")
+    assert err <= 1e-4, err
+    batches = -(-len(tr) // 256)
+    device_busy(f"one epoch of the linear probe ({batches} steps)",
+                lambda: cl._mlp_train(probe_init, X[tr], y_mapped[tr], X[te],
+                                      y_mapped[te], np.random.default_rng(7),
+                                      1, 0.01, 1e-4, dev), batches, "step")
+    adj = cl._gcn_operators(g, dev)
+    x_dev = torch.from_numpy(emb).to(dev)
+    device_busy("10 GCN epochs (2 evaluations)",
+                lambda: cl._gcn_train(init, x_dev, adj, node_idx[tr],
+                                      y_mapped[tr], node_idx[te],
+                                      y_mapped[te], 10, 0.01, 1e-4, 0.5, 42),
+                10, "epoch")
+    del adj, x_dev
+    del f_dev, f_cpu, emb, X
+    torch.cuda.empty_cache()
+
+    # ---- (b) K14, K15 and K1 over the transpose at phase 5's size
+    rows, cols, svals, n = cl._row_normalized(big)
+    S = CsrMatrix.from_coo(rows, cols, svals, n, dev)
+    nnz = S.nnz
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        s_lib = torch.sparse_csr_tensor(S.indptr.int(), S.indices, S.vals,
+                                        size=(n, n), check_invariants=False)
+    k14 = {}
+    for c in K14_FULL_WIDTHS:
+        f, y, mask = label_state(n, c, dev, c)
+        buf = torch.empty_like(f)
+        got = label_prop_step(S, f, y, mask, 0.5, 0.5, out=buf)
+        want, plain_ms = timed_once(
+            lambda: label_prop_step_plain(S, f, y, mask, 0.5, 0.5))
+        torch.cuda.synchronize()
+        assert torch.equal(got[mask], y[mask])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        err = max_err(got, want)
+
+        def library():
+            return torch.where(mask[:, None], y,
+                               0.5 * torch.sparse.mm(s_lib, f) + 0.5 * y)
+
+        lib_err = max_err(library(), want)
+        ms = time_ms(lambda: label_prop_step(S, f, y, mask, 0.5, 0.5,
+                                             out=buf))
+        lib_ms = time_ms(library)
+        nbytes = 8 * (n + 1) + 8 * nnz + 3 * 4 * n * c + n
+        flops = 2 * nnz * c + 3 * n * c
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+        log(f"K14 C={c} over {n} rows, {nnz} nnz: {ms:.3f} ms (plain "
+            f"{plain_ms:.3f}, torch.sparse.mm + tail + where {lib_ms:.3f}, "
+            f"max |err| {lib_err:.3e}); bound {bound:.3f} ms; max |err| "
+            f"{err:.3e}; [{card}]")
+        k14[c] = (ms, plain_ms, lib_ms, err, nbytes, flops)
+        del f, y, mask, buf, got, want
+    del S, s_lib
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    z = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
+    dh = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
+    args = (0.5, 42, 7, 0)
+    h = relu_dropout(z, *args)
+    h_plain, k15_plain_ms = timed_once(lambda: relu_dropout_plain(z, *args))
+    dz = relu_dropout_backward(z, dh, *args)
+    dz_plain, bwd_plain_ms = timed_once(
+        lambda: relu_dropout_backward_plain(z, dh, *args))
+    assert torch.equal(h, h_plain) and torch.equal(dz, dz_plain)
+    del h_plain, dz_plain
+    k15_ms = time_ms(lambda: relu_dropout(z, *args))
+    bwd_ms = time_ms(lambda: relu_dropout_backward(z, dh, *args))
+    k15_lib_ms = time_ms(lambda: F.dropout(F.relu(z), 0.5))
+    k15_bytes = 8 * n * GCN_HIDDEN
+    log(f"K15 ({n}, {GCN_HIDDEN}) p=0.5: forward {k15_ms:.3f} ms (plain "
+        f"{k15_plain_ms:.3f}, F.dropout(F.relu) {k15_lib_ms:.3f}; bound "
+        f"{k15_bytes / HBM_BYTES_PER_S * 1e3:.3f}), backward {bwd_ms:.3f} ms "
+        f"(plain {bwd_plain_ms:.3f}; bound "
+        f"{12 * n * GCN_HIDDEN / HBM_BYTES_PER_S * 1e3:.3f}); both bitwise "
+        f"equal to plain; [{card}]")
+    del z, dh, h, dz
+
+    a_hat, a_hat_t = cl._gcn_operators(big, dev)
+    dout = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
+    got = spmm(a_hat_t, dout)
+    want, kt_plain_ms = timed_once(lambda: spmm_plain(a_hat_t, dout))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    kt_err = max_err(got, want)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t_lib = torch.sparse_csr_tensor(a_hat_t.indptr.int(), a_hat_t.indices,
+                                        a_hat_t.vals, size=(n, n),
+                                        check_invariants=False)
+    kt_ms = time_ms(lambda: spmm(a_hat_t, dout))
+    kt_lib_ms = time_ms(lambda: torch.sparse.mm(t_lib, dout))
+    kt_bytes = (8 * (n + 1) + 8 * a_hat_t.nnz + 2 * 4 * n * GCN_HIDDEN)
+    kt_flops = 2 * a_hat_t.nnz * GCN_HIDDEN
+    log(f"K1 over the transpose of the GCN operator ({a_hat_t.nnz} nnz) "
+        f"d={GCN_HIDDEN}: {kt_ms:.3f} ms (plain {kt_plain_ms:.3f}, "
+        f"torch.sparse.mm {kt_lib_ms:.3f}); bound "
+        f"{kt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; [{card}]")
+    del a_hat, a_hat_t, dout, got, want, t_lib
+    torch.cuda.empty_cache()
+
+    # ---- (c) BASELINE config 4: card against CPU
+    t0 = time.perf_counter()
+    auc_card = config4_auc(dev)
+    card_s = time.perf_counter() - t0
+    auc_cpu = config4_auc("cpu")
+    log(f"  BASELINE config 4: link-prediction AUC card {auc_card:.4f} "
+        f"({card_s:.3f} s), CPU {auc_cpu:.4f}")
+    assert abs(auc_card - auc_cpu) <= 0.01, (auc_card, auc_cpu)
+
+    ms, plain_ms, lib_ms, err, nbytes, flops = k14[ARXIV_CLASSES]
+    return [
+        kernel_row("label_prop", "cleora_tpu_torch/kernels/label_prop.cu",
+                   "cleora_tpu/classify.py:88", ms, plain_ms, lib_ms, err,
+                   nbytes, flops, lp_launches),
+        kernel_row("relu_dropout", "cleora_tpu_torch/kernels/relu_dropout.cu",
+                   "cleora_tpu/classify.py:131", k15_ms, k15_plain_ms,
+                   k15_lib_ms, 0.0, k15_bytes, 0,
+                   gcn_launches["relu_dropout"]),
+        kernel_row("spmm_csr_transposed",
+                   "cleora_tpu_torch/kernels/spmm_csr.cu",
+                   "cleora_tpu/classify.py:149", kt_ms, kt_plain_ms,
+                   kt_lib_ms, kt_err, kt_bytes, kt_flops,
+                   gcn_launches["spmm_csr"]),
+    ]
 
 
 def main() -> int:
@@ -2252,6 +2763,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += retrieval_full_width(dev, card, graph, table, gq, emb_q)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    del table, gq, emb_q
+    t0 = time.perf_counter()
+    rows += node_classification(dev, card, graph)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

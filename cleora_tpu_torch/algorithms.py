@@ -1525,7 +1525,13 @@ def embed_deepwalk(
     final embedding to disk and returns a read-only memmap.
     ``walk_tables`` 'auto'/'replicated' keep the walk CSR on the card;
     'sharded', ``factorization='sharded'`` and ``mesh=``/``n_devices=`` are
-    the multi-GPU slice and raise NotImplementedError."""
+    the multi-GPU slice and raise NotImplementedError.
+
+    Rows of nodes in components too small to carry a singular direction
+    (their factorization rows are rounding noise, norm about 1e-10) are
+    that noise scaled to unit length, on every backend, as in
+    ``cleora_tpu``; the port keeps that contract rather than zeroing them,
+    so two backends may disagree on exactly those rows."""
     factorization = _validate_cooccurrence(cooccurrence, backend,
                                            factorization)
     _validate_lifecycle(graph, backend, cooccurrence, checkpoint_dir)
@@ -1578,7 +1584,9 @@ def embed_node2vec(
     max(64, ⌈8q⌉))`` rejected proposals a hop takes the last uniform
     proposal, as in the JAX package.  Host-path semantics otherwise,
     dead-row stops included; checkpoints carry the edge weights in their
-    fingerprint."""
+    fingerprint.  As for :func:`embed_deepwalk`, rows of nodes in small
+    components are rounding noise scaled to unit length, as in
+    ``cleora_tpu``, and the port keeps that contract."""
     if p <= 0.0 or q <= 0.0:
         raise ValueError("p and q must be positive")
     factorization = _validate_cooccurrence(cooccurrence, backend,

@@ -3,8 +3,9 @@
 K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu``, K7
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
-``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu`` and K13
-``pq_adc.cu`` are built at first use (:mod:`.build`).  Each wrapper
+``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu``, K13
+``pq_adc.cu``, K14 ``label_prop.cu`` and K15 ``relu_dropout.cu`` are built
+at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -87,6 +88,19 @@ _ARGTYPES = {
     "ppmi": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64,
              _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
              _c.c_void_p],
+    # indptr, indices, vals, f, y, mask, out, n_rows, c, alpha, beta, stream
+    "label_prop": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                   _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                   _c.c_int64, _c.c_float, _c.c_float, _c.c_void_p],
+    # z, h, numel, p, q, k0, k1, epoch, layer, stream
+    "relu_dropout": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
+                     _c.c_float, _c.c_uint32, _c.c_uint32, _c.c_uint32,
+                     _c.c_uint32, _c.c_void_p],
+    # z, dh, dz, numel, p, q, k0, k1, epoch, layer, stream
+    "relu_dropout_backward": [_c.c_void_p, _c.c_void_p, _c.c_void_p,
+                              _c.c_int64, _c.c_float, _c.c_float, _c.c_uint32,
+                              _c.c_uint32, _c.c_uint32, _c.c_uint32,
+                              _c.c_void_p],
 }
 
 
@@ -582,3 +596,87 @@ def ppmi(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
                           torch.cuda.current_stream(cen.device).cuda_stream)
     _check_launch(name, rc)
     return vals, indptr
+
+
+def label_prop(indptr: torch.Tensor, indices: torch.Tensor,
+               vals: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
+               mask: torch.Tensor, alpha: float, beta: float,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K14: one label-propagation step, ``out = where(mask, y, alpha·(A @
+    f) + beta·y)`` (A in CSR) on float32 (N, C) ``f`` and ``y`` and bool
+    (N,) ``mask``, with alpha and beta rounded to float32.  Writes a new
+    tensor, or ``out``, which must not share memory with ``f`` or ``y``.
+    Returns it."""
+    name = "label_prop"
+    n = indptr.shape[0] - 1
+    _require_csr(name, indptr, indices, vals)
+    for t in (f, y):
+        _require(t.dtype == torch.float32 and t.dim() == 2,
+                 f"{name}: f and y must be 2-D float32 tensors")
+    _require(f.shape == y.shape and f.shape[0] == n,
+             f"{name}: f and y must have one row per row of A")
+    _require(mask.dtype == torch.bool and mask.shape == (n,),
+             f"{name}: mask must be a bool tensor with one entry per row")
+    if out is None:
+        out = torch.empty_like(f)
+    _require(out.dtype == torch.float32 and out.shape == f.shape,
+             f"{name}: out must be float32 of the shape of f")
+    _require(not _overlap(out, f) and not _overlap(out, y),
+             f"{name}: out must not share memory with f or y")
+    _require_cuda_contiguous(name, f.device, indptr, indices, vals, f, y,
+                             mask, out)
+    fn = _bound(name)
+    with torch.cuda.device(f.device):
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                f.data_ptr(), y.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                n, f.shape[1], float(np.float32(alpha)),
+                float(np.float32(beta)),
+                torch.cuda.current_stream(f.device).cuda_stream)
+    _check_launch(name, rc)
+    return out
+
+
+def _dropout_args(name: str, p: float, seed: int, epoch: int, layer: int):
+    _require(0.0 <= float(p) <= 1.0, f"{name}: p must lie in [0, 1]")
+    _require(0 <= int(epoch) < 1 << 32 and 0 <= int(layer) < 1 << 32,
+             f"{name}: epoch and layer must fit 32 bits")
+    key = int(seed) & ((1 << 64) - 1)
+    return (float(np.float32(p)), float(np.float32(1.0 - float(p))),
+            key & _U32, key >> 32, int(epoch), int(layer))
+
+
+def relu_dropout(z: torch.Tensor, p: float, seed: int, epoch: int,
+                 layer: int) -> torch.Tensor:
+    """K15, forward: ``keep ? relu(z)/(1−p) : 0`` on float32 ``z`` with the
+    Philox mask of (seed, epoch, layer) (``ops/gcn.py``).  Returns a new
+    tensor."""
+    name = "relu_dropout"
+    args = _dropout_args(name, p, seed, epoch, layer)
+    _require(z.dtype == torch.float32, f"{name}: z must be float32")
+    _require_cuda_contiguous(name, z.device, z)
+    h = torch.empty_like(z)
+    fn = _bound(name)
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), h.data_ptr(), z.numel(), *args,
+                torch.cuda.current_stream(z.device).cuda_stream)
+    _check_launch(name, rc)
+    return h
+
+
+def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
+                          seed: int, epoch: int, layer: int) -> torch.Tensor:
+    """K15, backward: ``(keep and z > 0) ? dh/(1−p) : 0`` with the mask of
+    the forward, drawn again.  Returns a new tensor."""
+    name = "relu_dropout"
+    args = _dropout_args(name, p, seed, epoch, layer)
+    _require(z.dtype == torch.float32 and dh.dtype == torch.float32
+             and z.shape == dh.shape,
+             f"{name}: z and dh must be float32 of one shape")
+    _require_cuda_contiguous(name, z.device, z, dh)
+    dz = torch.empty_like(z)
+    fn = _bound(name, "relu_dropout_backward")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), dh.data_ptr(), dz.data_ptr(), z.numel(), *args,
+                torch.cuda.current_stream(z.device).cuda_stream)
+    _check_launch(name, rc)
+    return dz

@@ -1,0 +1,136 @@
+"""The GCN's device pieces: its SpMM with a transposed backward, and the
+hidden layers' ReLU with inverted dropout.
+
+Counterpart of ``_gcn_forward`` under ``jax.grad`` in the JAX package
+(cleora_tpu/classify.py:122-170).  Each layer there is ``H ← Â·H``, then
+``Z = H·W``, then for a hidden layer ``relu(Z)`` and inverted dropout
+``where(keep, H/(1−p), 0)``.
+
+- :class:`CsrSpmm` is ``Â·H`` as a ``torch.autograd.Function``.  Its
+  backward is ``Âᵀ·dOut``, and Â = D^-½(A+I)D^-½ over a left-Markov A is
+  not symmetric, so it carries the CSR of Âᵀ as well.  Both directions are
+  kernel K1 (``kernels/spmm_csr.cu``) on CUDA and :func:`spmm_plain` on
+  the CPU.
+- :class:`ReluDropout` is the hidden-layer epilogue.  Its forward and
+  backward are kernel K15 (``kernels/relu_dropout.cu``) on CUDA and
+  :func:`relu_dropout_plain` / :func:`relu_dropout_backward_plain` on the
+  CPU.  They agree bit for bit.
+
+The keep mask is ``u ≥ p``.  The uniform u of element ``e`` of the
+row-major (n, width) Z comes from Philox4x32-10 keyed by ``seed``, at
+counter (``e // 4`` low word, ``e // 4`` high word, epoch, layer): it is word
+``e % 4`` as ``(x >> 8)·2⁻²⁴``.  The mask is therefore a function of
+(seed, epoch, layer) alone, on every device.  It is not JAX's stream
+(``jax.random.bernoulli`` under split keys), which torch cannot replay, so
+dropout runs agree with the JAX package in distribution only.  The
+backward draws the mask again from its counter instead of storing it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .spmm import CsrMatrix, spmm
+from .walk import _key, _unit_float, philox4x32
+
+
+def dropout_uniforms(numel: int, epoch: int, layer: int, seed: int,
+                     device) -> torch.Tensor:
+    """The float32 uniforms in [0, 1) of the first ``numel`` elements at
+    (``epoch``, ``layer``), as a flat tensor on ``device``."""
+    k0, k1 = _key(seed)
+    groups = torch.arange((numel + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(groups)
+    words = philox4x32(groups & 0xFFFFFFFF, groups >> 32, zero + int(epoch),
+                       zero + int(layer), k0, k1)
+    return _unit_float(torch.stack(words, dim=1).reshape(-1)[:numel])
+
+
+def _keep_scale(p: float) -> float:
+    """``1 − p`` rounded to float32, the divisor of the kept values, as
+    ``H / (1 - dropout)`` rounds the Python float in the JAX program."""
+    return float(np.float32(1.0 - float(p)))
+
+
+def _keep(z: torch.Tensor, p: float, seed: int, epoch: int,
+          layer: int) -> torch.Tensor:
+    """The keep mask (shape of ``z``) and ReLU's positive part, together:
+    ``u ≥ p`` and ``z > 0``.  p = 0 draws nothing."""
+    positive = z > 0
+    if float(p) == 0.0:
+        return positive
+    u = dropout_uniforms(z.numel(), epoch, layer, seed, z.device)
+    return positive & (u.reshape(z.shape) >= float(np.float32(p)))
+
+
+def _scaled(t: torch.Tensor, p: float) -> torch.Tensor:
+    # a true division by a tensor: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which K15 does not
+    return t / torch.full_like(t, _keep_scale(p))
+
+
+def relu_dropout_plain(z: torch.Tensor, p: float, seed: int, epoch: int,
+                       layer: int) -> torch.Tensor:
+    """Plain PyTorch version of K15's forward:
+    ``keep ? relu(z)/(1−p) : 0``, float32."""
+    return torch.where(_keep(z, p, seed, epoch, layer), _scaled(z, p), 0.0)
+
+
+def relu_dropout_backward_plain(z: torch.Tensor, dh: torch.Tensor, p: float,
+                                seed: int, epoch: int,
+                                layer: int) -> torch.Tensor:
+    """Plain PyTorch version of K15's backward:
+    ``(keep and z > 0) ? dh/(1−p) : 0`` (ReLU's gradient at 0 is 0, as in
+    JAX)."""
+    return torch.where(_keep(z, p, seed, epoch, layer), _scaled(dh, p), 0.0)
+
+
+def relu_dropout(z: torch.Tensor, p: float, seed: int, epoch: int,
+                 layer: int) -> torch.Tensor:
+    """K15's forward on CUDA, :func:`relu_dropout_plain` on the CPU."""
+    if z.is_cuda:
+        return kernels.relu_dropout(z, p, seed, epoch, layer)
+    return relu_dropout_plain(z, p, seed, epoch, layer)
+
+
+def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
+                          seed: int, epoch: int, layer: int) -> torch.Tensor:
+    """K15's backward on CUDA, :func:`relu_dropout_backward_plain` on the
+    CPU."""
+    if z.is_cuda:
+        return kernels.relu_dropout_backward(z, dh, p, seed, epoch, layer)
+    return relu_dropout_backward_plain(z, dh, p, seed, epoch, layer)
+
+
+class CsrSpmm(torch.autograd.Function):
+    """``a @ h`` with the gradient ``at @ dOut``; ``at`` is the CSR of aᵀ."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, a: CsrMatrix,
+                at: CsrMatrix) -> torch.Tensor:
+        ctx.at = at
+        return spmm(a, h)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return spmm(ctx.at, grad.contiguous()), None, None
+
+
+class ReluDropout(torch.autograd.Function):
+    """``keep ? relu(z)/(1−p) : 0`` with the mask of (seed, epoch, layer)."""
+
+    @staticmethod
+    def forward(ctx, z: torch.Tensor, p: float, seed: int, epoch: int,
+                layer: int) -> torch.Tensor:
+        ctx.save_for_backward(z)
+        ctx.args = (p, seed, epoch, layer)
+        return relu_dropout(z.contiguous(), p, seed, epoch, layer)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (z,) = ctx.saved_tensors
+        dz = relu_dropout_backward(z.contiguous(), grad.contiguous(),
+                                   *ctx.args)
+        return dz, None, None, None, None

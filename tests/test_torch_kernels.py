@@ -19,7 +19,12 @@ arithmetic and one exactly repeated float32 product per hop); K11 column
 sums and row pointers bitwise, values rtol=1e-6 (the same float32
 operations in the same order, another logf); K12 bitwise (the same Philox
 words and the same round-to-nearest float32 operations in the same order);
-K13 bitwise (the same float32 adds in the same order).
+K13 bitwise (the same float32 adds in the same order); K14 rtol=1e-5,
+atol=1e-6 with clamped rows bitwise (the tail rounded like the plain
+version's, the row sum in another order than the plain version's atomics:
+about 7e-6 relative on a row of 5,000 edges); K15 bitwise (the same Philox
+words, comparisons and true divisions); the GCN SpMM's backward (K1 over
+Âᵀ) rtol=1e-5, atol=1e-6, as K1.
 """
 
 import numpy as np
@@ -50,6 +55,17 @@ from cleora_tpu_torch.ops.dense import (
     dense_markov_plain,
     log_clip,
     log_clip_plain,
+)
+from cleora_tpu_torch.ops.gcn import (
+    CsrSpmm,
+    relu_dropout,
+    relu_dropout_backward,
+    relu_dropout_backward_plain,
+    relu_dropout_plain,
+)
+from cleora_tpu_torch.ops.label_prop import (
+    label_prop_step,
+    label_prop_step_plain,
 )
 from cleora_tpu_torch.ops.pq import pq_adc_plain
 from cleora_tpu_torch.ops.walk import (
@@ -581,3 +597,105 @@ def test_walk_tables2_reject_unsorted_rows_and_bad_weights():
     # a descent between two rows is no fault
     WalkTables2(np.array([0, 2, 3]), np.array([1, 2, 0]),
                 np.array([2, 1, 0]), 3, one, one, one, cpu)
+
+
+def _label_state(n, c, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.rand((n,), device=device, generator=gen) < 0.3
+    y = torch.zeros((n, c), device=device)
+    cls = torch.randint(0, c, (n,), device=device, generator=gen)
+    y[mask, cls[mask]] = 1.0
+    f = torch.rand((n, c), device=device, generator=gen)
+    return f, y, mask
+
+
+@pytest.mark.parametrize("c", [2, 7, 40, 47])
+@pytest.mark.parametrize("alpha", [0.5, 0.3])
+@cuda
+def test_k14_matches_plain(cuda_device, c, alpha):
+    csr = CsrMatrix.from_numpy(*markov_csr(3000, c, 5000), cuda_device)
+    f, y, mask = _label_state(3000, c, cuda_device)
+    beta = float(np.float32(1) - np.float32(alpha))
+    before = kernels.LAUNCHES["label_prop"]
+    out = label_prop_step(csr, f, y, mask, alpha, beta)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["label_prop"] == before + 1
+    want = label_prop_step_plain(csr, f, y, mask, alpha, beta)
+    assert torch.equal(out[mask], y[mask])
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    # into a given buffer, as the propagation loop calls it
+    buf = torch.empty_like(f)
+    assert label_prop_step(csr, f, y, mask, alpha, beta, out=buf) is buf
+    torch.cuda.synchronize()
+    assert torch.equal(buf, out)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (33, 7), (1001, 64), (517, 3)])
+@pytest.mark.parametrize("p", [0.0, 0.5, 0.3])
+@cuda
+def test_k15_forward_and_backward_bitwise(cuda_device, shape, p):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    z = torch.randn(shape, device=cuda_device, generator=gen)
+    z[0, 0] = 0.0  # ReLU's gradient at 0 is 0
+    dh = torch.randn(shape, device=cuda_device, generator=gen)
+    before = kernels.LAUNCHES["relu_dropout"]
+    for epoch, layer, seed in ((0, 0, 42), (7, 1, 2**40 + 3), (199, 2, -1)):
+        h = relu_dropout(z, p, seed, epoch, layer)
+        dz = relu_dropout_backward(z, dh, p, seed, epoch, layer)
+        torch.cuda.synchronize()
+        assert torch.equal(h, relu_dropout_plain(z, p, seed, epoch, layer))
+        assert torch.equal(
+            dz, relu_dropout_backward_plain(z, dh, p, seed, epoch, layer))
+        # the same mask as on the CPU, whatever the device
+        assert torch.equal(
+            h.cpu(), relu_dropout_plain(z.cpu(), p, seed, epoch, layer))
+    assert kernels.LAUNCHES["relu_dropout"] == before + 6
+
+
+@cuda
+def test_gcn_spmm_backward_on_the_card_matches_plain(cuda_device):
+    n = 3000
+    indptr, cols, vals = markov_csr(n, 9, 5000)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    a = CsrMatrix.from_coo(rows, cols, vals, n, cuda_device)
+    at = CsrMatrix.transpose_from_coo(rows, cols, vals, n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    h = torch.randn((n, 64), device=cuda_device, generator=gen,
+                    requires_grad=True)
+    weight = torch.randn((n, 64), device=cuda_device, generator=gen)
+    before = kernels.LAUNCHES["spmm_csr"]
+    (CsrSpmm.apply(h, a, at) * weight).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_csr"] == before + 2
+    torch.testing.assert_close(h.grad, spmm_plain(at, weight), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_k14_and_k15_wrappers_reject_bad_operands():
+    args = _cpu_csr()
+    n = args[0].shape[0] - 1
+    f = torch.zeros((n, 3))
+    mask = torch.zeros((n,), dtype=torch.bool)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.label_prop(*args, f, f.clone(), mask, 0.5, 0.5)
+    with pytest.raises(ValueError, match="2-D float32"):
+        kernels.label_prop(*args, f.double(), f, mask, 0.5, 0.5)
+    with pytest.raises(ValueError, match="one row per row"):
+        kernels.label_prop(*args, f[:-1], f[:-1], mask, 0.5, 0.5)
+    with pytest.raises(ValueError, match="bool"):
+        kernels.label_prop(*args, f, f.clone(), mask.int(), 0.5, 0.5)
+    with pytest.raises(ValueError, match="must not share memory"):
+        kernels.label_prop(*args, f, f.clone(), mask, 0.5, 0.5, out=f)
+    z = torch.zeros((4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.relu_dropout(z, 0.5, 0, 0, 0)
+    with pytest.raises(ValueError, match=r"\[0, 1\]"):
+        kernels.relu_dropout(z, 1.5, 0, 0, 0)
+    with pytest.raises(ValueError, match="32 bits"):
+        kernels.relu_dropout(z, 0.5, 0, -1, 0)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.relu_dropout(z.double(), 0.5, 0, 0, 0)
+    with pytest.raises(ValueError, match="one shape"):
+        kernels.relu_dropout_backward(z, z[:2], 0.5, 0, 0, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)

@@ -418,10 +418,10 @@ def test_multi_gpu_arguments_raise_not_implemented(graphs, kw):
                             num_walks=1, walk_length=5, **kw)
 
 
-def test_biased_node2vec_on_the_device_names_the_next_slice(graphs):
+def test_biased_node2vec_gives_unit_rows_and_sharded_tables_name_item_8(graphs):
     """A biased Node2Vec on one device runs (kernel K12) and returns finite
-    unit rows; what it still lacks, the sharded walk tables, names the
-    multi-GPU slice that comes next."""
+    unit rows; ``walk_tables="sharded"`` raises with the multi-GPU item's
+    name (queue A item 8)."""
     _, g = graphs
     kw = dict(feature_dim=8, p=0.5, num_walks=2, walk_length=10,
               backend="device", device="cpu")
