@@ -12,8 +12,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/log_clip.cu), K8 (kernels/walk_uniform.cu), K9
    (kernels/pair_enum.cu), K10 (kernels/run_length.cu), K11
    (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu), K13 (kernels/pq_adc.cu),
-   K14 (kernels/label_prop.cu) and K15 (kernels/relu_dropout.cu) are
-   compiled from the checkout's sources, one nvcc each, in parallel;
+   K14 (kernels/label_prop.cu), K15 (kernels/relu_dropout.cu) and K16
+   (kernels/halo_pack.cu) are compiled from the checkout's sources, one
+   nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
    {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
@@ -126,12 +127,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    brute force: indices equal but for ties within 1e-6, scores atol=1e-5;
    bfloat16, top-1 only: the query's own row or a row whose exact cosine
    with it is within 2^-7 of 1, which 8-bit mantissas cannot order);
-   PQIndex with codebooks from product_quantize(M=8, C=256) on 100,000
-   sampled rows (a cut: the host k-means of every row would take minutes)
-   and every row encoded on the card, search_batch(backend="device") of the
-   1,024 queries as a main path (K13 launched once) against
-   backend="host" on 64; K13 at (Q, N) = (1,024, 1,958,363) bitwise against
-   its plain version and timed; detect_communities_kmeans(k=50) on phase
+   PQIndex with codebooks from product_quantize(M=8, C=256) on 25,000
+   sampled rows (a cut: the host k-means of every row would take minutes,
+   and of 100,000 rows took 52.6 s) and every row encoded on the card,
+   search_batch(backend="device") of the 1,024 queries as a main path (K13
+   launched once) against backend="host" on 64; K13 at (Q, N) = (1,024,
+   1,958,363) bitwise against its plain version and timed; detect_communities_kmeans(k=50) on phase
    8's planted-partition embedding, the card against device="cpu" (labels
    equal on >= 99.9 % of rows);
 10. node classification: BASELINE config 3 at full width, the
@@ -151,7 +152,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    5's 1,958,363-row graph against their plain versions, timed beside
    torch.sparse.mm + tail + where, F.dropout(F.relu) and torch.sparse.mm;
    BASELINE config 4 (scripts/e2e_configs.py:75-120) card against CPU,
-   link-prediction AUC within 0.01.  Phases 8 to 10 print their seconds.
+   link-prediction AUC within 0.01;
+11. the streamed build and the sharded loop on phase 5's graph: (a) the
+   edges written as text and stream-built into a DiskGraph
+   (graph.stream.build_graph_streaming), its CSR, values and hashes
+   bitwise equal to phase 5's SparseMatrix; (b) embed(DiskGraph) (D=256,
+   40 iterations, whitened) without a process group as a main path (K1
+   and K2 40 times, K3 once), covariance within 1e-2 of I, the Gram
+   matrix of 4,096 sampled rows within 2e-5 of phase 5's embed() output
+   and the largest raw difference printed; (c) the same call in a
+   one-rank NCCL process group (an in-process store), bitwise equal to
+   (b), and embed_sharded(halo=True) there, the halo exchange with the
+   shard itself (K16 and all_to_all_single 40 times), bitwise equal to
+   (b); (d) a checkpointed run (checkpoint_every=10) cut after 20
+   iterations and resumed to 40, bitwise equal to an uninterrupted
+   checkpointed run, and out=".npy" equal to (b); (e) K16 on shard 0's
+   send slabs of plan_halo(shard_graph(graph, 4)) over phase 5's output
+   rows, bitwise against its plain version in float32 and bfloat16,
+   timed beside index_select; (f) the CLI in-process: `embed --streaming
+   DIR --output x.npy` on phase 10's config-3 edges written as text, by
+   Gram against phase 10's embed(), and `info`.  Phases 8 to 11 print
+   their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -232,8 +253,10 @@ JAX_N2V_UNIQUE_PAIRS = 295_500_000
 # phase 9: retrieval over phase 5's embed() output
 QUERIES = 1_024
 TOP_K = 10
+# the codebooks' sample, cut from 100,000 rows, whose host k-means took
+# 52.6 s of the script's time limit
 HELD_QUERIES = 64
-PQ_SAMPLE = 100_000
+PQ_SAMPLE = 25_000
 PQ_SUBSPACES = 8
 PQ_CENTROIDS = 256
 KMEANS_K = 50
@@ -259,6 +282,12 @@ GCN_PARITY_EPOCHS = 5
 GCN_HIDDEN = 64
 # K14 at full size: ogbn-products' class count (47) and ogbn-arxiv's (40)
 K14_FULL_WIDTHS = (47, 40)
+# phase 11: rows of the Gram check, the checkpoint cadence and cut, and
+# K16's shard count
+STREAM_SAMPLE = 4_096
+STREAM_CKPT_EVERY = 10
+STREAM_CUT_SAVES = 2
+K16_SHARDS = 4
 # scripts/walk_quality_probe.py's defaults
 QUALITY_NODES = 100_000
 QUALITY_COMMUNITIES = 50
@@ -772,12 +801,19 @@ def random_graph(n_nodes: int, n_und_edges: int, seed: int,
     graph has exactly ``n_nodes`` entities."""
     import cleora_tpu_torch as ctt
 
+    return ctt.SparseMatrix.from_edge_arrays(
+        *synthetic_edges(n_nodes, n_und_edges, seed, cover))
+
+
+def synthetic_edges(n_nodes: int, n_und_edges: int, seed: int,
+                    cover: bool = False):
+    """(src, dst) int64 of bench.py's synthetic_coo edge draw."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n_nodes, size=n_und_edges, dtype=np.int64)
     dst = rng.integers(0, n_nodes, size=n_und_edges, dtype=np.int64)
     if cover:
         src[:n_nodes] = np.arange(n_nodes)
-    return ctt.SparseMatrix.from_edge_arrays(src, dst)
+    return src, dst
 
 
 def slice_parity(dev: torch.device) -> None:
@@ -2560,6 +2596,8 @@ def node_classification(dev: torch.device, card: str, big) -> list:
     log(f"  GCN: accuracy {gcn['accuracy']:.4f}, macro-F1 "
         f"{gcn['macro_f1']:.4f} ({evals} forward passes to evaluate)")
 
+    arxiv = (d["edges"], d["columns"], emb)
+
     # ---- card against CPU on the same embedding
     train, _ = cl._propagation_split(g, labels, 0.8, 42)
     Y, labeled, _ = cl._label_matrix(g, train)
@@ -2722,7 +2760,7 @@ def node_classification(dev: torch.device, card: str, big) -> list:
     assert abs(auc_card - auc_cpu) <= 0.01, (auc_card, auc_cpu)
 
     ms, plain_ms, lib_ms, err, nbytes, flops = k14[ARXIV_CLASSES]
-    return [
+    return arxiv, [
         kernel_row("label_prop", "cleora_tpu_torch/kernels/label_prop.cu",
                    "cleora_tpu/classify.py:88", ms, plain_ms, lib_ms, err,
                    nbytes, flops, lp_launches),
@@ -2736,6 +2774,204 @@ def node_classification(dev: torch.device, card: str, big) -> list:
                    kt_lib_ms, kt_err, kt_bytes, kt_flops,
                    gcn_launches["spmm_csr"]),
     ]
+
+
+def write_edge_text(path: str, src: np.ndarray, dst: np.ndarray,
+                    chunk: int = 1_000_000) -> None:
+    """One "src dst" line per edge: the lines from_edge_arrays builds."""
+    with open(path, "w") as f:
+        for s in range(0, len(src), chunk):
+            pairs = np.column_stack([src[s:s + chunk],
+                                     dst[s:s + chunk]]).ravel().tolist()
+            f.write(("%d %d\n" * (len(pairs) // 2)) % tuple(pairs))
+
+
+@contextlib.contextmanager
+def one_rank_nccl_group():
+    """A one-rank NCCL process group over an in-process store."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
+                     arxiv) -> list:
+    """Phase 11: the streamed build, embed(DiskGraph) through the sharded
+    loop without a group and in a one-rank NCCL group, its halo path,
+    checkpoint/resume and .npy output, K16 at full width, and the CLI."""
+    import io
+    import tempfile
+
+    import cleora_tpu_torch as ctt
+    from cleora_tpu_torch.cli import main as cli_main
+    from cleora_tpu_torch.graph.stream import build_graph_streaming
+    from cleora_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+    from cleora_tpu_torch.parallel import embed_sharded
+    from cleora_tpu_torch.parallel import state as lifecycle
+    from cleora_tpu_torch.parallel.shard import plan_halo, shard_graph
+
+    data = big.data
+    n = data.num_entities
+    rows = np.sort(np.random.default_rng(11).choice(
+        n, size=STREAM_SAMPLE, replace=False))
+    kw = dict(feature_dim=DIM, num_iterations=ITERATIONS, whiten=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the streamed build, bitwise against the in-RAM build
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "edges.txt")
+        write_edge_text(path, *synthetic_edges(FULL_NODES, FULL_UND_EDGES, 7))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dg = build_graph_streaming([path], "complex::reflexive::node",
+                                   os.path.join(tmp, "g"), files=True)
+        build_s = time.perf_counter() - t0
+        for name in ("indptr", "indices", "left_vals", "sym_vals",
+                     "entity_hashes", "column_ids"):
+            assert (np.asarray(getattr(dg, name)).tobytes()
+                    == np.asarray(getattr(data, name)).tobytes()), name
+        assert dg.entity_ids_range(0, 1000) == data.entity_ids[:1000]
+        log(f"phase 11: {os.path.getsize(path) / 1e6:.1f} MB of edge text "
+            f"written in {write_s:.3f} s, stream-built in {build_s:.3f} s "
+            f"({dg.num_entities} entities, {dg.num_edges} nnz), CSR, values "
+            "and hashes bitwise equal to phase 5's SparseMatrix")
+
+        # ---- (b) embed(DiskGraph) without a process group
+        out_b, launches = run_main_path("  embed(DiskGraph)",
+                                        lambda: ctt.embed(dg, **kw))
+        none = dict.fromkeys(launches, 0)
+        loop = {"spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
+                "hash_init": 1}
+        assert launches == none | loop, launches
+        check_covariance(out_b, dev)
+        err, top = gram_err(out_b, table, rows)
+        raw = float(np.abs(out_b - table).max())
+        log(f"  Gram of {STREAM_SAMPLE} rows against phase 5's embed(): max "
+            f"|diff| {err:.3e} (entries up to {top:.1f}); raw rows max |diff| "
+            f"{raw:.3e}" + (" (bitwise equal)" if raw == 0.0 else ""))
+        assert err <= 2e-5, err
+
+        # ---- (c) the same call in a one-rank NCCL group; its halo path
+        with one_rank_nccl_group():
+            out_c, launches = run_main_path(
+                "  embed(DiskGraph), one-rank NCCL group",
+                lambda: ctt.embed(dg, **kw))
+            assert launches == none | loop, launches
+            assert out_c.tobytes() == out_b.tobytes()
+            out_h, halo_launches = run_main_path(
+                "  embed_sharded(halo=True), one-rank NCCL group",
+                lambda: embed_sharded(dg, halo=True, **kw))
+            assert halo_launches == none | loop | {
+                "halo_pack": ITERATIONS}, halo_launches
+            assert out_h.tobytes() == out_b.tobytes()
+        log("  one-rank NCCL group: all-gather and halo runs bitwise equal "
+            "to the run without a group")
+        del out_c, out_h
+
+        # ---- (d) checkpoint/resume and .npy output
+        ck = dict(kw, checkpoint_every=STREAM_CKPT_EVERY)
+        t0 = time.perf_counter()
+        whole = embed_sharded(dg, checkpoint_dir=os.path.join(tmp, "ck1"),
+                              **ck)
+        whole_s = time.perf_counter() - t0
+        save = lifecycle.ShardedCheckpoint.save
+        saves = []
+
+        class Cut(Exception):
+            pass
+
+        def cut(self, x, iteration, extra=None):
+            save(self, x, iteration, extra)
+            saves.append(iteration)
+            if len(saves) == STREAM_CUT_SAVES:
+                raise Cut
+
+        lifecycle.ShardedCheckpoint.save = cut
+        try:
+            embed_sharded(dg, checkpoint_dir=os.path.join(tmp, "ck2"), **ck)
+        except Cut:
+            pass
+        finally:
+            lifecycle.ShardedCheckpoint.save = save
+        assert saves == [10, 20], saves
+        resumed = embed_sharded(dg, checkpoint_dir=os.path.join(tmp, "ck2"),
+                                **ck)
+        assert resumed.tobytes() == whole.tobytes()
+        npy = embed_sharded(dg, out=os.path.join(tmp, "e.npy"), **kw)
+        assert np.array_equal(np.asarray(npy), out_b)
+        log(f"  checkpointed run {whole_s:.3f} s ({ITERATIONS // STREAM_CKPT_EVERY}"
+            f" saves); cut after {saves[-1]} iterations and resumed: bitwise "
+            "equal to the uninterrupted run"
+            + (", which equals (b)" if whole.tobytes() == out_b.tobytes()
+               else "") + "; out='.npy' equal to (b)")
+        del whole, resumed, npy, out_b
+
+        # ---- (e) K16 on shard 0's send slabs of a 4-way halo plan
+        t0 = time.perf_counter()
+        sharded = shard_graph(big, "left", K16_SHARDS)
+        plan = plan_halo(sharded)
+        plan_s = time.perf_counter() - t0
+        rps = sharded.rows_per_shard
+        send = torch.from_numpy(np.ascontiguousarray(
+            plan.send_idx[0])).to(dev)
+        p, m = send.shape
+        block = torch.from_numpy(table[:rps]).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = block.to(dtype)
+            got = halo_pack(x, send)
+            torch.cuda.synchronize()
+            assert torch.equal(got, halo_pack_plain(x, send)), dtype
+        del x, got
+        k16_ms = time_ms(lambda: halo_pack(block, send))
+        k16_plain_ms = time_ms(lambda: halo_pack_plain(block, send))
+        k16_lib_ms = time_ms(lambda: block.index_select(0, send.flatten()))
+        # bound: each distinct row the slabs name read once, the slabs
+        # written once, the indices read once
+        distinct = int(torch.unique(send).numel())
+        k16_bytes = 4 * distinct * DIM + 4 * p * m * DIM + 4 * p * m
+        log(f"  K16 (P, M, D) = ({p}, {m}, {DIM}) from {rps} rows, {distinct} "
+            f"of them distinct in the slabs (plan "
+            f"{plan_s:.3f} s on the host): {k16_ms:.3f} ms (plain "
+            f"{k16_plain_ms:.3f}, index_select {k16_lib_ms:.3f}); bound "
+            f"{k16_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bitwise equal to "
+            f"plain in float32 and bfloat16; [{card}]")
+        del block, send, sharded, plan
+
+        # ---- (f) the CLI, in-process
+        edges, columns, emb = arxiv
+        path = os.path.join(tmp, "arxiv.tsv")
+        with open(path, "w") as f:
+            f.write("\n".join(edges) + "\n")
+        npy_path = os.path.join(tmp, "arxiv.npy")
+        _, launches = run_main_path("  cli embed --streaming", lambda: cli_main(
+            ["embed", "-i", path, "-c", columns, "--streaming",
+             os.path.join(tmp, "arxiv_g"), "-o", npy_path, "-d", str(DIM),
+             "-n", str(ITERATIONS)]))
+        assert launches == none | loop, launches
+        cli_out = np.load(npy_path)
+        sample = np.sort(np.random.default_rng(12).choice(
+            emb.shape[0], size=STREAM_SAMPLE, replace=False))
+        err, top = gram_err(cli_out, emb, sample)
+        log(f"  cli embed --streaming: Gram of {STREAM_SAMPLE} rows against "
+            f"phase 10's embed(): max |diff| {err:.3e} (entries up to "
+            f"{top:.1f}); raw max |diff| "
+            f"{float(np.abs(cli_out - emb).max()):.3e}")
+        assert err <= 2e-5, err
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(["info", "-i", path, "-c", columns])
+        info = buf.getvalue()
+        log("  cli info: " + info.splitlines()[0])
+        assert f"{emb.shape[0]} entities" in info, info
+
+    return [kernel_row("halo_pack", "cleora_tpu_torch/kernels/halo_pack.cu",
+                       "cleora_tpu/parallel/embed.py:138", k16_ms,
+                       k16_plain_ms, k16_lib_ms, 0.0, k16_bytes, 0,
+                       halo_launches["halo_pack"])]
 
 
 def main() -> int:
@@ -2763,10 +2999,15 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += retrieval_full_width(dev, card, graph, table, gq, emb_q)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
-    del table, gq, emb_q
+    del gq, emb_q
     t0 = time.perf_counter()
-    rows += node_classification(dev, card, graph)
+    arxiv, nc_rows = node_classification(dev, card, graph)
+    rows += nc_rows
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += streamed_sharded(dev, card, graph, table, arxiv)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    del table, arxiv
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

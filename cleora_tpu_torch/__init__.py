@@ -18,6 +18,8 @@ that the JAX package computes on the host with numpy (``whiten_embeddings``,
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -49,12 +51,6 @@ __all__ = [
     "find_most_similar", "predict_links", "propagate_gpu", "propagate_tpu",
     "remove_edges", "supervised_refine", "update_graph", "whiten_embeddings",
 ]
-
-_DISK_GRAPH_NOT_PORTED = (
-    "streamed-build (DiskGraph) input is not ported yet: it is the "
-    "DiskGraph slice of the port (ROADMAP.md, queue A item 7)"
-)
-
 
 def embed_using_baseline_cleora(graph, feature_dim: int, iter: int,
                                 device=None):
@@ -111,6 +107,11 @@ def embed(
     ``canonical_shapes`` exists for the TPU's compile cache and is accepted
     and ignored.  ``num_workers`` is ignored on the device.  ``device=None``
     means CUDA; pass ``device="cpu"`` for the plain PyTorch path.
+
+    A streamed build (:class:`~.graph.stream.DiskGraph`) goes through the
+    sharded loop (:func:`~.parallel.embed_sharded`), which reads the
+    memmapped CSR one shard's rows at a time: one shard on one card, or
+    one per rank of an initialized process group.
     """
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(
@@ -124,7 +125,28 @@ def embed(
                 f"num_iterations must be an int or 'auto', got '{num_iterations}'"
             )
     if not hasattr(graph, "data"):
-        raise NotImplementedError(_DISK_GRAPH_NOT_PORTED)
+        # streamed build: warn only on an EXPLICIT canonical request, as
+        # the JAX package does (its default path does not warn)
+        if canonical_shapes or (
+            canonical_shapes is None
+            and os.environ.get("CLEORA_TPU_CANON") == "1"
+        ):
+            warnings.warn(
+                "canonical_shapes is not supported for streamed-build "
+                "(DiskGraph) inputs; the sharded loop uses its exact-shape "
+                "layout, so a new graph shape pays the full cold compile.",
+                stacklevel=2,
+            )
+        from .parallel.embed import embed_sharded
+
+        return embed_sharded(
+            graph, feature_dim=feature_dim, num_iterations=num_iterations,
+            propagation=propagation, normalization=normalization, seed=seed,
+            whiten=whiten, residual_weight=residual_weight,
+            convergence_threshold=convergence_threshold,
+            initial_embeddings=initial_embeddings, dtype=dtype,
+            callback=callback, device=device,
+        )
     _validate_propagation(propagation)
     if normalization not in ("l2", "l1", "spectral", "none"):
         raise ValueError(
@@ -223,10 +245,9 @@ def embed_dim_sharded(
             "is not supported — slice it yourself and call embed() per "
             "slice instead"
         )
-    if not hasattr(graph, "data"):
-        raise NotImplementedError(_DISK_GRAPH_NOT_PORTED)
     slices = []
     for k in range(feature_dim // slice_dim):
+        # a DiskGraph's slices go through the sharded loop, via embed()
         part = embed(
             graph,
             feature_dim=slice_dim,

@@ -4,8 +4,8 @@ K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu``, K7
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
 ``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu``, K13
-``pq_adc.cu``, K14 ``label_prop.cu`` and K15 ``relu_dropout.cu`` are built
-at first use (:mod:`.build`).  Each wrapper
+``pq_adc.cu``, K14 ``label_prop.cu``, K15 ``relu_dropout.cu`` and K16
+``halo_pack.cu`` are built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -32,10 +32,11 @@ def reset_launches() -> None:
 
 _c = ctypes
 _ARGTYPES = {
-    # indptr, indices, vals, x, x_bf16, out, n_rows, d, keep, w, vec4, stream
+    # indptr, indices, vals, x, x_bf16, res, out, n_rows, d, keep, w, vec4,
+    # stream
     "spmm_csr": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-                 _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float, _c.c_float,
-                 _c.c_int, _c.c_void_p],
+                 _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
+                 _c.c_float, _c.c_int, _c.c_void_p],
     # x, n_rows, d, mode, vec4, stream
     "row_normalize": [_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int, _c.c_int,
                       _c.c_void_p],
@@ -101,6 +102,9 @@ _ARGTYPES = {
                               _c.c_int64, _c.c_float, _c.c_float, _c.c_uint32,
                               _c.c_uint32, _c.c_uint32, _c.c_uint32,
                               _c.c_void_p],
+    # idx, x, out, n_slots, row_bytes, vec_bytes, stream
+    "halo_pack": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                  _c.c_int64, _c.c_int, _c.c_void_p],
 }
 
 
@@ -130,11 +134,15 @@ def _check_launch(name: str, rc: int) -> None:
 
 
 def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor, residual_weight: float = 0.0) -> torch.Tensor:
-    """K1: ``out = A @ x`` (A in CSR), then ``(1-w)·out + w·x`` for w > 0.
-    Returns a new float32 (N, D) tensor."""
+             x: torch.Tensor, residual_weight: float = 0.0,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: ``out = A @ x`` (A in CSR), then ``(1-w)·out + w·r`` for w > 0,
+    where ``r`` is ``residual`` (default ``x``): the sharded loop gathers
+    from a table that is not the shard's own state.  Returns a new float32
+    (N, D) tensor."""
     n = indptr.shape[0] - 1
-    for t in (indptr, indices, vals, x):
+    res = x if residual is None else residual
+    for t in (indptr, indices, vals, x, res):
         _require(t.is_cuda and t.device == x.device,
                  "spmm_csr: every operand must be on the same CUDA device")
         _require(t.is_contiguous(), "spmm_csr: operands must be contiguous")
@@ -143,17 +151,24 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
              "spmm_csr: indptr int64, indices int32 and vals float32 expected")
     _require(x.dtype in (torch.float32, torch.bfloat16) and x.dim() == 2,
              "spmm_csr: x must be a 2-D float32 or bfloat16 tensor")
+    _require(res.dtype == x.dtype and res.dim() == 2
+             and res.shape[1] == x.shape[1],
+             "spmm_csr: residual must match x's dtype and width")
     _require(indices.shape == vals.shape, "spmm_csr: indices/vals mismatch")
-    _require(x.shape[0] >= n, "spmm_csr: x has fewer rows than A")
+    _require(res.shape[0] >= n, "spmm_csr: x has fewer rows than A"
+             if residual is None else
+             "spmm_csr: residual has fewer rows than A")
     d = x.shape[1]
     w = float(residual_weight)
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     bf16 = x.dtype == torch.bfloat16
-    vec4 = d % 4 == 0 and x.data_ptr() % (8 if bf16 else 16) == 0
+    align = 8 if bf16 else 16
+    vec4 = (d % 4 == 0 and x.data_ptr() % align == 0
+            and res.data_ptr() % align == 0)
     fn = _bound("spmm_csr")
     with torch.cuda.device(x.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
-                x.data_ptr(), int(bf16), out.data_ptr(), n, d,
+                x.data_ptr(), int(bf16), res.data_ptr(), out.data_ptr(), n, d,
                 1.0 - w, w, int(vec4),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("spmm_csr", rc)
@@ -680,3 +695,29 @@ def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
                 torch.cuda.current_stream(z.device).cuda_stream)
     _check_launch(name, rc)
     return dz
+
+
+def halo_pack(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+    """K16: the halo send slab ``out[p, m] = x[send_idx[p, m]]``, a new
+    (P, M, D) tensor in ``x``'s dtype (float32 or bfloat16).  The indices
+    must lie in [0, rows of x): the sharded loop checks its plan on the
+    host when it is built."""
+    name = "halo_pack"
+    _require(x.dtype in (torch.float32, torch.bfloat16) and x.dim() == 2,
+             f"{name}: x must be a 2-D float32 or bfloat16 tensor")
+    _require(send_idx.dtype == torch.int32 and send_idx.dim() == 2,
+             f"{name}: send_idx must be a 2-D int32 tensor")
+    _require_cuda_contiguous(name, x.device, x, send_idx)
+    p, m = send_idx.shape
+    out = torch.empty((p, m, x.shape[1]), dtype=x.dtype, device=x.device)
+    row_bytes = x.shape[1] * x.element_size()
+    vec = next(v for v in (16, 4, 2)
+               if row_bytes % v == 0 and x.data_ptr() % v == 0
+               and out.data_ptr() % v == 0)
+    fn = _bound(name)
+    with torch.cuda.device(x.device):
+        rc = fn(send_idx.data_ptr(), x.data_ptr(), out.data_ptr(), p * m,
+                row_bytes, vec,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    return out

@@ -6,9 +6,13 @@
 // residual mix of cleora_tpu/ops/loop.py:65-66 is fused into the epilogue:
 //
 //   out[r, :] = sum_{e in row r} vals[e] * x[indices[e], :]
-//   out[r, :] = keep * out[r, :] + w * x[r, :]            when w > 0
+//   out[r, :] = keep * out[r, :] + w * res[r, :]          when w > 0
 //
-// x is float32 or bfloat16; the sum is always float32 and out is float32.
+// res is x itself on one device.  In the sharded loop (parallel/embed.py)
+// x is the gather table (the all-gathered state or the received halo slab,
+// which may have fewer rows than the shard) and res the shard's own state,
+// as in cleora_tpu/parallel/embed.py:192-193.  x and res are both float32
+// or both bfloat16; the sum is always float32 and out is float32.
 //
 // Bound on the card: bytes.  A call reads indptr (8 (N+1) B), indices and
 // vals (8 nnz B) and one row of x per edge (nnz * D * sizeof(x) B), and
@@ -65,7 +69,8 @@ template <typename T>
 __global__ void spmm_csr_vec4(const int64_t* __restrict__ indptr,
                               const int32_t* __restrict__ indices,
                               const float* __restrict__ vals,
-                              const T* __restrict__ x, float* __restrict__ out,
+                              const T* __restrict__ x,
+                              const T* __restrict__ res, float* __restrict__ out,
                               int64_t n_rows, int64_t d, float keep, float w) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
   if (row >= n_rows) return;
@@ -95,7 +100,7 @@ __global__ void spmm_csr_vec4(const int64_t* __restrict__ indptr,
       axpy4(acc, __ldg(vals + e), load4(x + col * d + c));
     }
     if (w > 0.f) {
-      const float4 xr = load4(x + row * d + c);
+      const float4 xr = load4(res + row * d + c);
       acc.x = keep * acc.x + w * xr.x;
       acc.y = keep * acc.y + w * xr.y;
       acc.z = keep * acc.z + w * xr.z;
@@ -110,6 +115,7 @@ __global__ void spmm_csr_scalar(const int64_t* __restrict__ indptr,
                                 const int32_t* __restrict__ indices,
                                 const float* __restrict__ vals,
                                 const T* __restrict__ x,
+                                const T* __restrict__ res,
                                 float* __restrict__ out, int64_t n_rows,
                                 int64_t d, float keep, float w) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
@@ -122,15 +128,15 @@ __global__ void spmm_csr_scalar(const int64_t* __restrict__ indptr,
       const int64_t col = __ldg(indices + e);
       acc += __ldg(vals + e) * load1(x + col * d + c);
     }
-    if (w > 0.f) acc = keep * acc + w * load1(x + row * d + c);
+    if (w > 0.f) acc = keep * acc + w * load1(res + row * d + c);
     out[row * d + c] = acc;
   }
 }
 
 template <typename T>
 void launch(const int64_t* indptr, const int32_t* indices, const float* vals,
-            const T* x, float* out, int64_t n_rows, int64_t d, float keep,
-            float w, int vec4, cudaStream_t stream) {
+            const T* x, const T* res, float* out, int64_t n_rows, int64_t d,
+            float keep, float w, int vec4, cudaStream_t stream) {
   const int64_t groups = vec4 ? d / 4 : d;
   const int tx = (int)(groups < 256 ? groups : 256);
   const int ty = 256 / tx > 0 ? 256 / tx : 1;
@@ -138,29 +144,34 @@ void launch(const int64_t* indptr, const int32_t* indices, const float* vals,
   const dim3 grid((unsigned)((n_rows + ty - 1) / ty));
   if (vec4) {
     spmm_csr_vec4<T><<<grid, block, 0, stream>>>(indptr, indices, vals, x,
-                                                  out, n_rows, d, keep, w);
+                                                  res, out, n_rows, d, keep,
+                                                  w);
   } else {
     spmm_csr_scalar<T><<<grid, block, 0, stream>>>(indptr, indices, vals, x,
-                                                    out, n_rows, d, keep, w);
+                                                    res, out, n_rows, d, keep,
+                                                    w);
   }
 }
 
 }  // namespace
 
 // Launches K1 on `stream` and returns cudaGetLastError().  `vec4` requires
-// d % 4 == 0 and x aligned to 4 elements (checked by the Python wrapper).
+// d % 4 == 0 and x and res aligned to 4 elements (checked by the Python
+// wrapper).
 extern "C" int spmm_csr_launch(const int64_t* indptr, const int32_t* indices,
                                const float* vals, const void* x, int x_bf16,
-                               float* out, int64_t n_rows, int64_t d,
-                               float keep, float w, int vec4, void* stream) {
+                               const void* res, float* out, int64_t n_rows,
+                               int64_t d, float keep, float w, int vec4,
+                               void* stream) {
   if (n_rows > 0 && d > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_bf16) {
-      launch(indptr, indices, vals, static_cast<const __nv_bfloat16*>(x), out,
-             n_rows, d, keep, w, vec4, s);
+      launch(indptr, indices, vals, static_cast<const __nv_bfloat16*>(x),
+             static_cast<const __nv_bfloat16*>(res), out, n_rows, d, keep, w,
+             vec4, s);
     } else {
-      launch(indptr, indices, vals, static_cast<const float*>(x), out, n_rows,
-             d, keep, w, vec4, s);
+      launch(indptr, indices, vals, static_cast<const float*>(x),
+             static_cast<const float*>(res), out, n_rows, d, keep, w, vec4, s);
     }
   }
   return (int)cudaGetLastError();

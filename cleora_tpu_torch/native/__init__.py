@@ -76,6 +76,34 @@ def _bind(lib):
     lib.ct_id_bytes.argtypes = [c.c_void_p, c.c_void_p]
     lib.ct_free.restype = None
     lib.ct_free.argtypes = [c.c_void_p]
+    # ---- streaming (out-of-core) build
+    lib.ct_stream_open.restype = c.c_void_p
+    lib.ct_stream_open.argtypes = [
+        c.c_int, c.POINTER(c.c_uint8), c.POINTER(c.c_uint8), c.c_int,
+        c.c_int, c.c_char_p, c.c_int64,
+    ]
+    lib.ct_stream_feed.restype = c.c_int
+    lib.ct_stream_feed.argtypes = [c.c_void_p, c.c_char_p, c.c_int64, c.c_int]
+    lib.ct_stream_feed_pairs.restype = c.c_int
+    lib.ct_stream_feed_pairs.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64,
+    ]
+    lib.ct_stream_finish.restype = c.c_int
+    lib.ct_stream_finish.argtypes = [c.c_void_p]
+    lib.ct_stream_error.restype = c.c_char_p
+    lib.ct_stream_error.argtypes = [c.c_void_p]
+    for fn in ("ct_stream_num_entities", "ct_stream_num_edges",
+               "ct_stream_skipped", "ct_stream_pairs_emitted"):
+        getattr(lib, fn).restype = c.c_int64
+        getattr(lib, fn).argtypes = [c.c_void_p]
+    lib.ct_stream_num_runs.restype = c.c_int
+    lib.ct_stream_num_runs.argtypes = [c.c_void_p]
+    lib.ct_stream_set_emit.restype = None
+    lib.ct_stream_set_emit.argtypes = [c.c_void_p, c.c_int]
+    lib.ct_stream_set_row_filter.restype = None
+    lib.ct_stream_set_row_filter.argtypes = [c.c_void_p, c.c_int64, c.c_int64]
+    lib.ct_stream_free.restype = None
+    lib.ct_stream_free.argtypes = [c.c_void_p]
     lib.ct_sort_u64.restype = c.c_int
     lib.ct_sort_u64.argtypes = [c.c_void_p, c.c_int64, c.c_int]
     return lib

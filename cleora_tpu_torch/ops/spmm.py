@@ -113,18 +113,22 @@ class CsrMatrix:
         return self._plain_index
 
 
-def spmm(csr: CsrMatrix, x: torch.Tensor,
-         residual_weight: float = 0.0) -> torch.Tensor:
-    """``A @ x`` as float32, then ``(1-w)·y + w·x`` when w > 0.  On CUDA
-    this launches K1; on the CPU it runs :func:`spmm_plain`."""
+def spmm(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
+         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``A @ x`` as float32, then ``(1-w)·y + w·r`` when w > 0, with
+    ``r = residual`` (default ``x``; the sharded loop gathers from a table
+    that is not the shard's state).  On CUDA this launches K1; on the CPU
+    it runs :func:`spmm_plain`."""
     if x.is_cuda:
-        return kernels.spmm_csr(csr.indptr, csr.indices, csr.vals,
-                                x.contiguous(), residual_weight)
-    return spmm_plain(csr, x, residual_weight)
+        return kernels.spmm_csr(
+            csr.indptr, csr.indices, csr.vals, x.contiguous(),
+            residual_weight,
+            None if residual is None else residual.contiguous())
+    return spmm_plain(csr, x, residual_weight, residual)
 
 
-def spmm_plain(csr: CsrMatrix, x: torch.Tensor,
-               residual_weight: float = 0.0) -> torch.Tensor:
+def spmm_plain(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K1: gather, scale, ``index_add_`` — in
     edge chunks so the (chunk, D) intermediate stays bounded."""
     rows, cols = csr.plain_index()
@@ -137,7 +141,8 @@ def spmm_plain(csr: CsrMatrix, x: torch.Tensor,
         out.index_add_(0, rows[s:e], scaled)
     w = float(residual_weight)
     if w > 0.0:
-        out = (1.0 - w) * out + w * x.float()
+        res = x if residual is None else residual
+        out = (1.0 - w) * out + w * res[:csr.n_rows].float()
     return out
 
 

@@ -26,7 +26,9 @@ def whiten(x: torch.Tensor, n_components=None, eps: float = 1e-10) -> torch.Tens
     if n <= 1:
         return x
     xf = x.float()
-    xc = xf - xf.mean(dim=0)
+    # the mean as a sum over n: the sharded loop all-reduces the same sum
+    # (parallel/embed.py), so one shard of it equals this bit for bit
+    xc = xf - xf.sum(dim=0) / n
     cov = torch.matmul(xc.T, xc) / (n - 1)
     eigenvalues, eigenvectors = torch.linalg.eigh(cov)
     # eigh returns ascending; reference sorts descending

@@ -213,8 +213,24 @@ def test_error_strings_match(graphs, kwargs):
     assert str(our_err.value) == str(ref_err.value)
 
 
-def test_disk_graph_not_ported():
-    with pytest.raises(NotImplementedError, match="DiskGraph"):
+def test_disk_graph_not_ported(tmp_path):
+    """embed() takes a streamed build (through the sharded loop, held
+    against the JAX package in tests/test_torch_sharded.py); the walk
+    siblings do not yet, and say so; anything else is refused."""
+    from cleora_tpu_torch.algorithms import embed_deepwalk
+    from cleora_tpu_torch.graph.stream import build_graph_streaming
+
+    lines = ["a b", "b c", "c d", "d a"]
+    dg = build_graph_streaming(lines, "complex::reflexive::node",
+                               str(tmp_path / "g"))
+    sm = ctt.SparseMatrix.from_iterator(iter(lines),
+                                        "complex::reflexive::node")
+    np.testing.assert_array_equal(
+        ctt.embed(dg, feature_dim=8, num_iterations=3, device="cpu"),
+        ctt.embed(sm, feature_dim=8, num_iterations=3, device="cpu"))
+    with pytest.raises(NotImplementedError, match="DiskGraph.*queue A item 7"):
+        embed_deepwalk(dg, 4, backend="device", device="cpu")
+    with pytest.raises(TypeError, match="SparseMatrix or a DiskGraph"):
         ctt.embed(object(), device="cpu")
 
 

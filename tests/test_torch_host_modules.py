@@ -323,13 +323,14 @@ def test_tuning_finds_the_same_best_params(karate):
 
 
 def test_benchmark_scores_and_tables(karate, cache):
-    ref, g, _, labels = karate
+    ref, g, emb, labels = karate
     t = tbench.benchmark_algorithms(g, labels, {
         "cleora": lambda x: ctt.embed(x, feature_dim=16, num_iterations=6,
                                       device="cpu"),
         "broken": lambda x: 1 / 0})
+    # the JAX side's embedding is the karate fixture's, the same call
     j = jbench.benchmark_algorithms(ref, labels, {
-        "cleora": lambda x: ct.embed(x, feature_dim=16, num_iterations=6),
+        "cleora": lambda x: emb.copy(),
         "broken": lambda x: 1 / 0})
     _same(t["cleora"]["scores"], j["cleora"]["scores"], rtol=1e-9)
     assert t["broken"] == j["broken"]

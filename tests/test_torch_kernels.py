@@ -24,7 +24,8 @@ atol=1e-6 with clamped rows bitwise (the tail rounded like the plain
 version's, the row sum in another order than the plain version's atomics:
 about 7e-6 relative on a row of 5,000 edges); K15 bitwise (the same Philox
 words, comparisons and true divisions); the GCN SpMM's backward (K1 over
-Âᵀ) rtol=1e-5, atol=1e-6, as K1.
+Âᵀ) rtol=1e-5, atol=1e-6, as K1; K16 bitwise (a copy); K1 with a
+separate residual operand as K1.
 """
 
 import numpy as np
@@ -67,6 +68,7 @@ from cleora_tpu_torch.ops.label_prop import (
     label_prop_step,
     label_prop_step_plain,
 )
+from cleora_tpu_torch.ops.halo import halo_pack, halo_pack_plain
 from cleora_tpu_torch.ops.pq import pq_adc_plain
 from cleora_tpu_torch.ops.walk import (
     WalkTables,
@@ -698,4 +700,58 @@ def test_k14_and_k15_wrappers_reject_bad_operands():
         kernels.relu_dropout(z.double(), 0.5, 0, 0, 0)
     with pytest.raises(ValueError, match="one shape"):
         kernels.relu_dropout_backward(z, z[:2], 0.5, 0, 0, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+@pytest.mark.parametrize("d", [7, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@cuda
+def test_k16_bitwise(cuda_device, d, dtype, offset):
+    """Odd M, every width class (odd bf16 rows take 2-byte halves, float32
+    rows of 7 words 4-byte words), and a state that starts one element
+    past an aligned address (no 16-byte vectors then)."""
+    rng = np.random.default_rng(d)
+    rows, p, m = 1001, 3, 37
+    base = torch.randn((rows * d + offset,), device=cuda_device).to(dtype)
+    x = base[offset:].view(rows, d)
+    idx = torch.from_numpy(
+        rng.integers(0, rows, size=(p, m)).astype(np.int32)).to(cuda_device)
+    before = kernels.LAUNCHES["halo_pack"]
+    got = halo_pack(x, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["halo_pack"] == before + 1
+    assert got.dtype == dtype and got.shape == (p, m, d)
+    assert torch.equal(got, halo_pack_plain(x, idx))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@cuda
+def test_k1_separate_residual_matches_plain(cuda_device, x_dtype):
+    """The sharded loop's halo step: the gather table (here 500 rows) is
+    smaller than the matrix (3,000 rows) and the residual comes from the
+    shard's own state."""
+    indptr, cols, vals = markov_csr(3000, 5, 400)
+    cols = cols % 500
+    csr = CsrMatrix(*(torch.from_numpy(a).to(cuda_device)
+                      for a in (indptr, cols.astype(np.int32), vals)))
+    table = torch.randn((500, 64), device=cuda_device).to(x_dtype)
+    res = torch.randn((3000, 64), device=cuda_device).to(x_dtype)
+    out = spmm(csr, table, 0.3, residual=res)
+    torch.cuda.synchronize()
+    tol = ({"rtol": 1e-5, "atol": 1e-6} if x_dtype == torch.float32
+           else {"rtol": 0.0, "atol": 1e-2})
+    torch.testing.assert_close(out, spmm_plain(csr, table, 0.3, res), **tol)
+
+
+def test_k16_wrapper_rejects_bad_operands():
+    x = torch.zeros((5, 4))
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.halo_pack(x, idx)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.halo_pack(x.double(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.halo_pack(x, idx.long())
     assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)

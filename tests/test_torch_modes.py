@@ -48,6 +48,15 @@ def graphs():
 
 
 @pytest.fixture(scope="module")
+def jax_emb(graphs):
+    """The JAX package's unwhitened D=16 embedding that the host helpers'
+    tests share, computed once for the module."""
+    emb = ct.embed(graphs[0], feature_dim=16, num_iterations=3, whiten=False)
+    emb.setflags(write=False)
+    return emb
+
+
+@pytest.fixture(scope="module")
 def lines():
     rng = np.random.default_rng(31)
     return [f"n{a} n{b}" for a, b in zip(rng.integers(0, 400, 1200),
@@ -297,7 +306,7 @@ def test_embed_dim_sharded(graphs):
     _same_error(lambda: ct.embed_dim_sharded(ref_g, initial_embeddings=x0),
                 lambda: ctt.embed_dim_sharded(our_g, initial_embeddings=x0,
                                               device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(TypeError, match="SparseMatrix or a DiskGraph"):
         ctt.embed_dim_sharded(object(), feature_dim=8, slice_dim=4,
                               device="cpu")
 
@@ -423,9 +432,9 @@ def test_propagate_custom_coo_with_and_without_init(graphs):
 # ------------------------------------------------ host numpy: exactly equal
 
 
-def test_host_helpers_exactly_equal(graphs):
+def test_host_helpers_exactly_equal(graphs, jax_emb):
     ref_g, our_g = graphs
-    emb = ct.embed(ref_g, feature_dim=16, num_iterations=3, whiten=False)
+    emb = jax_emb.copy()
     assert np.array_equal(ctt.whiten_embeddings(emb), ct.whiten_embeddings(emb))
     assert np.array_equal(ctt.whiten_embeddings(emb, 5),
                           ct.whiten_embeddings(emb, 5))
@@ -453,9 +462,9 @@ def test_host_helpers_exactly_equal(graphs):
                 lambda: ctt.find_most_similar(our_g, emb, "nope"))
 
 
-def test_supervised_refine_exactly_equal(graphs):
+def test_supervised_refine_exactly_equal(graphs, jax_emb):
     ref_g, our_g = graphs
-    emb = ct.embed(ref_g, feature_dim=16, num_iterations=3, whiten=False)
+    emb = jax_emb.copy()
     ids = our_g.entity_ids
     pos = [(ids[i], ids[i + 1]) for i in range(0, 40, 2)]
     neg = [(ids[i], ids[i + 7]) for i in range(0, 20, 3)]
