@@ -26,7 +26,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    seed in {0, 7, -3, 2**40+5}; K4 on the same CSR plus a row whose values
    are all 0, D in {8, 256, 300}, T in {0.7, 1.0} (rtol=1e-5, atol=1e-6);
    K5 on the first CSR, D in {8, 136, 256, 300, 4096}, with RandNE's,
-   Chebyshev's (z and acc) and Katz's coefficients (rtol=1e-5, atol=1e-6:
+   Chebyshev's (z and acc) and Katz's coefficients, and with a separate
+   self_ operand (a 3,000-row gather table under a 2,000-row CSR,
+   Chebyshev's coefficients, D in {8, 256, 300}) (rtol=1e-5, atol=1e-6:
    the tail is rounded like the plain version's, the row sum in another
    order); K6 at n in {1, 257, 4096} with duplicate entries and an empty
    row (P and deg atol=1e-6, vol rtol=1e-6); K7 on (4096, 4096) and
@@ -70,12 +72,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    init and one full-size K1, K2 and K4 call against their plain versions;
 6. the spectral siblings at full width, each through its public entry point
    with backend="device" and the launch counts zeroed before and read
-   after: embed_randne (40 iterations), embed_prone and embed_hope at
-   feature_dim=256 on phase 5's graph (one run each, under the stage
-   stopwatch); embed_netmf and embed_grarep dense
-   at 32,768 nodes and 98,304 undirected edges (six (n, n) float32 buffers
-   are 25.8 GB) and blocked (block_rows=4096, power_iters=1) at 200,000
-   nodes and 600,000 undirected edges.  Each entry point runs twice: once
+   after: embed_randne (40 iterations) and embed_hope at feature_dim=256
+   on phase 5's graph (one run each, under the stage stopwatch);
+   embed_netmf and embed_grarep dense at 32,768 nodes and 98,304
+   undirected edges (six (n, n) float32 buffers are 25.8 GB) and blocked
+   (block_rows=4096, power_iters=1), and embed_prone, at 200,000 nodes and
+   600,000 undirected edges (ProNE moved there from phase 5's graph, where
+   its float64 host SVD took 45-68 s; phase 12 runs it at full width).
+   Returns what phase 12 compares with.  Each entry point runs twice: once
    as a user calls it, which gives the end-to-end seconds, the launch
    counts and the peak device memory, and once more with its stages wrapped
    in a stopwatch that synchronises the device around every call, which
@@ -171,8 +175,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    rows, bitwise against its plain version in float32 and bfloat16,
    timed beside index_select; (f) the CLI in-process: `embed --streaming
    DIR --output x.npy` on phase 10's config-3 edges written as text, by
-   Gram against phase 10's embed(), and `info`.  Phases 8 to 11 print
-   their seconds.
+   Gram against phase 10's embed(), and `info`;
+12. the sharded siblings (parallel/algorithms.py) with n_devices=1 in the
+   one-rank NCCL group of phase 11, each a main path (launch counts zeroed
+   before and read after, end-to-end seconds, seconds by stage, peak
+   memory): (a) on phase 5's graph at feature_dim=256, embed_prone,
+   embed_randne (40 iterations) and embed_hope with phase 6's K5 counts;
+   ProNE's U before its epilogue against _prone_chebyshev_core (rtol=1e-5,
+   atol=1e-6), RandNE against phase 6's output (atol=1e-6), HOPE by the
+   Gram matrix of 4,096 sampled rows (atol=5e-3), embed_prone(out=".npy")
+   equal to the in-memory result; K5 with a separate self_ operand at that
+   shape against its plain version and timed, and the Gram, CholeskyQR2
+   (its QᵀQ within 1e-4 of I) and U·√S programs timed; (b) embed_prone on
+   phase 6's blocked graph against phase 6's run, and embed_netmf and
+   embed_grarep (block_rows=4096, power_iters=1) on phase 6's dense graph
+   (a cut from the blocked graph, to keep the script near 700 s) against
+   the single-device blocked path, each by the Gram matrix of 4,096 rows
+   (atol=1e-3).  Phases 8 to 12 print their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -287,6 +306,8 @@ K14_FULL_WIDTHS = (47, 40)
 STREAM_SAMPLE = 4_096
 STREAM_CKPT_EVERY = 10
 STREAM_CUT_SAVES = 2
+# phase 12: rows of its Gram checks
+SHARDED_SAMPLE = 4_096
 K16_SHARDS = 4
 # scripts/walk_quality_probe.py's defaults
 QUALITY_NODES = 100_000
@@ -598,6 +619,10 @@ def check_k4(dev: torch.device) -> None:
                 f"{max_err(got, want):.3e}")
 
 
+# K5's check with a separate self_ operand: a shard's CSR rows under its
+# gather table's rows
+K5_SELF_ROWS = 2_000
+K5_SELF_TABLE = 3_000
 # K5's coefficient sets: (a, b, c, d, takes z, takes acc)
 K5_CASES = {
     "randne": (1.0, 0.0, 0.0, 0.25, False, True),
@@ -622,7 +647,26 @@ def k5_pair(csr, x, z, acc, case: str):
     return (got, got_acc), (want, want_acc)
 
 
+def k5_self_pair(csr, table, own, z, acc):
+    """K5 with a separate ``self_`` operand (the sharded siblings' call:
+    the SpMM gathers from ``table``, ``b·self_`` reads ``own``) and its
+    plain version, with Chebyshev's coefficients; returns (out, acc) of
+    each."""
+    from cleora_tpu_torch.ops.spmm import spmm_axpy, spmm_axpy_plain
+
+    a, b, c, d = K5_CASES["chebyshev"][:4]
+    got_acc, want_acc = acc.clone(), acc.clone()
+    got = spmm_axpy(csr, table, a, b, z=z, c=c, acc=got_acc, d=d,
+                    self_=own)
+    want = spmm_axpy_plain(csr, table, a, b, z=z, c=c, acc=want_acc, d=d,
+                           self_=own)
+    torch.cuda.synchronize()
+    return (got, got_acc), (want, want_acc)
+
+
 def check_k5(dev: torch.device, csr) -> None:
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
+
     gen = torch.Generator(device=dev).manual_seed(5)
     n = csr.n_rows
     for d in (8, 136, 256, 300, 4096):
@@ -634,6 +678,23 @@ def check_k5(dev: torch.device, csr) -> None:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
             log(f"K5 d={d} {case}: max |err| out {max_err(got[0], want[0]):.3e}"
                 f", acc {max_err(got[1], want[1]):.3e}")
+    # a 3,000-row gather table under a 2,000-row CSR, as a shard's
+    indptr, _, vals = markov_csr(K5_SELF_ROWS, 6, 500)
+    cols = np.random.default_rng(6).integers(0, K5_SELF_TABLE, len(vals))
+    rect = CsrMatrix(torch.from_numpy(indptr).to(dev),
+                     torch.from_numpy(cols.astype(np.int32)).to(dev),
+                     torch.from_numpy(vals).to(dev))
+    for d in (8, 256, 300):
+        table = torch.randn((K5_SELF_TABLE, d), device=dev, generator=gen)
+        own, z, acc = (torch.randn((K5_SELF_ROWS, d), device=dev,
+                                   generator=gen) for _ in range(3))
+        got, want = k5_self_pair(rect, table, own, z, acc)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        log(f"K5 d={d} chebyshev, self_ ({K5_SELF_ROWS} rows under a "
+            f"{K5_SELF_TABLE}-row table): max |err| out "
+            f"{max_err(got[0], want[0]):.3e}, acc "
+            f"{max_err(got[1], want[1]):.3e}")
 
 
 def duplicate_csr(n: int, seed: int):
@@ -928,6 +989,12 @@ def spectral_parity(dev: torch.device, g, rows: np.ndarray) -> None:
                 f"({small.num_entities} rows): max |err| {err:.3e} of max "
                 f"|G| {scale:.3e}")
             assert np.isfinite(a).all() and err <= 5e-3, err
+
+
+def sample_rows(n: int, seed: int = 13) -> np.ndarray:
+    """Sorted rows of phase 12's Gram checks, the same for both runs."""
+    return np.sort(np.random.default_rng(seed).choice(
+        n, size=min(SHARDED_SAMPLE, n), replace=False))
 
 
 def gram_err(a: np.ndarray, b: np.ndarray, rows: np.ndarray):
@@ -1225,12 +1292,13 @@ def stopwatch(*targets):
             setattr(owner, name, real)
 
 
-def run_spectral(name: str, call, expected=None) -> dict:
+def run_spectral(name: str, call, expected=None, keep=None) -> dict:
     """One spectral entry point as a main path, called as a user calls it
     (nothing wrapped, no synchronisation inside): launch counts asserted
     (kernels not named in ``expected`` must not launch; None leaves the
     assertion to the caller), output finite with unit rows (an all-zero
-    row of the factorised matrix stays zero)."""
+    row of the factorised matrix stays zero).  ``keep[name]`` receives the
+    output when ``keep`` is given."""
     from cleora_tpu_torch import kernels
 
     out, launches = run_main_path(name, call)
@@ -1245,6 +1313,8 @@ def run_spectral(name: str, call, expected=None) -> dict:
     assert zero.mean() <= 0.01, zero.mean()
     log(f"  {name}: output {out.shape}, unit rows ({int(zero.sum())} zero "
         "rows)")
+    if keep is not None:
+        keep[name] = out
     return launches
 
 
@@ -1261,15 +1331,17 @@ def stage_split(name: str, call, *targets) -> None:
         "by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
 
-def staged_spectral(name: str, call, expected, *targets) -> dict:
+def staged_spectral(name: str, call, expected, *targets, keep=None) -> dict:
     """One run of a spectral entry point with ``targets`` under the
     stopwatch: launch counts, peak memory and the end-to-end seconds of
     that run (the stopwatch's synchronisations included), and the seconds
-    by stage."""
+    by stage (also left in ``keep["stages"]``)."""
     with stopwatch(*targets) as stages:
-        launches = run_spectral(name, call, expected)
+        launches = run_spectral(name, call, expected, keep)
     log(f"  {name}: seconds by stage " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
+    if keep is not None:
+        keep["stages"] = stages
     return launches
 
 
@@ -1336,9 +1408,12 @@ def check_blocked_block(alg, graph, dev: torch.device) -> dict:
     return errs
 
 
-def spectral_full_width(dev: torch.device, card: str, g) -> list:
+def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     """Phase 6: the five spectral siblings through their entry points, then
-    K5, K6 and K7 at full size against their plain versions and timed."""
+    K5, K6 and K7 at full size against their plain versions and timed.
+    Returns the kernels' rows and what phase 12 compares with: RandNE's
+    output, HOPE's sampled rows and its series length, the blocked graph
+    with ProNE's sampled rows on it, and the dense graph."""
     import cleora_tpu_torch.algorithms as alg
     from cleora_tpu_torch.ops import memory
     from cleora_tpu_torch.ops.dense import (
@@ -1360,22 +1435,17 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
         return alg.embed_randne(g, feature_dim=DIM, num_iterations=ITERATIONS,
                                 backend="device")
 
-    def prone():
-        return alg.embed_prone(g, feature_dim=DIM, backend="device")
-
     def hope():
         return alg.embed_hope(g, feature_dim=DIM, backend="device")
 
     # one run each, under the stopwatch: on the card its synchronisations
-    # cost less than the spread between runs, and ProNE's host SVD alone
-    # takes most of a minute
+    # cost less than the spread between runs
+    kept = {}
     staged_spectral("embed_randne()", randne, {"spmm_axpy": ITERATIONS},
                     (alg, "_device_weighted_sum_core"), (alg, "_fetch_f64"),
-                    (alg, "_finalize"))
-    prone_launches = staged_spectral(
-        "embed_prone()", prone, {"spmm_axpy": 9},
-        (alg, "_prone_chebyshev_core"), (alg, "_fetch_f64"),
-        (alg, "_svd_sqrt"), (alg, "_finalize"))
+                    (alg, "_finalize"), keep=kept)
+    sample = sample_rows(n)
+    refs = {"randne": kept["embed_randne()"], "rows": sample}
 
     # HOPE's launch count follows from the series length its code derives:
     # 6 Katz applications (power_iters=2), each `terms` launches, read where
@@ -1391,9 +1461,13 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
     try:
         hope_launches = staged_spectral(
             "embed_hope()", hope, None, (alg, "_katz"), (torch.linalg, "qr"),
-            (torch.linalg, "svd"), (alg, "_fetch_f64"), (alg, "_finalize"))
+            (torch.linalg, "svd"), (alg, "_fetch_f64"), (alg, "_finalize"),
+            keep=kept)
     finally:
         alg._katz = real_katz
+    refs["hope"] = kept.pop("embed_hope()")[sample]
+    refs["hope_terms"] = seen["terms"]
+    del kept
     log(f"  embed_hope(): k={DIM // 2}, r={DIM // 2 + 8}, "
         f"terms={seen['terms']}")
     assert seen["terms"] in (12, 13), seen
@@ -1534,7 +1608,8 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
         f"{k7_plain_ms:.3f}, torch.log(clamp_min(x*r*c)) {k7_lib_ms:.3f}); "
         f"GraRep mode {k7_grarep_ms:.3f} ms; max |err| {k7_err:.3e}; "
         f"[{card}]")
-    del xk7, csrd, gd
+    del xk7, csrd
+    refs["dense"] = gd
     torch.cuda.empty_cache()
 
     # ---- the blocked paths
@@ -1549,6 +1624,19 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
     blocked_targets = ((alg, "spmm_axpy"), (alg, "spmm"), (alg, "log_clip"),
                        (torch, "matmul"), (torch.linalg, "qr"),
                        (torch.linalg, "svd"), (alg, "_fetch_f64"))
+    kept = {}
+
+    # ProNE here, not on phase 5's graph: its float64 host SVD of the
+    # 1.96 M x 256 result took 45-68 s there on the H100's host (a cut
+    # that keeps the time limit; phase 12 runs ProNE at full width with
+    # the device epilogue)
+    def prone():
+        return alg.embed_prone(gb, feature_dim=DIM, backend="device")
+
+    prone_launches = staged_spectral(
+        "embed_prone()", prone, {"spmm_axpy": 9},
+        (alg, "_prone_chebyshev_core"), (alg, "_fetch_f64"),
+        (alg, "_svd_sqrt"), (alg, "_finalize"), keep=kept)
 
     def netmf_blocked():
         return alg.embed_netmf(gb, feature_dim=DIM, backend="device",
@@ -1569,6 +1657,9 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
                  {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
                   "log_clip": blocks * sweeps * GRAREP_STEPS})
     stage_split("embed_grarep() blocked", grarep_blocked, *blocked_targets)
+    refs["blocked"] = gb
+    refs["blocked_rows"] = sample_rows(nb)
+    refs["blocked_prone"] = kept.pop("embed_prone()")[refs["blocked_rows"]]
     k5_err = max(k5_err, blocked_errs["spmm_axpy"])
     k7_err = max(k7_err, blocked_errs["log_clip"])
 
@@ -1585,7 +1676,7 @@ def spectral_full_width(dev: torch.device, card: str, g) -> list:
         kernel_row("log_clip", src + "log_clip.cu",
                    "cleora_tpu/algorithms.py:429", k7_ms, k7_plain_ms,
                    k7_lib_ms, k7_err, k7_bytes, k7_flops, netmf["log_clip"]),
-    ]
+    ], refs
 
 
 # ------------------------------------------------------ phase 7: DeepWalk
@@ -2974,6 +3065,234 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
                        halo_launches["halo_pack"])]
 
 
+# --------------------------------------- phase 12: the sharded siblings
+def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
+    """Phase 12: the five spectral siblings with n_devices=1 in a one-rank
+    NCCL group (parallel/algorithms.py), each a main path against phase
+    6's single-device run; K5 with a separate self_ operand and the
+    distributed linear algebra timed at full width."""
+    import tempfile
+
+    import cleora_tpu_torch.algorithms as alg
+    import cleora_tpu_torch.parallel.algorithms as palg
+    from cleora_tpu_torch._util import full_float32_matmul
+    from cleora_tpu_torch.ops.spmm import spmm_axpy, spmm_axpy_plain
+    from cleora_tpu_torch.parallel import make_mesh
+
+    n, nnz = g.num_entities, g.num_edges
+    rows = refs["rows"]
+    prone_kw = {k: v.default for k, v in inspect.signature(
+        alg.embed_prone).parameters.items() if k in ("mu", "theta", "seed")}
+    sym_targets = ((palg, "_sharded_op_sym"), (palg.ShardedOp, "apply_axpy"),
+                   (palg, "_gram_usqrt"), (palg, "_sharded_exit"),
+                   (alg, "_finalize"))
+    kept = {}
+    log(f"phase 12, the sharded siblings with n_devices=1 in a one-rank NCCL "
+        f"group, on phase 5's graph ({n} entities, {nnz} nnz)")
+    with one_rank_nccl_group():
+        # ---- (a) full width: ProNE (its U before the epilogue held
+        # against the single-device Chebyshev core), RandNE, HOPE, out=
+        seen = {}
+        real_usqrt = palg._gram_usqrt
+
+        def usqrt(U, mesh):
+            seen["U"] = U
+            return real_usqrt(U, mesh)
+
+        def prone():
+            return alg.embed_prone(g, feature_dim=DIM, backend="device",
+                                   n_devices=1)
+
+        palg._gram_usqrt = usqrt
+        try:
+            prone_launches = staged_spectral(
+                "embed_prone(n_devices=1)", prone, {"spmm_axpy": 9},
+                *sym_targets, keep=kept)
+        finally:
+            palg._gram_usqrt = real_usqrt
+        prone_out = kept.pop("embed_prone(n_devices=1)")
+        U = seen.pop("U")[:n]
+        core = alg._prone_chebyshev_core(g, DIM, **prone_kw)
+        torch.testing.assert_close(U, core, rtol=1e-5, atol=1e-6)
+        log(f"  ProNE's U before the epilogue against _prone_chebyshev_core:"
+            f" max |diff| {max_err(U, core):.3e}"
+            + (" (bitwise equal)" if torch.equal(U, core) else ""))
+        del U, core
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "prone.npy")
+            t0 = time.perf_counter()
+            npy = alg.embed_prone(g, feature_dim=DIM, backend="device",
+                                  n_devices=1, out=path)
+            out_s = time.perf_counter() - t0
+            assert np.array_equal(np.asarray(npy), prone_out)
+            del npy
+        log(f"  embed_prone(n_devices=1, out='.npy'): {out_s:.3f} s, equal "
+            "to the in-memory result")
+        del prone_out
+
+        def randne():
+            return alg.embed_randne(g, feature_dim=DIM, backend="device",
+                                    num_iterations=ITERATIONS, n_devices=1)
+
+        staged_spectral("embed_randne(n_devices=1)", randne,
+                        {"spmm_axpy": ITERATIONS}, *sym_targets, keep=kept)
+        got = kept.pop("embed_randne(n_devices=1)")
+        err = float(np.abs(got - refs["randne"]).max())
+        log(f"  RandNE against phase 6's: max |diff| {err:.3e}"
+            + (" (bitwise equal)" if err == 0.0 else ""))
+        assert err <= 1e-6, err
+        del got
+
+        def hope():
+            return alg.embed_hope(g, feature_dim=DIM, backend="device",
+                                  n_devices=1)
+
+        staged_spectral(
+            "embed_hope(n_devices=1)", hope,
+            {"spmm_axpy": 6 * refs["hope_terms"]},
+            (palg.ShardedOp, "__init__"), (palg.ShardedOp, "apply_axpy"),
+            (palg, "_chol_qr"), (torch.linalg, "eigh"),
+            (palg, "_sharded_exit"), (alg, "_finalize"), keep=kept)
+        got = kept.pop("embed_hope(n_devices=1)")[rows]
+        err, top = gram_err(got, refs["hope"], slice(None))
+        log(f"  HOPE against phase 6's: Gram of {len(rows)} rows max |diff| "
+            f"{err:.3e} (entries up to {top:.1f})")
+        assert err <= 5e-3, err
+        del got
+
+        # ---- K5 with self_ and the distributed linear algebra, timed
+        mesh = make_mesh()
+        op = palg._sharded_op_sym(g, mesh, DIM)
+        rps, lnnz = op.rows_per_shard, op.csr.nnz
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x, z, acc = (torch.randn((rps, DIM), device=dev, generator=gen)
+                     for _ in range(3))
+        table = mesh.all_gather(x)  # a copy in a group, as the path sees
+        assert table is not x
+        got, want = k5_self_pair(op.csr, table, x, z, acc)
+        k5s_err = 0.0
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            k5s_err = max(k5s_err, max_err(a, b))
+        del got, want, a, b
+        ca, cb, cc, cd = K5_CASES["chebyshev"][:4]
+        k5s_ms = time_ms(lambda: spmm_axpy(op.csr, table, ca, cb, z=z, c=cc,
+                                           acc=acc, d=cd, self_=x))
+        k5s_plain_ms = time_ms(
+            lambda: spmm_axpy_plain(op.csr, table, ca, cb, z=z, c=cc,
+                                    acc=acc, d=cd, self_=x),
+            reps=3, warmup=1)
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            a_lib = torch.sparse_csr_tensor(
+                op.csr.indptr.int(), op.csr.indices, op.csr.vals,
+                size=(rps, table.shape[0]), check_invariants=False)
+
+            def k5_library():
+                out = torch.sparse.mm(a_lib, table).mul_(ca)
+                out.add_(x, alpha=cb).add_(z, alpha=cc)
+                acc.add_(out, alpha=cd)
+                return out
+
+            k5s_lib_ms = time_ms(k5_library)
+        del a_lib
+        # table, self_ and z read, acc read and written, out written
+        k5s_bytes = 8 * (rps + 1) + 8 * lnnz + 4 * 4 * rps * DIM \
+            + 8 * rps * DIM
+        k5s_flops = 2 * lnnz * DIM + 7 * rps * DIM
+        log(f"K5 with self_ D={DIM} (a {table.shape[0]}-row table copy): "
+            f"Chebyshev step {k5s_ms:.3f} ms (plain {k5s_plain_ms:.3f}, "
+            f"torch.sparse.mm + 4 elementwise calls {k5s_lib_ms:.3f}); "
+            f"bound {k5s_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); "
+            f"max |err| {k5s_err:.3e}; [{card}]")
+        del table, z, acc
+        with full_float32_matmul():
+            q = palg._chol_qr(x, mesh)
+            ortho = max_err(torch.matmul(q.T, q),
+                            torch.eye(DIM, device=dev))
+            assert ortho <= 1e-4, ortho
+            del q
+            la = {name: time_ms(lambda f=f: f(x, mesh))
+                  for name, f in (("_psum_gram", palg._psum_gram),
+                                  ("_chol_qr", palg._chol_qr),
+                                  ("_gram_usqrt", palg._gram_usqrt))}
+        # flops: the Gram 2·n·D²; CholeskyQR2 two Grams and two triangular
+        # solves of n·D² each; U·√S the Gram and one (n, D)·(D, D) product
+        nd2 = rps * DIM * DIM
+        for name, flops in (("_psum_gram", 2 * nd2), ("_chol_qr", 6 * nd2),
+                            ("_gram_usqrt", 4 * nd2)):
+            log(f"  {name} ({rps}, {DIM}): {la[name]:.3f} ms; bound "
+                f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms (operations, float32 "
+                f"outside the tensor cores); [{card}]")
+        log(f"  CholeskyQR2 of ({rps}, {DIM}) Gaussian rows: max |QᵀQ - I| "
+            f"{ortho:.3e}")
+        del x, op
+
+        # ---- (b) ProNE on phase 6's blocked graph; NetMF and GraRep,
+        # blocked, on phase 6's dense graph (a cut from the blocked graph,
+        # whose two runs took 35 s of a 700.8 s run of this script on an
+        # NVIDIA H100 80GB HBM3 at 700 W)
+        gb = refs["blocked"]
+        brows = refs["blocked_rows"]
+        log(f"phase 12 (b), phase 6's blocked graph ({gb.num_entities} "
+            f"entities, {gb.num_edges} nnz)")
+        staged_spectral("embed_prone(n_devices=1) blocked graph",
+                        lambda: alg.embed_prone(gb, feature_dim=DIM,
+                                                backend="device", n_devices=1),
+                        {"spmm_axpy": 9}, *sym_targets, keep=kept)
+        got = kept.pop("embed_prone(n_devices=1) blocked graph")[brows]
+        err, top = gram_err(got, refs["blocked_prone"], slice(None))
+        log(f"  prone against phase 6's single-device run: Gram of "
+            f"{len(brows)} rows max |diff| {err:.3e} (entries up to "
+            f"{top:.1f})")
+        assert err <= 1e-3, err
+        gd = refs["dense"]
+        nd = gd.num_entities
+        drows = sample_rows(nd)
+        blocks = -(-nd // BLOCK_ROWS)
+        sweeps = 2 + 2 * 1  # power_iters=1
+        log(f"phase 12 (b), phase 6's dense graph ({nd} entities, "
+            f"{gd.num_edges} nnz): block_rows={BLOCK_ROWS}, {blocks} blocks, "
+            f"{sweeps} sweeps, against the single-device blocked path")
+        blocked_targets = ((palg, "_sweep"), (palg, "_vblock"),
+                           (palg, "log_clip"), (palg, "_chol_qr"),
+                           (palg, "_sharded_exit"))
+        cases = (
+            ("netmf", alg.embed_netmf, {},
+             {"spmm_axpy": blocks * sweeps * 5, "log_clip": blocks * sweeps},
+             ((palg.ShardedOp, "apply_axpy"),) + blocked_targets),
+            ("grarep", alg.embed_grarep, {"max_step": GRAREP_STEPS},
+             {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
+              "log_clip": blocks * sweeps * GRAREP_STEPS},
+             ((palg.ShardedOp, "apply"),) + blocked_targets),
+        )
+        for name, fn, extra, expected, targets in cases:
+            kw = dict(extra, feature_dim=DIM, backend="device",
+                      block_rows=BLOCK_ROWS, power_iters=1)
+            t0 = time.perf_counter()
+            ref = fn(gd, **kw)[drows]
+            ref_s = time.perf_counter() - t0
+            label = f"embed_{name}(n_devices=1) dense graph"
+            staged_spectral(label, lambda: fn(gd, n_devices=1, **kw),
+                            expected, *targets, keep=kept)
+            got = kept.pop(label)[drows]
+            err, top = gram_err(got, ref, slice(None))
+            log(f"  {name} against the single-device blocked path "
+                f"({ref_s:.3f} s): Gram of {len(drows)} rows max |diff| "
+                f"{err:.3e} (entries up to {top:.1f}); "
+                f"{kept['stages']['_sweep'] * 1e3 / (blocks * sweeps):.3f} "
+                f"ms per block body (the sweeps' seconds over "
+                f"{blocks * sweeps} blocks; L is ({nd}, {BLOCK_ROWS}), "
+                f"{8 * nd * BLOCK_ROWS / HBM_BYTES_PER_S * 1e3:.3f} ms to "
+                f"write and read once); [{card}]")
+            assert err <= 1e-3, (name, err)
+
+    return [kernel_row("spmm_axpy_self", "cleora_tpu_torch/kernels/spmm_axpy.cu",
+                       "cleora_tpu/parallel/algorithms.py:449", k5s_ms,
+                       k5s_plain_ms, k5s_lib_ms, k5s_err, k5s_bytes,
+                       k5s_flops, prone_launches["spmm_axpy"])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2987,7 +3306,8 @@ def main() -> int:
     slice_parity(dev)
     walk_parity(dev)
     rows, graph, table = full_width(dev, card)
-    rows += spectral_full_width(dev, card, graph)
+    spectral_rows, spectral_refs = spectral_full_width(dev, card, graph)
+    rows += spectral_rows
     graph._device_cache.clear()  # phase 9 reads its entity ids only
     walk_rows, walk_graph = walk_full_width(dev, card)
     rows += walk_rows
@@ -3008,6 +3328,9 @@ def main() -> int:
     rows += streamed_sharded(dev, card, graph, table, arxiv)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     del table, arxiv
+    t0 = time.perf_counter()
+    rows += sharded_siblings(dev, card, graph, spectral_refs)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,9 @@ from .ops.walk import (
 )
 
 _SHARDED_NOT_PORTED = (
-    "mesh=/n_devices= (the sharded device backends) are not ported yet: "
-    "they are the multi-GPU slice of the port (ROADMAP.md, queue A item 8)"
+    "mesh=/n_devices= of the walk siblings (the sharded walks and counting) "
+    "are not ported yet: they are the multi-GPU slice of the port "
+    "(ROADMAP.md, queue A item 8)"
 )
 
 
@@ -363,15 +364,20 @@ def _grarep_dense(csr: CsrMatrix, omega: torch.Tensor, max_step: int, k: int,
 # (kernel K7) and the two randomized-SVD products follow.  The device holds
 # O(n·b), not O(n²), so the device path extends past the dense gate; cost per
 # full sweep over M is T·nnz·n/b gathered rows + n²·r matmul FLOPs.
-def _pt_csr(rows, cols, vals, n: int, device):
-    """CSR of the TRANSPOSE transition operator Pᵀ (entries
-    Pᵀ[j, i] = A[i, j]/deg[i]), plus deg and vol of A
-    (cleora_tpu/algorithms.py:534-540; no relabelling: the CSR keeps
-    original row order)."""
+def _pt_values(rows, vals, n: int):
+    """The entries Pᵀ[j, i] = A[i, j]/deg[i] of the transpose transition
+    operator, in A's COO order, plus deg (float32) and vol of A
+    (cleora_tpu/algorithms.py:534-540)."""
     deg64 = np.bincount(rows, weights=vals.astype(np.float64), minlength=n)
     vol = float(deg64.sum())
     deg = np.maximum(deg64, 1e-10).astype(np.float32)
-    pt_vals = (vals / deg[rows]).astype(np.float32)
+    return (vals / deg[rows]).astype(np.float32), deg, vol
+
+
+def _pt_csr(rows, cols, vals, n: int, device):
+    """CSR of the TRANSPOSE transition operator Pᵀ, plus deg and vol of A
+    (no relabelling: the CSR keeps original row order)."""
+    pt_vals, deg, vol = _pt_values(rows, vals, n)
     return CsrMatrix.transpose_from_coo(rows, cols, pt_vals, n, device), deg, vol
 
 
@@ -597,12 +603,23 @@ def embed_prone(
 
     ``backend="device"`` runs the Chebyshev recurrence on ``device`` in
     float32 (kernel K5); the U_k√S_k epilogue stays a float64 SVD on the
-    host, as in the JAX package.  ``out=`` writes the finalized embedding to
-    a ``.npy`` and returns a read-only memmap."""
+    host, as in the JAX package.  With ``mesh=`` (a
+    ``parallel.ShardGroup``) or ``n_devices=`` the recurrence AND the
+    U_k√S_k epilogue run sharded over the process group, one shard per
+    rank (parallel/algorithms.py; without a group the process is the one
+    shard); the output matches the single-device backend up to per-column
+    signs.  ``out=`` writes the finalized embedding to a ``.npy`` and
+    returns a read-only memmap; with the sharded backend the write streams
+    shard by shard."""
     n = graph.num_entities
 
+    if backend == "device" and (mesh is not None or n_devices is not None):
+        from .parallel.algorithms import prone_sharded
+
+        res = prone_sharded(graph, feature_dim, mu, theta, seed, mesh=mesh,
+                            n_devices=n_devices, out=out, device=device)
+        return res if out is not None else _finalize(res, feature_dim)
     if backend == "device":
-        _check_not_sharded(mesh, n_devices)
         U = _fetch_f64(
             _prone_chebyshev_core(graph, feature_dim, mu, theta, seed, device))
     else:
@@ -640,8 +657,10 @@ def embed_randne(
     U = Σ_i w_i · N^i · R with N = D^-1/2 A D^-1/2, w_i = 1/2^i default.
 
     ``backend="device"`` runs the weighted-power loop on ``device`` in
-    float32 (kernel K5).  ``out=`` writes the finalized embedding to a
-    ``.npy`` and returns a read-only memmap."""
+    float32 (kernel K5); with ``mesh=``/``n_devices=`` it runs sharded over
+    the process group (parallel/algorithms.py).  ``out=`` writes the
+    finalized embedding to a ``.npy`` and returns a read-only memmap; with
+    the sharded backend the write streams shard by shard."""
     n = graph.num_entities
     if weights is None:
         weights = [1.0 / (2**i) for i in range(num_iterations + 1)]
@@ -651,11 +670,16 @@ def embed_randne(
         for i in range(num_iterations + 1)
     ]
 
+    if backend == "device" and (mesh is not None or n_devices is not None):
+        from .parallel.algorithms import randne_sharded
+
+        # draws its own R, a float32 slice per shard
+        res = randne_sharded(graph, feature_dim, full, seed, mesh=mesh,
+                             n_devices=n_devices, out=out, device=device)
+        return res if out is not None else _finalize(res, feature_dim)
     rng = np.random.default_rng(seed)
     R = rng.standard_normal((n, feature_dim))
-
     if backend == "device":
-        _check_not_sharded(mesh, n_devices)
         U = _device_spmm_weighted_sum(graph, R, full, sym_norm=True,
                                       device=device)
     else:
@@ -693,12 +717,21 @@ def embed_hope(
     where the host path (and the reference) run out of memory.  Requires
     β·‖A‖_∞ < 1; accuracy is the usual randomized-SVD guarantee, tunable via
     ``oversample``/``power_iters``.  seed only affects the device sketch.
-    ``out=`` writes the finalized embedding to a ``.npy`` and returns a
-    read-only memmap."""
+    With ``mesh=``/``n_devices=`` the whole pipeline (the Neumann series,
+    CholeskyQR2 subspace iteration, the Gram SVD) runs sharded over the
+    process group (parallel/algorithms.py).  ``out=`` writes the finalized
+    embedding to a ``.npy`` and returns a read-only memmap; with the
+    sharded backend the write streams shard by shard."""
     n = graph.num_entities
 
+    if backend == "device" and (mesh is not None or n_devices is not None):
+        from .parallel.algorithms import hope_sharded
+
+        result = hope_sharded(graph, feature_dim, beta, seed, oversample,
+                              power_iters, mesh=mesh, n_devices=n_devices,
+                              out=out, device=device)
+        return result if out is not None else _finalize(result, feature_dim)
     if backend == "device":
-        _check_not_sharded(mesh, n_devices)
         result = _hope_device(
             graph, feature_dim, beta, seed, oversample, power_iters, device
         )
@@ -763,10 +796,20 @@ def embed_netmf(
     a time via transition-power walks (kernel K5) and streamed through the
     randomized SVD, so the device holds O(n·block) — any n that fits the
     embedding itself runs on the device.  ``block_rows`` forces the blocked
-    path with that block width (auto-sized when None).  ``out=`` persists
-    the finalized embedding to a ``.npy`` and returns a read-only memmap."""
+    path with that block width (auto-sized when None).  With
+    ``mesh=``/``n_devices=`` the blocked path runs sharded over the process
+    group: the (n, b) blocks and the sketch panels are each rank's rows
+    (parallel/algorithms.py:netmf_sharded).  ``out=`` persists the
+    finalized embedding to a ``.npy`` and returns a read-only memmap."""
+    if backend == "device" and (mesh is not None or n_devices is not None):
+        from .parallel.algorithms import netmf_sharded
+
+        res = netmf_sharded(graph, feature_dim, window_size,
+                            negative_samples, seed, oversample, power_iters,
+                            block_rows=block_rows, mesh=mesh,
+                            n_devices=n_devices, out=out, device=device)
+        return res if out is not None else _finalize(res, feature_dim)
     if backend == "device":
-        _check_not_sharded(mesh, n_devices)
         emb = _finalize(
             _netmf_device(graph, feature_dim, window_size, negative_samples,
                           seed, oversample, power_iters, block_rows, device),
@@ -819,10 +862,18 @@ def embed_grarep(
     SVD; past the dense gate it switches to the blocked streaming path
     like the device NetMF (one transition-power walk of kernel K1 per sweep
     serves every step's sketch), so any n that fits the embedding runs on
-    the device.  ``block_rows`` forces the blocked path.  ``out=`` persists
-    the finalized embedding to a ``.npy`` and returns a read-only memmap."""
+    the device.  ``block_rows`` forces the blocked path.  With
+    ``mesh=``/``n_devices=`` the blocked path runs sharded over the process
+    group (parallel/algorithms.py:grarep_sharded).  ``out=`` persists the
+    finalized embedding to a ``.npy`` and returns a read-only memmap."""
+    if backend == "device" and (mesh is not None or n_devices is not None):
+        from .parallel.algorithms import grarep_sharded
+
+        res = grarep_sharded(graph, feature_dim, max_step, seed, oversample,
+                             power_iters, block_rows=block_rows, mesh=mesh,
+                             n_devices=n_devices, out=out, device=device)
+        return res if out is not None else _finalize(res, feature_dim)
     if backend == "device":
-        _check_not_sharded(mesh, n_devices)
         emb = _finalize(
             _grarep_device(graph, feature_dim, max_step, seed, oversample,
                            power_iters, block_rows, device),

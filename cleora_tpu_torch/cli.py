@@ -101,8 +101,10 @@ def main(argv=None):
                         "N > 1 with torchrun --nproc-per-node N, one card "
                         "per rank).  With a .npy --output the embedding "
                         "streams shard by shard into the file — no process "
-                        "holds the full (N, D) matrix.  Sibling algorithms: "
-                        "not ported yet")
+                        "holds the full (N, D) matrix.  prone, randne, "
+                        "hope, netmf and grarep (with --backend device) run "
+                        "their device pipeline over the N ranks; deepwalk "
+                        "and node2vec: not ported yet")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="cleora + --sharded: persist the sharded loop "
                         "state to DIR every --checkpoint-every iterations. "
@@ -284,13 +286,26 @@ def _finish_embed(args, graph):
                 "--cooccurrence device)"
             )
     dev = args.device
+    mesh = None
     if getattr(args, "sharded", None) is not None and args.algorithm != "cleora":
-        from .algorithms import _SHARDED_NOT_PORTED
+        if walk_algo:
+            from .algorithms import _SHARDED_NOT_PORTED
 
-        raise SystemExit(_SHARDED_NOT_PORTED)
+            raise SystemExit(_SHARDED_NOT_PORTED)
+        # the spectral siblings run their whole device pipeline over the
+        # shard group (parallel/algorithms.py); under torchrun every rank
+        # joins the process group first
+        if be != "device":
+            raise SystemExit(
+                "--sharded with a sibling algorithm requires --backend device"
+            )
+        from .parallel import init_distributed, make_mesh
+
+        init_distributed(device=dev)
+        mesh = make_mesh(args.sharded or None, device=dev)
     disk_npy = (args.algorithm == "cleora" and not hasattr(graph, "data")
                 and args.output.endswith(".npy"))
-    if getattr(args, "sharded", None) is not None or disk_npy:
+    if (getattr(args, "sharded", None) is not None and mesh is None) or disk_npy:
         # scale lifecycle: the sharded loop with optional checkpointing and
         # memory-bounded direct-to-.npy output (parallel/embed.py); a
         # streamed build runs there anyway, so its .npy output streams too;
@@ -356,14 +371,15 @@ def _finish_embed(args, graph):
                                 args.propagation, args.normalization, args.seed,
                                 dtype=args.dtype, device=dev),
         "prone": lambda: embed_prone(graph, args.dim, seed=args.seed,
-                                     backend=be, device=dev),
+                                     backend=be, mesh=mesh, device=dev),
         "randne": lambda: embed_randne(graph, args.dim, seed=args.seed,
-                                       backend=be, device=dev),
-        "hope": lambda: embed_hope(graph, args.dim, backend=be, device=dev),
+                                       backend=be, mesh=mesh, device=dev),
+        "hope": lambda: embed_hope(graph, args.dim, backend=be, mesh=mesh,
+                                   device=dev),
         "netmf": lambda: embed_netmf(graph, args.dim, seed=args.seed,
-                                     backend=be, device=dev),
+                                     backend=be, mesh=mesh, device=dev),
         "grarep": lambda: embed_grarep(graph, args.dim, seed=args.seed,
-                                       backend=be, device=dev),
+                                       backend=be, mesh=mesh, device=dev),
         "deepwalk": lambda: embed_deepwalk(graph, args.dim, seed=args.seed,
                                            backend=be, factorization=fact,
                                            cooccurrence=cooc,
@@ -387,6 +403,8 @@ def _finish_embed(args, graph):
             # chunked fetches, no (n, d) host materialization)
             walk_kw["out"] = args.output
     emb = algo_map[args.algorithm]()
+    if mesh is not None and mesh.rank != 0:
+        return  # every rank holds the result; rank 0 saves it
     if walk_kw.get("out"):
         print(f"{graph.num_entities} entities -> {emb.shape} streamed "
               f"to {args.output} ({time.time() - t0:.2f}s)")

@@ -10,6 +10,10 @@ ranges as numpy and returns the port's, so both factorize the same counts.
 package's ``checkpoint.embed_with_checkpointing`` wrote, so that the
 port's :mod:`.checkpoint` resumes the run.  The state layouts are plain
 arrays; nothing of the JAX package is imported.
+
+The spectral siblings, sharded or not, carry nothing more: they have no
+parameters, and both packages draw R, Ω and the sketches from the same
+``np.random.default_rng(seed)`` calls over the same graph.
 """
 
 from __future__ import annotations

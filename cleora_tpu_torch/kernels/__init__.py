@@ -47,11 +47,12 @@ _ARGTYPES = {
     "edge_attention": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
                        _c.c_int, _c.c_void_p],
-    # indptr, indices, vals, x, z, acc, out, n_rows, d, a, b, c, dd, vec4, stream
+    # indptr, indices, vals, x, self, z, acc, out, n_rows, d, a, b, c, dd,
+    # vec4, stream
     "spmm_axpy": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                  _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
-                  _c.c_int64, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
-                  _c.c_int, _c.c_void_p],
+                  _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                  _c.c_int64, _c.c_int64, _c.c_float, _c.c_float, _c.c_float,
+                  _c.c_float, _c.c_int, _c.c_void_p],
     # indptr, indices, vals, p, deg, vol, n, vec4, stream
     "dense_markov": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                      _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
@@ -285,32 +286,41 @@ def _overlap(s: torch.Tensor, t: torch.Tensor) -> bool:
 def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
               x: torch.Tensor, a: float, b: float = 0.0,
               z: Optional[torch.Tensor] = None, c: float = 0.0,
-              acc: Optional[torch.Tensor] = None,
-              d: float = 0.0) -> torch.Tensor:
-    """K5: ``out = a·(A @ x) + b·x + c·z`` (A in CSR) as a new float32
-    (N, D) tensor, and ``acc += d·out`` in place when ``acc`` is given."""
+              acc: Optional[torch.Tensor] = None, d: float = 0.0,
+              self_: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: ``out = a·(A @ x) + b·s + c·z`` (A in CSR) as a new float32
+    (N, D) tensor, and ``acc += d·out`` in place when ``acc`` is given.
+    ``s`` is ``self_`` (default ``x``): the sharded siblings gather from a
+    table that is not the shard's own rows, and the table may have any
+    number of rows."""
     name = "spmm_axpy"
     n = indptr.shape[0] - 1
     _require_csr(name, indptr, indices, vals)
-    dense = [t for t in (x, z, acc) if t is not None]
+    s = x if self_ is None else self_
+    dense = [t for t in (x, self_, z, acc) if t is not None]
     for t in dense:
         _require(t.dtype == torch.float32 and t.dim() == 2,
-                 f"{name}: x, z and acc must be 2-D float32 tensors")
-        _require(t.shape == x.shape, f"{name}: x, z and acc shapes differ")
-    _require(x.shape[0] == n, f"{name}: x must have one row per row of A")
-    # the kernel reads x and z through the read-only cache, and other rows
-    # gather x, while a row's thread updates acc
-    _require(acc is None or not any(_overlap(acc, t) for t in (x, z)
+                 f"{name}: x, self_, z and acc must be 2-D float32 tensors")
+    _require(all(t.shape == s.shape for t in (z, acc) if t is not None)
+             and x.shape[1] == s.shape[1],
+             f"{name}: x, self_, z and acc shapes differ")
+    _require(s.shape[0] == n, f"{name}: x must have one row per row of A"
+             if self_ is None else
+             f"{name}: self_ must have one row per row of A")
+    # the kernel reads x, self_ and z through the read-only cache, and other
+    # rows gather x, while a row's thread updates acc
+    _require(acc is None or not any(_overlap(acc, t) for t in (x, self_, z)
                                     if t is not None),
-             f"{name}: acc must not share memory with x or z")
+             f"{name}: acc must not share memory with x, self_ or z")
     _require_cuda_contiguous(name, x.device, indptr, indices, vals, *dense)
     width = x.shape[1]
-    out = torch.empty_like(x)
+    out = torch.empty((n, width), dtype=torch.float32, device=x.device)
     vec4 = width % 4 == 0 and _aligned16(out, *dense)
     fn = _bound(name)
     with torch.cuda.device(x.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
-                x.data_ptr(), None if z is None else z.data_ptr(),
+                x.data_ptr(), s.data_ptr(),
+                None if z is None else z.data_ptr(),
                 None if acc is None else acc.data_ptr(), out.data_ptr(),
                 n, width, float(a), float(b), float(c), float(d), int(vec4),
                 torch.cuda.current_stream(x.device).cuda_stream)

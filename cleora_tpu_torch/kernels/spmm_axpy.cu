@@ -8,15 +8,20 @@
 // walk `y = spmm; acc += y` of _netmf_block_jit (:595-597):
 //
 //   s         = sum_{e in row i} vals[e] * x[indices[e], :]
-//   out[i, :] = a * s + b * x[i, :] + c * z[i, :]
+//   out[i, :] = a * s + b * self[i, :] + c * z[i, :]
 //   acc[i, :] += d * out[i, :]                       (when acc is given)
 //
-// z and acc may be null.  The b term is skipped when b == 0 and the c term
-// when z is null, so neither row is read then.  Everything is float32.
+// self is x itself on one device.  In the sharded siblings
+// (parallel/algorithms.py, the port of cleora_tpu/parallel/algorithms.py)
+// x is the gather table (the all-gathered rows or the received halo slab,
+// which may have more or fewer rows than the shard) and self the shard's
+// own N rows, as K1's residual operand is in the sharded loop.  z and acc
+// may be null.  The b term is skipped when b == 0 and the c term when z is
+// null, so neither row is read then.  Everything is float32.
 //
 // Bound on the card: bytes.  A call reads the CSR (8 (N+1) + 8 nnz B) and x,
-// optionally z and acc (4 N D B each), and writes out and acc (4 N D B
-// each), for 2 nnz D + 6 N D flops: a fraction of a flop per byte.
+// optionally self, z and acc (4 N D B each), and writes out and acc
+// (4 N D B each), for 2 nnz D + 6 N D flops: a fraction of a flop per byte.
 //
 // Design: XLA fuses the elementwise tail of each step into the program
 // around its SpMM; unfused, each step would re-read and re-write three to
@@ -58,6 +63,7 @@ __global__ void spmm_axpy_vec4(const int64_t* __restrict__ indptr,
                                const int32_t* __restrict__ indices,
                                const float* __restrict__ vals,
                                const float* __restrict__ x,
+                               const float* __restrict__ self,
                                const float* __restrict__ z, float* acc_out,
                                float* __restrict__ out, int64_t n_rows,
                                int64_t d, float a, float b, float c,
@@ -92,7 +98,7 @@ __global__ void spmm_axpy_vec4(const int64_t* __restrict__ indptr,
     }
     const int64_t at = row * d + col0;
     float4 xr = make_float4(0.f, 0.f, 0.f, 0.f), zr = xr;
-    if (b != 0.f) xr = load4(x + at);
+    if (b != 0.f) xr = load4(self + at);
     if (has_z) zr = load4(z + at);
     float4 o;
     o.x = tail(s.x, a, b, xr.x, has_z, c, zr.x);
@@ -115,6 +121,7 @@ __global__ void spmm_axpy_scalar(const int64_t* __restrict__ indptr,
                                  const int32_t* __restrict__ indices,
                                  const float* __restrict__ vals,
                                  const float* __restrict__ x,
+                                 const float* __restrict__ self,
                                  const float* __restrict__ z, float* acc_out,
                                  float* __restrict__ out, int64_t n_rows,
                                  int64_t d, float a, float b, float c,
@@ -131,7 +138,7 @@ __global__ void spmm_axpy_scalar(const int64_t* __restrict__ indptr,
       s += __ldg(vals + e) * __ldg(x + col * d + col0);
     }
     const int64_t at = row * d + col0;
-    const float xr = b != 0.f ? __ldg(x + at) : 0.f;
+    const float xr = b != 0.f ? __ldg(self + at) : 0.f;
     const float zr = has_z ? __ldg(z + at) : 0.f;
     const float o = tail(s, a, b, xr, has_z, c, zr);
     out[at] = o;
@@ -143,12 +150,14 @@ __global__ void spmm_axpy_scalar(const int64_t* __restrict__ indptr,
 
 }  // namespace
 
-// Launches K5 on `stream` and returns cudaGetLastError().  `z` and `acc`
-// may be null.  `vec4` requires d % 4 == 0 and every tensor aligned to 16
-// bytes (checked by the Python wrapper).
+// Launches K5 on `stream` and returns cudaGetLastError().  `self` is the
+// shard's own rows (x on one device); `z` and `acc` may be null.  `vec4`
+// requires d % 4 == 0 and every tensor aligned to 16 bytes (checked by the
+// Python wrapper).
 extern "C" int spmm_axpy_launch(const int64_t* indptr, const int32_t* indices,
                                 const float* vals, const float* x,
-                                const float* z, float* acc, float* out,
+                                const float* self, const float* z,
+                                float* acc, float* out,
                                 int64_t n_rows, int64_t d, float a, float b,
                                 float c, float dd, int vec4, void* stream) {
   if (n_rows > 0 && d > 0) {
@@ -159,12 +168,13 @@ extern "C" int spmm_axpy_launch(const int64_t* indptr, const int32_t* indices,
     const dim3 block(tx, ty);
     const dim3 grid((unsigned)((n_rows + ty - 1) / ty));
     if (vec4) {
-      spmm_axpy_vec4<<<grid, block, 0, s>>>(indptr, indices, vals, x, z, acc,
-                                            out, n_rows, d, a, b, c, dd);
+      spmm_axpy_vec4<<<grid, block, 0, s>>>(indptr, indices, vals, x, self,
+                                            z, acc, out, n_rows, d, a, b, c,
+                                            dd);
     } else {
-      spmm_axpy_scalar<<<grid, block, 0, s>>>(indptr, indices, vals, x, z,
-                                              acc, out, n_rows, d, a, b, c,
-                                              dd);
+      spmm_axpy_scalar<<<grid, block, 0, s>>>(indptr, indices, vals, x,
+                                              self, z, acc, out, n_rows, d,
+                                              a, b, c, dd);
     }
   }
   return (int)cudaGetLastError();

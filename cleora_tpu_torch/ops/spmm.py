@@ -148,28 +148,30 @@ def spmm_plain(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
 
 def spmm_axpy(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
               z: Optional[torch.Tensor] = None, c: float = 0.0,
-              acc: Optional[torch.Tensor] = None,
-              d: float = 0.0) -> torch.Tensor:
-    """One step of the spectral recurrences: ``out = a·(A @ x) + b·x + c·z``
+              acc: Optional[torch.Tensor] = None, d: float = 0.0,
+              self_: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step of the spectral recurrences: ``out = a·(A @ x) + b·s + c·z``
     as a new float32 tensor, and ``acc += d·out`` in place when ``acc`` is
-    given.  On CUDA this launches K5; on the CPU it runs
-    :func:`spmm_axpy_plain`."""
+    given, with ``s = self_`` (default ``x``; the sharded siblings gather
+    from a table that is not the shard's own rows).  On CUDA this launches
+    K5; on the CPU it runs :func:`spmm_axpy_plain`."""
     if x.is_cuda:
         return kernels.spmm_axpy(
             csr.indptr, csr.indices, csr.vals, x.contiguous(), a, b,
-            None if z is None else z.contiguous(), c, acc, d)
-    return spmm_axpy_plain(csr, x, a, b, z, c, acc, d)
+            None if z is None else z.contiguous(), c, acc, d,
+            None if self_ is None else self_.contiguous())
+    return spmm_axpy_plain(csr, x, a, b, z, c, acc, d, self_)
 
 
 def spmm_axpy_plain(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
                     z: Optional[torch.Tensor] = None, c: float = 0.0,
-                    acc: Optional[torch.Tensor] = None,
-                    d: float = 0.0) -> torch.Tensor:
+                    acc: Optional[torch.Tensor] = None, d: float = 0.0,
+                    self_: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K5: :func:`spmm_plain`, then the terms in
     K5's order, each product and sum rounded to float32."""
     out = spmm_plain(csr, x).mul_(float(a))
     if float(b) != 0.0:
-        out += float(b) * x
+        out += float(b) * (x if self_ is None else self_)
     if z is not None:
         out += float(c) * z
     if acc is not None:

@@ -83,26 +83,82 @@ def _to_device(view: np.ndarray, dtype: np.dtype, device: torch.device,
 
 
 def _local_csr(sharded: ShardedCsr, k: int, cols: np.ndarray, n_cols: int,
-               device: torch.device) -> CsrMatrix:
+               device: torch.device,
+               vals: Optional[np.ndarray] = None) -> CsrMatrix:
     """Shard k's local CSR on ``device``: ``cols`` index the gather table
-    of ``n_cols`` rows."""
+    of ``n_cols`` rows; ``vals`` replaces the shard's values."""
     indptr = sharded.indptr(k)
+    vals = sharded.vals[k] if vals is None else vals
     if (np.any(np.diff(indptr) < 0) or indptr[-1] != len(cols)
-            or len(cols) != len(sharded.vals[k])):
+            or len(cols) != len(vals)):
         raise ValueError("malformed CSR: indptr/indices/vals disagree")
     return CsrMatrix(torch.from_numpy(indptr).to(device),
                      _to_device(cols, np.int32, device, n_cols),
-                     _to_device(sharded.vals[k], np.float32, device))
+                     _to_device(vals, np.float32, device))
+
+
+def shard_operator(mesh: ShardGroup, sharded: ShardedCsr,
+                   halo: Optional[HaloPlan], width: int,
+                   dtype: str = "float32",
+                   vals: Optional[np.ndarray] = None):
+    """This process's shard of the operator, ready for
+    :func:`gather_table`: ``(csr, send_idx)``, the shard's local CSR on its
+    device (column ids into the gather table; ``vals`` replaces the
+    shard's values) and its halo send indices (None: the all-gather).
+    Refuses a shape whose loop at ``width`` cannot fit the device."""
+    k = mesh.rank
+    rps = sharded.rows_per_shard
+    if halo is not None:
+        cols, n_cols = halo.remapped_cols[k], halo.table_rows
+        if halo.send_idx.size and (halo.send_idx.min() < 0
+                                   or halo.send_idx.max() >= rps):
+            raise ValueError("malformed halo plan: send row out of range")
+        send_idx = torch.from_numpy(
+            np.ascontiguousarray(halo.send_idx[k])).to(mesh.device)
+    else:
+        cols, n_cols, send_idx = sharded.cols[k], rps * mesh.world_size, None
+    separate_table = halo is not None or mesh.group is not None
+    check_device_fit(rps + (n_cols if separate_table else 0), int(width),
+                     sharded.nnz(k), dtype, mesh.device)
+    return _local_csr(sharded, k, cols, n_cols, mesh.device, vals), send_idx
+
+
+def check_piece_range(lo: int, hi: int, n: int, mesh: ShardGroup) -> None:
+    """A piece of a sharded build covering rows [lo, hi) of n must lie on
+    the group's shard cut and hold the calling rank's whole shard."""
+    from ..graph.stream import shard_row_bounds
+
+    bounds = shard_row_bounds(n, mesh.world_size)
+    if lo not in bounds or hi not in bounds:
+        raise ValueError(
+            f"piece row range [{lo}, {hi}) does not align with the "
+            f"{mesh.world_size}-device shard cut {bounds}; build pieces with "
+            "graph.stream.host_piece_range(n_entities, n_devices, "
+            "devices_per_host, host_id)"
+        )
+    k = mesh.rank
+    if not (lo <= bounds[k] and bounds[k + 1] <= hi):
+        raise ValueError(
+            f"process {k} owns shard {k} (rows [{bounds[k]}, "
+            f"{bounds[k + 1]})) but its piece covers only [{lo}, {hi})"
+        )
+
+
+def gather_table(x: torch.Tensor, mesh: ShardGroup,
+                 send_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows the shard's local CSR gathers from: the all-gathered
+    (n_padded, D) state (``x`` itself for one shard without a group), or
+    the received (P·M, D) halo slab."""
+    if send_idx is None:
+        return mesh.all_gather(x)
+    return mesh.all_to_all(halo_pack(x, send_idx)).view(-1, x.shape[1])
 
 
 def _propagate_local(x: torch.Tensor, csr: CsrMatrix, mesh: ShardGroup,
                      send_idx: Optional[torch.Tensor],
                      residual_weight: float) -> torch.Tensor:
     """Boundary-row exchange + local SpMM (K1) + residual mix, float32."""
-    if send_idx is None:
-        table = mesh.all_gather(x)  # (n_padded, D); x itself for one shard
-    else:
-        table = mesh.all_to_all(halo_pack(x, send_idx)).view(-1, x.shape[1])
+    table = gather_table(x, mesh, send_idx)
     return spmm(csr, table, residual_weight,
                 residual=None if table is x else x)
 
@@ -177,23 +233,9 @@ def build_sharded_embed(
     segments stops where the same run in one piece would.  With a
     ``halo`` plan each step swaps only boundary rows (K16 +
     ``all_to_all_single``) instead of all-gathering the full table."""
-    k = mesh.rank
-    rps = sharded.rows_per_shard
     n_rows = sharded.n_rows
-    lo, hi = lifecycle.shard_rows(mesh, n_rows, rps)
-    if halo is not None:
-        cols, n_cols = halo.remapped_cols[k], halo.table_rows
-        if halo.send_idx.size and (halo.send_idx.min() < 0
-                                   or halo.send_idx.max() >= rps):
-            raise ValueError("malformed halo plan: send row out of range")
-        send_idx = torch.from_numpy(
-            np.ascontiguousarray(halo.send_idx[k])).to(mesh.device)
-    else:
-        cols, n_cols, send_idx = sharded.cols[k], rps * mesh.world_size, None
-    separate_table = halo is not None or mesh.group is not None
-    check_device_fit(rps + (n_cols if separate_table else 0),
-                     int(feature_dim), sharded.nnz(k), dtype, mesh.device)
-    csr = _local_csr(sharded, k, cols, n_cols, mesh.device)
+    lo, hi = lifecycle.shard_rows(mesh, n_rows, sharded.rows_per_shard)
+    csr, send_idx = shard_operator(mesh, sharded, halo, feature_dim, dtype)
     nd = n_rows * int(feature_dim)
     state_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
@@ -274,7 +316,7 @@ def embed_sharded(
     checkpoint, and runs exactly as many iterations as the call without
     it.  ``device=None`` means CUDA (each NCCL rank's own card).
     """
-    from ..graph.stream import DiskGraph, shard_row_bounds
+    from ..graph.stream import DiskGraph
 
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(
@@ -330,21 +372,7 @@ def embed_sharded(
                 "merged graph (graph.stream.merge_disk_graph_shards) or a "
                 "multi-process run where every host holds its own piece."
             )
-        bounds = shard_row_bounds(n, n_shards)
-        lo, hi = int(piece_range[0]), int(piece_range[1])
-        if lo not in bounds or hi not in bounds:
-            raise ValueError(
-                f"piece row range [{lo}, {hi}) does not align with the "
-                f"{n_shards}-device shard cut {bounds}; build pieces with "
-                "graph.stream.host_piece_range(n_entities, n_devices, "
-                "devices_per_host, host_id)"
-            )
-        k = mesh.rank
-        if not (lo <= bounds[k] and bounds[k + 1] <= hi):
-            raise ValueError(
-                f"process {k} owns shard {k} (rows [{bounds[k]}, "
-                f"{bounds[k + 1]})) but its piece covers only [{lo}, {hi})"
-            )
+        check_piece_range(int(piece_range[0]), int(piece_range[1]), n, mesh)
 
     sharded = shard_csr(graph, propagation, n_shards)
     plan = None

@@ -23,7 +23,7 @@ import hashlib
 import json
 import os
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,21 +122,30 @@ def collect_shards(x: torch.Tensor, mesh, n_rows: int,
 
 
 def write_memmap(path: str, x: torch.Tensor, mesh, n_rows: int,
-                 rows_per_shard: int) -> np.memmap:
+                 rows_per_shard: int,
+                 transform: Optional[Callable[[np.ndarray], np.ndarray]]
+                 = None) -> np.memmap:
     """Stream the sharded embedding into ONE standard ``.npy`` file.
 
     Rank 0 creates the file; every rank then writes its own rows in
     bounded chunks (a shared filesystem in multi-process runs), so the
-    host peak is one chunk.  Returns a read-only memmap of the full
+    host peak is one chunk.  ``transform`` (row-local, e.g. the sibling
+    algorithms' finalize) maps each float32 chunk before the write and
+    sets the stored width.  Returns a read-only memmap of the full
     (n_rows, D) matrix."""
+    d = x.shape[1]
+    if transform is not None:
+        d = transform(np.zeros((1, d), np.float32)).shape[1]
     if mesh.rank == 0:
         mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
-                                       shape=(n_rows, x.shape[1]))
+                                       shape=(n_rows, d))
         del mm
     mesh.barrier()
     lo, hi = shard_rows(mesh, n_rows, rows_per_shard)
     mm = np.lib.format.open_memmap(path, mode="r+")
     for s, block in _iter_chunks(x, hi - lo):
+        if transform is not None:
+            block = transform(block)
         mm[lo + s:lo + s + block.shape[0]] = block
     mm.flush()
     del mm

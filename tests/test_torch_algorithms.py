@@ -380,11 +380,15 @@ def test_dense_gate_error_string_and_bypass(graphs, monkeypatch):
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_sharded_arguments_raise_not_implemented(graphs, name):
+    """The sharded backends run (tests/test_torch_sharded_algorithms.py);
+    what they refuse: two shards without a process group (make_mesh's
+    message names torchrun) and a mesh that is not a ShardGroup."""
     _, g = graphs
     fn = getattr(talg, f"embed_{name}")
-    for kw in (dict(n_devices=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            fn(g, feature_dim=8, backend="device", device="cpu", **kw)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        fn(g, feature_dim=8, backend="device", device="cpu", n_devices=2)
+    with pytest.raises(TypeError, match="ShardGroup"):
+        fn(g, feature_dim=8, backend="device", device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

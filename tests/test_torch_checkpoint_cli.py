@@ -209,6 +209,32 @@ def test_cli_streaming_npy_and_sharded(edge_file, tmp_path, capsys):
     assert os.path.exists(tmp_path / "ck" / "checkpoint.json")
 
 
+def test_cli_sharded_sibling(edge_file, tmp_path, capsys):
+    """`embed --sharded 1 -a prone --backend device` runs the sharded
+    ProNE (one shard, no group) and saves what embed_prone returns;
+    without --backend device it exits with the JAX CLI's message."""
+    import cleora_tpu_torch.algorithms as talg
+
+    out = str(tmp_path / "prone.npz")
+    argv = ["embed", "-i", edge_file, "-o", out, "-d", "8", "-a", "prone",
+            "--sharded", "1", "--device", "cpu"]
+    said = _run(capsys, tcli.main, argv + ["--backend", "device"])
+    assert "saved to" in said
+    graph = ctt.SparseMatrix.from_iterator(
+        iter(open(edge_file).read().split("\n")[:-1]),
+        "complex::reflexive::node")
+    want = talg.embed_prone(graph, 8, backend="device", n_devices=1,
+                            device="cpu")
+    got = np.load(out)
+    assert list(got["entity_ids"]) == list(graph.entity_ids)
+    assert np.array_equal(got["embeddings"], want)
+    with pytest.raises(SystemExit, match="requires --backend device") as err:
+        tcli.main(argv)
+    with pytest.raises(SystemExit) as jerr:
+        jcli.main(argv[:-2])
+    assert str(err.value) == str(jerr.value)
+
+
 def test_cli_info_similar_merge_like_jax(edge_file, tmp_path, capsys):
     cols = "complex::reflexive::node"
     assert (_run(capsys, tcli.main, ["info", "-i", edge_file])
@@ -240,7 +266,7 @@ def test_cli_info_similar_merge_like_jax(edge_file, tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["plan", "-i", "x"], "queue A item 7"),
     (["scaling", "--smoke"], "queue A item 8"),
-    (["embed", "-i", "EDGES", "-o", "y.npz", "--sharded", "-a", "prone"],
+    (["embed", "-i", "EDGES", "-o", "y.npz", "--sharded", "-a", "deepwalk"],
      "queue A item 8"),
 ])
 def test_cli_not_ported_commands_say_so(edge_file, argv, match):

@@ -427,7 +427,54 @@ def test_k13_bitwise(cuda_device, q, m, c, n, dtype):
                                                                  codes))
 
 
+@cuda
+@pytest.mark.parametrize("d", [8, 256, 300])
+def test_k5_self_operand_matches_plain(cuda_device, d):
+    """The sharded siblings' K5: a 3,000-row gather table under a
+    2,000-row CSR, ``b·self_`` read from the shard's own rows, with
+    Chebyshev's coefficients."""
+    indptr, _, vals = markov_csr(2000, d, 500)
+    cols = np.random.default_rng(d).integers(0, 3000, size=vals.shape[0])
+    csr = CsrMatrix(torch.from_numpy(indptr).to(cuda_device),
+                    torch.from_numpy(cols.astype(np.int32)).to(cuda_device),
+                    torch.from_numpy(vals).to(cuda_device))
+    table = torch.randn((3000, d), device=cuda_device)
+    own, z, acc = (torch.randn((2000, d), device=cuda_device)
+                   for _ in range(3))
+    want_acc = acc.clone()
+    before = kernels.LAUNCHES["spmm_axpy"]
+    out = spmm_axpy(csr, table, -2.0, 2.0, z=z, c=-1.0, acc=acc, d=0.05,
+                    self_=own)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_axpy"] == before + 1
+    want = spmm_axpy_plain(csr, table, -2.0, 2.0, z=z, c=-1.0, acc=want_acc,
+                           d=0.05, self_=own)
+    assert out.shape == (2000, d)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------- argument checks (need no card)
+def test_k5_wrapper_checks_the_self_operand():
+    """With ``self_`` the gather table may have any number of rows; the
+    shard's own rows, z and acc have one per row of A."""
+    indptr, indices, vals = _cpu_csr()
+    table, own = torch.zeros((30, 8)), torch.zeros((20, 8))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="self_ must have one row per row"):
+        kernels.spmm_axpy(indptr, indices, vals, table, 1.0, self_=table)
+    with pytest.raises(ValueError, match="shapes differ"):
+        kernels.spmm_axpy(indptr, indices, vals, table, 1.0, self_=own,
+                          acc=torch.zeros((20, 4)))
+    with pytest.raises(ValueError, match="must not share"):
+        kernels.spmm_axpy(indptr, indices, vals, table, 1.0, self_=own,
+                          acc=own, d=1.0)
+    with pytest.raises(ValueError, match="CUDA"):  # the table's 30 rows pass
+        kernels.spmm_axpy(indptr, indices, vals, table, 1.0, b=1.0,
+                          self_=own)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
 def _cpu_csr(n=20):
     indptr = torch.arange(n + 1, dtype=torch.int64)
     return (indptr, torch.zeros(n, dtype=torch.int32),

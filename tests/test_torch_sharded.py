@@ -445,7 +445,7 @@ def test_digest_covers_every_byte(graphs):
 
 # ----------------------------------------------------------- several ranks
 _RANK = r"""
-import json, sys
+import json, os, sys
 import numpy as np
 from cleora_tpu_torch.graph.stream import DiskGraph
 from cleora_tpu_torch.parallel import embed_sharded, init_distributed, shard
@@ -472,7 +472,13 @@ sh = embed_sharded(dg, out="shards", device="cpu", **kw)
 np.savez(f"{out}.{mesh.rank}.npz", all_gather=res[False], halo=res[True],
          piece=piece, npy=np.asarray(npy), plan_ok=plan_ok, lo=sh.lo,
          hi=sh.hi, rows=sh.rows)
+# every rank leaves the group together, then exits without the
+# interpreter's teardown, where a gloo rank can abort ("terminate called
+# without an active exception") once its results are on disk
+dist.barrier()
 dist.destroy_process_group()
+sys.stdout.flush()
+os._exit(0)
 """
 _RANK_KW = dict(feature_dim=D, num_iterations=ITERS, whiten=True,
                 residual_weight=0.3)
