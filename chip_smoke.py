@@ -12,8 +12,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/log_clip.cu), K8 (kernels/walk_uniform.cu), K9
    (kernels/pair_enum.cu), K10 (kernels/run_length.cu), K11
    (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu), K13 (kernels/pq_adc.cu),
-   K14 (kernels/label_prop.cu), K15 (kernels/relu_dropout.cu) and K16
-   (kernels/halo_pack.cu) are compiled from the checkout's sources, one
+   K14 (kernels/label_prop.cu), K15 (kernels/relu_dropout.cu), K16
+   (kernels/halo_pack.cu), K17 (kernels/walk_owned.cu) and K18
+   (kernels/walk2_owned.cu) are compiled from the checkout's sources, one
    nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
@@ -112,7 +113,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    embed_deepwalk(feature_dim=256, backend="device", cooccurrence="device")
    once untouched and once under the stage stopwatch, the count alone
    (unique pairs within 1 % of the JAX package's 810,145,222 on this
-   corpus shape), K8-K11 against their plain versions at the main path's
+   corpus shape), the count reductions and the column signs timed alone,
+   K8-K11 against their plain versions at the main path's
    shapes and timed beside torch.sort and torch.unique_consecutive; and
    scripts/walk_quality_probe.py's 100,000-node, 50-community planted
    partition, whose centroid accuracy must reach 0.99;
@@ -183,15 +185,42 @@ Phases, each of which raises (and so exits non-zero) on failure:
    embed_randne (40 iterations) and embed_hope with phase 6's K5 counts;
    ProNE's U before its epilogue against _prone_chebyshev_core (rtol=1e-5,
    atol=1e-6), RandNE against phase 6's output (atol=1e-6), HOPE by the
-   Gram matrix of 4,096 sampled rows (atol=5e-3), embed_prone(out=".npy")
-   equal to the in-memory result; K5 with a separate self_ operand at that
-   shape against its plain version and timed, and the Gram, CholeskyQR2
-   (its QᵀQ within 1e-4 of I) and U·√S programs timed; (b) embed_prone on
-   phase 6's blocked graph against phase 6's run, and embed_netmf and
+   Gram matrix of 4,096 sampled rows (atol=5e-3); K5 with a separate
+   self_ operand at that shape against its plain version and timed, and
+   the Gram, CholeskyQR2 (its QᵀQ within 1e-4 of I) and U·√S programs
+   timed; (b) embed_prone on phase 6's blocked graph against phase 6's
+   run, and with out=".npy" equal to the in-memory result (a cut from
+   phase 5's graph, where the out= run took 21-23 s), and embed_netmf and
    embed_grarep (block_rows=4096, power_iters=1) on phase 6's dense graph
    (a cut from the blocked graph, to keep the script near 700 s) against
    the single-device blocked path, each by the Gram matrix of 4,096 rows
-   (atol=1e-3).  Phases 8 to 12 print their seconds.
+   (atol=1e-3);
+13. the walk siblings over the shard group in a one-rank NCCL group: (a)
+   K17 (kernels/walk_owned.cu) and K18 (kernels/walk2_owned.cu) on phase
+   3's weighted 100,000-node graph, the row-sharded tables cut for one
+   rank and for two ranks launched in turn and summed in this process,
+   4,096 walks of 10: the walks bitwise equal to K8's and K12's and to
+   the plain versions of K17 and K18 run on the card, (p, q) in {(0.5,
+   2), (2, 0.5)}; (b) embed_deepwalk on phase 7's corpus in phase 7's
+   configuration with n_devices=1, walk_tables="sharded",
+   factorization="sharded" as a main path (K17 79 times a batch) and once
+   under the stage stopwatch: its first walk batch bitwise equal to phase
+   7's (K17 against K8), every count range equal to phase 7's (entries,
+   pair sum and a weighted key sum), the embedding by the Gram matrix of
+   4,096 sampled rows against phase 7's (atol=1e-4, as the port's CPU
+   tests hold the rsvd; the same products in the same order make it
+   bitwise in practice), one apply of the sharded rsvd (K1 and K5 over
+   the rank's ranges, then the all-reduce) timed; (c) embed_node2vec in
+   phase 8's configuration
+   with walk_tables="sharded" (K18's stages) under the stage stopwatch:
+   its first batch bitwise equal to phase 8's K12 walks, exactly phase
+   8's pair count; (d) K17 over phase 7's first batch (131,072 walks of
+   80) and K18 over phase 8's (131,072 walks of 10) timed against their
+   plain versions on the card and K8's and K12's time on the same walks,
+   with their bounds in 32-byte sectors; (e) ShardedDeviceIndex(mesh=)
+   over phase 5's output, 1,024 queries at top_k=10, equal to the
+   unsharded index's scores and, but for exact ties, indices.  Phases 8
+   to 13 print their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -774,11 +803,19 @@ def check_k7(dev: torch.device) -> None:
 
 def weighted_walk_tables(n: int, seed: int, dev: torch.device,
                          hub_degree: int):
-    """A weighted walk CSR with (row, col)-sorted rows: node 1 a hub of
-    degree ``hub_degree``, node 2 a row whose weights are all 0 (a dead
-    row), node n - 1 isolated (degree 0)."""
+    """The tables of :func:`weighted_walk_csr` on ``dev``."""
     from cleora_tpu_torch.ops.walk import WalkTables2
 
+    indptr, cols, deg, vals, wmax, wsum = weighted_walk_csr(n, seed,
+                                                            hub_degree)
+    return WalkTables2(indptr, cols, deg, n, vals, wmax, wsum, dev)
+
+
+def weighted_walk_csr(n: int, seed: int, hub_degree: int) -> tuple:
+    """A weighted walk CSR with (row, col)-sorted rows, as host arrays
+    (indptr, cols, deg, vals, wmax, wsum): node 1 a hub of degree
+    ``hub_degree``, node 2 a row whose weights are all 0 (a dead row), node
+    n - 1 isolated (degree 0)."""
     rng = np.random.default_rng(seed)
     m = 3 * n
     src = np.concatenate([rng.integers(0, n - 1, m),
@@ -797,8 +834,7 @@ def weighted_walk_tables(n: int, seed: int, dev: torch.device,
     np.maximum.at(wmax, rows, vals)
     wsum = np.zeros(n, np.float64)
     np.add.at(wsum, rows, vals.astype(np.float64))
-    return WalkTables2(indptr, cols, deg, n, vals, wmax,
-                       wsum.astype(np.float32), dev)
+    return indptr, cols, deg, vals, wmax, wsum.astype(np.float32)
 
 
 def check_k12(dev: torch.device) -> None:
@@ -1944,7 +1980,8 @@ def walk_full_width(dev: torch.device, card: str) -> list:
                 "run_length": batches + (batches - 1) * passes,
                 "ppmi": passes, "spmm_csr": applies,
                 "spmm_axpy": applies * (passes - 1)}
-    launches = run_spectral("embed_deepwalk()", deepwalk, expected)
+    kept = {}
+    launches = run_spectral("embed_deepwalk()", deepwalk, expected, kept)
     targets = ((walk, "walk_uniform"), (cooccur, "pair_keys"),
                (torch, "sort"), (cooccur, "run_length"),
                (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
@@ -1971,6 +2008,17 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         + ", ".join(str(r[3]) for r in ranges))
     assert abs(m_total / JAX_UNIQUE_PAIRS - 1) <= 0.01, m_total
     log_rsvd_bound(m_total, n, card)
+    fingerprints = [range_fingerprint(r, n) for r in ranges]
+    # the count reductions (the overflow check's minimum, the pair sum)
+    # and the column signs of the factor, timed alone
+    cnt_min_ms = time_ms(lambda: [r[2].min() for r in ranges])
+    cnt_sum_ms = time_ms(lambda: cooccur.pair_total(ranges, n))
+    u = torch.randn((n, DIM), device=dev)
+    sign_ms = time_ms(lambda: alg._column_signs(u))
+    del u
+    log(f"  count reductions over {m_total} int32 counts: the minimum "
+        f"{cnt_min_ms:.3f} ms, the int64 pair sum {cnt_sum_ms:.3f} ms; the "
+        f"column signs over ({n}, {DIM}) float32 {sign_ms:.3f} ms; [{card}]")
     col, total, k11_err = ppmi_vs_plain(ranges, n, dev, "phase 7 full size")
     cen, ctx, cnt, m0 = ranges[0]
     k11_ms = time_ms(lambda: cooccur.ppmi_values(cen, ctx, cnt, col, total,
@@ -2013,6 +2061,7 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         sorted_keys, return_counts=True))
     m = runs[0].shape[0]
     k10_bytes = 8 * lanes + 12 * m + 4 * passes
+    first_batch = walks.cpu()
     log(f"K8 ({b} walks of {WALK_LENGTH}) {k8_ms:.3f} ms (plain "
         f"{k8_plain_ms:.3f}); K9 ({lanes} keys) {k9_ms:.3f} ms (plain "
         f"{k9_plain_ms:.3f}); torch.sort of the keys {sort_ms:.3f} ms; K10 "
@@ -2054,7 +2103,17 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         kernel_row("ppmi", src + "ppmi.cu", "cleora_tpu/ops/cooccur.py:939",
                    k11_ms, k11_plain_ms, None, k11_err, k11_bytes, 0,
                    launches["ppmi"]),
-    ], g
+    ], g, {"emb": kept["embed_deepwalk()"], "walks": first_batch,
+           "m_total": m_total, "ranges": fingerprints, "k8_ms": k8_ms}
+
+
+def range_fingerprint(r, n: int) -> tuple:
+    """(entries, Σcnt, Σ(cen·n + ctx)·cnt wrapping in int64) of one count
+    range: equal ranges give equal fingerprints."""
+    cen, ctx, cnt, m = r
+    key = cen.long() * n + ctx.long()
+    return (int(m), int(cnt.sum(dtype=torch.int64)),
+            int((key * cnt.long()).sum()))
 
 
 def log_rsvd_bound(m_total: int, n: int, card: str) -> None:
@@ -2272,6 +2331,7 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
     del want
     k12_ms = time_ms(lambda: walk.walk_p_q(*args))
     k12_bytes = k12_sector_bytes(walks, t)
+    first_batch = walks.cpu()
     log(f"K12 ({walks.shape[0]} walks of {WALK_LENGTH}) {k12_ms:.3f} ms "
         f"(plain {k12_plain_ms:.3f}), bitwise equal; "
         f"{walks.shape[0] * (WALK_LENGTH - 1) / (k12_ms * 1e-3):.4e} hops/s; "
@@ -2299,7 +2359,7 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
     row = kernel_row("walk_p_q", "cleora_tpu_torch/kernels/walk_p_q.cu",
                      "cleora_tpu/algorithms.py:1768", k12_ms, k12_plain_ms,
                      None, k12_err, k12_bytes, 0, launches["walk_p_q"])
-    return [row], gq, emb
+    return [row], gq, emb, first_batch
 
 
 # ----------------------------------------------------- phase 9: retrieval
@@ -3117,18 +3177,7 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
         log(f"  ProNE's U before the epilogue against _prone_chebyshev_core:"
             f" max |diff| {max_err(U, core):.3e}"
             + (" (bitwise equal)" if torch.equal(U, core) else ""))
-        del U, core
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "prone.npy")
-            t0 = time.perf_counter()
-            npy = alg.embed_prone(g, feature_dim=DIM, backend="device",
-                                  n_devices=1, out=path)
-            out_s = time.perf_counter() - t0
-            assert np.array_equal(np.asarray(npy), prone_out)
-            del npy
-        log(f"  embed_prone(n_devices=1, out='.npy'): {out_s:.3f} s, equal "
-            "to the in-memory result")
-        del prone_out
+        del U, core, prone_out
 
         def randne():
             return alg.embed_randne(g, feature_dim=DIM, backend="device",
@@ -3240,7 +3289,20 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
                         lambda: alg.embed_prone(gb, feature_dim=DIM,
                                                 backend="device", n_devices=1),
                         {"spmm_axpy": 9}, *sym_targets, keep=kept)
-        got = kept.pop("embed_prone(n_devices=1) blocked graph")[brows]
+        prone_out = kept.pop("embed_prone(n_devices=1) blocked graph")
+        # out= on this graph (a cut from phase 5's, where it took 21-23 s)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "prone.npy")
+            t0 = time.perf_counter()
+            npy = alg.embed_prone(gb, feature_dim=DIM, backend="device",
+                                  n_devices=1, out=path)
+            out_s = time.perf_counter() - t0
+            assert np.array_equal(np.asarray(npy), prone_out)
+            del npy
+        log(f"  embed_prone(n_devices=1, out='.npy') blocked graph: "
+            f"{out_s:.3f} s, equal to the in-memory result")
+        got = prone_out[brows]
+        del prone_out
         err, top = gram_err(got, refs["blocked_prone"], slice(None))
         log(f"  prone against phase 6's single-device run: Gram of "
             f"{len(brows)} rows max |diff| {err:.3e} (entries up to "
@@ -3293,6 +3355,356 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
                        k5s_flops, prone_launches["spmm_axpy"])]
 
 
+# -------------------------------------- phase 13: the walk siblings sharded
+# phase 13's K17/K18 check: phase 3's weighted graph, walks short enough
+# that the plain versions' rounds stay within seconds
+K17_CHECK_WALKS = 4_096
+K17_CHECK_LENGTH = 10
+K18_PQ = ((0.5, 2.0), (2.0, 0.5))
+# K18 is timed on walks of this length (its plain version takes about a
+# second a hop at 131,072 lanes)
+K18_TIMED_LENGTH = 10
+
+
+@contextlib.contextmanager
+def plain_walk_kernels():
+    """K17's and K18's wrappers in ``kernels`` replaced by their plain
+    versions, so that ops/walk.py's walk loops run the plain stages on the
+    card's tensors (the plain versions' signatures are the wrappers'
+    without the output buffer)."""
+    import cleora_tpu_torch.ops.walk as walk
+    from cleora_tpu_torch import kernels
+
+    def into_out(plain):
+        return lambda *args: args[-1].copy_(plain(*args[:-1]))
+
+    swaps = {"walk_owned": into_out(walk.walk_owned_hop_plain),
+             "walk2_stats": into_out(walk.walk2_stats_plain),
+             "walk2_pending": walk.walk2_pending_plain,
+             "walk2_propose": into_out(walk.walk2_propose_plain),
+             "walk2_member": into_out(walk.walk2_member_plain),
+             "walk2_decide": walk.walk2_decide_plain}
+    saved = {name: getattr(kernels, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(kernels, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def rank_slices(arrays, n: int, world: int, dev: torch.device) -> list:
+    """The ``world`` rank slices of a walk CSR (``arrays``: indptr, cols,
+    deg, and vals, wmax, wsum for the weighted tables) on ``dev``."""
+    from cleora_tpu_torch.ops.walk import ShardedWalkTables
+
+    indptr, cols, deg, *weights = arrays
+    return [ShardedWalkTables(indptr, cols, deg, n, r, world, dev, *weights)
+            for r in range(world)]
+
+
+def check_k17_k18(dev: torch.device) -> None:
+    """K17 and K18 with one rank's slice and with two ranks' slices summed
+    in this process, bitwise against K8 and K12 and against their own plain
+    versions on the card."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops import walk
+
+    n = K12_CHECK_NODES
+    arrays = weighted_walk_csr(n, 5, HUB_DEGREE)
+    t = walk.WalkTables2(*arrays[:3], n, *arrays[3:], dev)
+    rng = np.random.default_rng(8)
+    starts = rng.integers(0, n + 1, K17_CHECK_WALKS)  # n: pad lanes
+    for i, node in enumerate((1, 2, n - 1, n)):  # hub, dead, isolated, pad
+        starts[64 * i:64 * (i + 1)] = node
+    starts = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    length, seed, base = K17_CHECK_LENGTH, 21, 5
+    k8 = walk.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
+                           base, n)
+    for world in (1, 2):
+        first = rank_slices(arrays[:3], n, world, dev)
+        before = kernels.LAUNCHES["walk_owned"]
+        got = walk.walk_uniform_sharded(first, starts, length, seed, base)
+        assert kernels.LAUNCHES["walk_owned"] == before + world * (length - 1)
+        with plain_walk_kernels():
+            plain = walk.walk_uniform_sharded(first, starts, length, seed,
+                                              base)
+        assert torch.equal(got, k8) and torch.equal(plain, k8), world
+        second = rank_slices(arrays, n, world, dev)
+        for p, q in K18_PQ:
+            inv_p = float(np.float32(1.0 / p))
+            inv_q = float(np.float32(1.0 / q))
+            args = (length, inv_p, inv_q, walk.walk2_tries(q), seed, base)
+            k12 = walk.walk_p_q(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                t.wsum, starts, *args, n)
+            before = kernels.LAUNCHES["walk2_owned"]
+            got = walk.walk_p_q_sharded(second, starts, *args)
+            assert kernels.LAUNCHES["walk2_owned"] > before
+            with plain_walk_kernels():
+                plain = walk.walk_p_q_sharded(second, starts, *args)
+            assert torch.equal(got, k12) and torch.equal(plain, k12), (
+                world, p, q)
+    torch.cuda.synchronize()
+    log(f"K17 and K18 over 1 and 2 rank slices ({K17_CHECK_WALKS} walks of "
+        f"{K17_CHECK_LENGTH} on a {n}-node graph with a hub of degree "
+        f"{int(t.deg[1])}, a dead row, an isolated node and pad lanes; K18 "
+        f"at (p, q) in {K18_PQ}): bitwise equal to K8, K12 and their plain "
+        "versions on the card")
+
+
+def k17_sector_bytes(walks: torch.Tensor, deg: torch.Tensor, n: int) -> int:
+    """The bytes K17's hops need, in 32-byte sectors, as K8's: a live lane
+    reads deg of its node and, when it moves, indptr and cols (one sector
+    per random read); every hop reads the frontier and writes one int32 a
+    lane."""
+    reads = int((walks[:, :-1] < n).sum())
+    moves = int((walks[:, 1:] < n).sum())
+    return 32 * (reads + 2 * moves) + 8 * walks.shape[0] * (
+        walks.shape[1] - 1)
+
+
+def same_neighbours(got, want) -> int:
+    """Query results of two indexes: the scores equal, and each index that
+    differs sits on a score that is tied within the list or with the last
+    one (a tie at the cut may let either row in).  Returns how many lists
+    differ by such ties."""
+    tied = 0
+    for a, b in zip(got, want):
+        sa = [r["similarity"] for r in a]
+        assert sa == [r["similarity"] for r in b], (a, b)
+        ia, ib = [r["index"] for r in a], [r["index"] for r in b]
+        if ia != ib:
+            assert all(x == y or sa.count(sa[i]) > 1 or sa[i] == sa[-1]
+                       for i, (x, y) in enumerate(zip(ia, ib))), (ia, ib, sa)
+            tied += 1
+    return tied
+
+
+def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
+                          n2v_walks: torch.Tensor, big,
+                          table: np.ndarray) -> list:
+    """Phase 13: the walk siblings over a one-rank NCCL group with the
+    walk tables cut by rows (K17, K18), the count ranges and the
+    factorization on their rank, against phases 7 and 8; K17 and K18 timed;
+    the row-sharded retrieval index against the unsharded one."""
+    import cleora_tpu_torch.algorithms as alg
+    import cleora_tpu_torch.ops.cooccur as cooccur
+    import cleora_tpu_torch.ops.dense as dense
+    import cleora_tpu_torch.ops.walk as walk
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.parallel import make_mesh
+    from cleora_tpu_torch.search import ShardedDeviceIndex
+
+    check_k17_k18(dev)
+    n = g.num_entities
+    passes = alg._cooc_passes(g, WALKS_PER_NODE, WALK_LENGTH, WINDOW)
+    deg = alg._walk_csr(g)[2]
+    batch = alg._WALK_BATCH // 2
+    batches = -(-int((deg > 0).sum()) * WALKS_PER_NODE // batch)
+    power_iters = inspect.signature(
+        alg._device_counts_to_embeddings).parameters["power_iters"].default
+    applies = 2 + 2 * power_iters
+    rows = sample_rows(n)
+    log(f"phase 13, the walk siblings in a one-rank NCCL group with the walk "
+        f"tables cut by rows, on phase 7's corpus ({n} entities)")
+    with one_rank_nccl_group():
+        mesh = make_mesh()
+        # ---- (b) DeepWalk: sharded tables, rank-parallel counting, the
+        # sharded factorization
+        first = next(iter(alg._device_walks(
+            g, WALKS_PER_NODE, WALK_LENGTH, 0, batch=batch, resident=True,
+            walk_tables="sharded", mesh=mesh)))[0]
+        assert torch.equal(first.cpu(), p7["walks"])
+        log(f"  the first walk batch {tuple(first.shape)} over the sharded "
+            "tables (K17) bitwise equal to phase 7's (K8)")
+        del first
+
+        def deepwalk():
+            return alg.embed_deepwalk(
+                g, feature_dim=DIM, num_walks=WALKS_PER_NODE,
+                walk_length=WALK_LENGTH, window_size=WINDOW,
+                backend="device", cooccurrence="device", n_devices=1,
+                walk_tables="sharded", factorization="sharded")
+
+        expected = {"walk_owned": batches * (WALK_LENGTH - 1),
+                    "pair_enum": batches,
+                    "run_length": batches + (batches - 1) * passes,
+                    "ppmi": passes, "spmm_csr": applies,
+                    "spmm_axpy": applies * (passes - 1)}
+        kept = {}
+        launches = run_spectral("embed_deepwalk(sharded, n_devices=1)",
+                                deepwalk, expected, kept)
+        got = kept.pop("embed_deepwalk(sharded, n_devices=1)")
+        err, top = gram_err(got, p7["emb"], rows)
+        raw = float(np.abs(got - p7["emb"]).max())
+        log(f"  against phase 7's embedding: Gram of {len(rows)} rows max "
+            f"|diff| {err:.3e} (entries up to {top:.1f}), largest raw "
+            f"difference {raw:.3e}"
+            + (" (bitwise equal)" if raw == 0.0 else ""))
+        assert err <= 1e-4, err
+        del got
+        counted = {}
+        real_counts = alg.device_pair_counts
+
+        def counts(*args, **kwargs):
+            ranges, m_total = real_counts(*args, **kwargs)
+            counted["m_total"] = m_total
+            counted["pairs"] = cooccur.pair_total(ranges, n)
+            counted["ranges"] = [range_fingerprint(r, n) for r in ranges]
+            return ranges, m_total
+
+        alg.device_pair_counts = counts
+        try:
+            staged_spectral(
+                "embed_deepwalk(sharded, n_devices=1) stopwatch run",
+                deepwalk, expected, (walk, "walk_uniform_sharded"),
+                (cooccur, "pair_keys"), (torch, "sort"),
+                (cooccur, "run_length"), (cooccur, "ppmi_colsum_"),
+                (cooccur, "ppmi_values"), (dense, "spmm"),
+                (dense, "spmm_axpy"), (torch.linalg, "qr"),
+                (torch.linalg, "svd"), (alg, "_finalize_factor"), keep=kept)
+        finally:
+            alg.device_pair_counts = real_counts
+        kept.pop("embed_deepwalk(sharded, n_devices=1) stopwatch run")
+        # one apply of the sharded rsvd: this rank's K1 and K5 over its
+        # ranges (the stopwatch's seconds over the applies), then the
+        # all-reduce of the (n, r) partial, timed alone
+        stages = kept.pop("stages")
+        y = torch.randn((n, DIM + 16), device=dev)
+        reduce_ms = time_ms(lambda: mesh.all_reduce_(y))
+        del y
+        apply_ms = (stages["spmm"] + stages["spmm_axpy"]) / applies * 1e3
+        log(f"  one apply of the sharded rsvd: K1 + K5 over the rank's "
+            f"{passes} ranges {apply_ms:.3f} ms (the stopwatch's, over "
+            f"{applies} applies), the all-reduce of the ({n}, {DIM + 16}) "
+            f"partial {reduce_ms:.3f} ms; [{card}]")
+        assert counted["m_total"] == p7["m_total"], counted["m_total"]
+        assert counted["ranges"] == p7["ranges"]
+        log(f"  {counted['m_total']} unique pairs, every one of {passes} "
+            "count ranges equal to phase 7's (entries, pair sum, weighted "
+            "key sum)")
+        torch.cuda.empty_cache()
+
+        # ---- (c) Node2Vec over the sharded tables (K18)
+        first = next(iter(alg._device_walks2(
+            g, N2V_WALKS, WALK_LENGTH, N2V_P, N2V_Q, 0, resident=True,
+            walk_tables="sharded", mesh=mesh)))[0]
+        assert torch.equal(first.cpu(), n2v_walks)
+        log(f"  the first Node2Vec batch {tuple(first.shape)} over the "
+            "sharded tables (K18) bitwise equal to phase 8's (K12)")
+        del first
+        n2v_batches = -(-int((deg > 0).sum()) * N2V_WALKS // alg._WALK2_BATCH)
+        n2v_passes = alg._cooc_passes(g, N2V_WALKS, WALK_LENGTH, WINDOW)
+        want = {"pair_enum": n2v_batches,
+                "run_length": n2v_batches + (n2v_batches - 1) * n2v_passes,
+                "ppmi": n2v_passes, "spmm_csr": applies,
+                "spmm_axpy": applies * (n2v_passes - 1)}
+        alg.device_pair_counts = counts
+        try:
+            n2v_launches = staged_spectral(
+                "embed_node2vec(sharded tables, n_devices=1)",
+                lambda: alg.embed_node2vec(
+                    g, feature_dim=DIM, num_walks=N2V_WALKS,
+                    walk_length=WALK_LENGTH, window_size=WINDOW, p=N2V_P,
+                    q=N2V_Q, backend="device", cooccurrence="device",
+                    factorization="device", n_devices=1,
+                    walk_tables="sharded"),
+                None, (walk, "walk_p_q_sharded"), (cooccur, "pair_keys"),
+                (torch, "sort"), (cooccur, "run_length"),
+                (cooccur, "ppmi_values"), (dense, "spmm"),
+                (dense, "spmm_axpy"), (torch.linalg, "qr"),
+                (torch.linalg, "svd"), (alg, "_finalize_factor"))
+        finally:
+            alg.device_pair_counts = real_counts
+        assert counted["pairs"] == N2V_PAIRS, counted["pairs"]
+        assert n2v_launches["walk2_owned"] > 0
+        rest = {k: v for k, v in n2v_launches.items() if v and k !=
+                "walk2_owned"}
+        assert rest == want, (rest, want)
+        log(f"  {counted['pairs']} Node2Vec pairs (phase 8's count), "
+            f"{counted['m_total']} unique; K18 launches "
+            f"{n2v_launches['walk2_owned']} (5 stages: 2 a hop, 3 a "
+            "rejection round)")
+        torch.cuda.empty_cache()
+
+        # ---- (d) K17 and K18 at the main path's shapes, timed
+        indptr, cols, deg_, _ = alg._walk_csr(g)
+        t1 = rank_slices((indptr, cols, deg_), n, 1, dev)
+        starts = p7["walks"][:, 0].contiguous().to(dev)
+        k17 = lambda: walk.walk_uniform_sharded(t1, starts, WALK_LENGTH, 0, 0)
+        walks = k17()
+        assert torch.equal(walks.cpu(), p7["walks"])
+        k17_ms = time_ms(k17)
+        with plain_walk_kernels():
+            assert torch.equal(k17(), walks)
+            k17_plain_ms = time_ms(k17, reps=3, warmup=1)
+        k17_bytes = k17_sector_bytes(walks, t1[0].deg, n)
+        log(f"K17 ({walks.shape[0]} walks of {WALK_LENGTH}, "
+            f"{WALK_LENGTH - 1} launches) {k17_ms:.3f} ms (plain "
+            f"{k17_plain_ms:.3f}; K8 on the same walks {p7['k8_ms']:.3f}); "
+            f"bound {k17_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, "
+            f"32-byte sectors); [{card}]")
+        del walks, t1, starts
+        arrays = alg._walk_csr(g, with_vals=True)
+        t2 = rank_slices(arrays[:3] + arrays[4:], n, 1, dev)
+        starts = n2v_walks[:, 0].contiguous().to(dev)
+        tries = walk.walk2_tries(N2V_Q)
+        k18_args = (K18_TIMED_LENGTH, float(np.float32(1.0 / N2V_P)),
+                    float(np.float32(1.0 / N2V_Q)), tries, 0, 0)
+        k18 = lambda: walk.walk_p_q_sharded(t2, starts, *k18_args)
+        walks = k18()
+        assert torch.equal(walks.cpu(), n2v_walks[:, :K18_TIMED_LENGTH])
+        before = kernels.LAUNCHES["walk2_owned"]
+        k18_ms = time_ms(k18)
+        stage_launches = (kernels.LAUNCHES["walk2_owned"] - before) // 12
+        with plain_walk_kernels():
+            k18_plain, k18_plain_ms = timed_once(k18)
+        assert torch.equal(k18_plain, walks)
+        t12 = walk.WalkTables2(*arrays[:3], n, *arrays[4:], dev)
+        k12_ms = time_ms(lambda: walk.walk_p_q(
+            t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax, t12.wsum,
+            starts, *k18_args[:4], 0, 0, n))
+        k18_bytes = k12_sector_bytes(walks, t12)
+        log(f"K18 ({walks.shape[0]} walks of {K18_TIMED_LENGTH}, "
+            f"{stage_launches} stage launches) {k18_ms:.3f} ms (plain "
+            f"{k18_plain_ms:.3f}; K12 on the same walks {k12_ms:.3f}); bound "
+            f"{k18_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, 32-byte "
+            f"sectors); [{card}]")
+        del walks, t2, t12, starts, k18_plain
+
+        # ---- (e) the row-sharded retrieval index against the unsharded
+        qrows = np.random.default_rng(5).choice(table.shape[0], QUERIES,
+                                                replace=False)
+        one = ShardedDeviceIndex(big, table, device=dev)
+        want_nb = one.query_batch(table[qrows], top_k=TOP_K)
+        sharded = ShardedDeviceIndex(big, table, mesh=mesh)
+        t0 = time.perf_counter()
+        got_nb = sharded.query_batch(table[qrows], top_k=TOP_K)
+        query_s = time.perf_counter() - t0
+        tied = same_neighbours(got_nb, want_nb)
+        eid = big.entity_ids[int(qrows[0])]
+        tied += same_neighbours([sharded.query(eid, top_k=TOP_K)],
+                                [one.query(eid, top_k=TOP_K)])
+        log(f"  ShardedDeviceIndex(mesh=) over ({table.shape[0]}, "
+            f"{table.shape[1]}): {QUERIES} queries at top_k={TOP_K} in "
+            f"{query_s * 1e3:.3f} ms (host clock, with the result dicts), "
+            f"scores equal to the unsharded index's, indices equal but for "
+            f"{tied} lists that differ only on exact ties (and query() of "
+            f"one entity the same); [{card}]")
+        del sharded, one
+
+    src = "cleora_tpu_torch/kernels/"
+    return [
+        kernel_row("walk_owned", src + "walk_owned.cu",
+                   "cleora_tpu/algorithms.py:1380", k17_ms, k17_plain_ms,
+                   None, 0.0, k17_bytes, 0, launches["walk_owned"]),
+        kernel_row("walk2_owned", src + "walk2_owned.cu",
+                   "cleora_tpu/algorithms.py:1574", k18_ms, k18_plain_ms,
+                   None, 0.0, k18_bytes, 0, n2v_launches["walk2_owned"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3309,12 +3721,12 @@ def main() -> int:
     spectral_rows, spectral_refs = spectral_full_width(dev, card, graph)
     rows += spectral_rows
     graph._device_cache.clear()  # phase 9 reads its entity ids only
-    walk_rows, walk_graph = walk_full_width(dev, card)
+    walk_rows, walk_graph, walk_refs = walk_full_width(dev, card)
     rows += walk_rows
     t0 = time.perf_counter()
-    n2v_rows, gq, emb_q = node2vec_full_width(dev, card, walk_graph)
+    n2v_rows, gq, emb_q, n2v_walks = node2vec_full_width(dev, card,
+                                                         walk_graph)
     rows += n2v_rows
-    del walk_graph
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows += retrieval_full_width(dev, card, graph, table, gq, emb_q)
@@ -3327,10 +3739,16 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += streamed_sharded(dev, card, graph, table, arxiv)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
-    del table, arxiv
+    del arxiv
     t0 = time.perf_counter()
     rows += sharded_siblings(dev, card, graph, spectral_refs)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    del spectral_refs
+    t0 = time.perf_counter()
+    rows += walk_siblings_sharded(dev, card, walk_graph, walk_refs,
+                                  n2v_walks, graph, table)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    del walk_graph, walk_refs, n2v_walks, table
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

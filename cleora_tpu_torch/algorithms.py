@@ -37,7 +37,10 @@ and Node2Vec run on the card as walks (kernel K8,
 any other p, q), co-occurrence counts on the host or on the card (kernels
 K9 ``pair_enum.cu`` and K10 ``run_length.cu`` around ``torch.sort``,
 ``ops/cooccur.py``), the PPMI transform (K11 ``ppmi.cu``) and a randomized
-SVD whose products are K1 and K5.
+SVD whose products are K1 and K5.  Over a shard group the walk tables may
+be cut by rows (kernels K17 ``walk_owned.cu`` and K18 ``walk2_owned.cu``,
+the owner-routed hops), the counts stay on the rank that counted them and
+the factorization may run there (``parallel/cooccur.py``).
 """
 
 from __future__ import annotations
@@ -56,19 +59,13 @@ from .ops.dense import dense_markov, log_clip, rsvd_sparse, rsvd_u_sqrt
 from .ops.spmm import CsrMatrix, spmm, spmm_axpy
 from .ops.walk import (
     WALK_BATCH,
+    ShardedWalkTables,
     WalkTables,
     WalkTables2,
     device_walks,
     device_walks2,
     walk2_tries,
 )
-
-_SHARDED_NOT_PORTED = (
-    "mesh=/n_devices= of the walk siblings (the sharded walks and counting) "
-    "are not ported yet: they are the multi-GPU slice of the port "
-    "(ROADMAP.md, queue A item 8)"
-)
-
 
 def _adjacency(graph):
     """Left-Markov CSR as float64 scipy (reference algorithms.py:6-19)."""
@@ -131,11 +128,6 @@ def _write_npy(emb: np.ndarray, path: str):
     del mm
     os.replace(tmp, path)
     return np.load(path, mmap_mode="r")
-
-
-def _check_not_sharded(mesh, n_devices) -> None:
-    if mesh is not None or n_devices is not None:
-        raise NotImplementedError(_SHARDED_NOT_PORTED)
 
 
 # ------------------------------------------------------------------- device
@@ -913,10 +905,6 @@ _WALK2_ENGINE = "walk2-philox"
 # the batch is the first-order path's device-counting batch, whose pair keys
 # the counting sort already holds beside the finished ranges.
 _WALK2_BATCH = _WALK_BATCH // 2
-_SHARDED_WALKS_NOT_PORTED = (
-    "walk_tables='sharded' and factorization='sharded' are not ported yet: "
-    "they are the multi-GPU slice of the port (ROADMAP.md, queue A item 8)"
-)
 
 
 def _cached(graph, key, build):
@@ -942,10 +930,7 @@ def _walk_csr(graph, with_vals: bool = False):
 
 def _walk_csr_build(graph, with_vals: bool):
     if not hasattr(graph, "to_sparse_csr"):
-        raise NotImplementedError(
-            "DiskGraph input is not ported yet (ROADMAP.md, queue A item 7): "
-            "materialize with graph.to_sparse_matrix() first"
-        )
+        return _walk_csr_build_disk(graph, with_vals)
     rows, cols, vals, n, _ = graph.to_sparse_csr()
     keep = rows != cols
     rows = rows[keep].astype(np.int64)
@@ -971,80 +956,183 @@ def _walk_csr_build(graph, with_vals: bool):
     return ip32, cols, deg, n, v, wmax, wsum.astype(np.float32)
 
 
+def _walk_csr_build_disk(g, with_vals: bool, chunk_rows: int = 1 << 21):
+    """The walk CSR straight off a DiskGraph's memmaps
+    (cleora_tpu/algorithms.py:1218-1277): two bounded passes over the
+    on-disk arrays (count the self-loops, then fill), never the entity-id
+    strings or the int64 COO rows that ``to_sparse_matrix()`` would build.
+    Bitwise the in-RAM CSR of the same graph.  One host's piece of a
+    sharded build is refused: its walks would dead-end at every row it
+    lacks."""
+    pr = (g.meta.get("row_range") if getattr(g, "meta", None) else None)
+    if pr is not None and (int(pr[0]) > 0 or int(pr[1]) < g.num_entities):
+        raise ValueError(
+            f"This DiskGraph is one host's piece of a sharded build "
+            f"(rows {pr}); the walk engines need the whole graph — merge "
+            "the pieces first (graph.stream.merge_disk_graph_shards)."
+        )
+    n = g.num_entities
+    src_ip = g.indptr  # (n+1,) int64 memmap
+
+    def chunks():
+        for lo in range(0, n, chunk_rows):
+            hi = min(lo + chunk_rows, n)
+            s, e = int(src_ip[lo]), int(src_ip[hi])
+            counts = np.diff(np.asarray(src_ip[lo:hi + 1]))
+            cols_c = np.asarray(g.indices[s:e])
+            rows_c = np.repeat(np.arange(lo, hi, dtype=np.int64), counts)
+            yield lo, hi, s, e, counts, cols_c, rows_c
+
+    deg = np.zeros(n, dtype=np.int64)
+    for lo, hi, _, _, counts, cols_c, rows_c in chunks():
+        loops = np.bincount(rows_c[cols_c == rows_c] - lo, minlength=hi - lo)
+        deg[lo:hi] = counts - loops
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    nnz = int(indptr[-1])
+    if nnz >= 2**31:
+        raise ValueError(
+            f"graph has {nnz} self-loop-free edges; the device walk "
+            "engines support < 2**31 — use backend='host' or shard the "
+            "walk workload by subgraph"
+        )
+    cols = np.empty(nnz, dtype=np.int32)
+    v = np.empty(nnz, dtype=np.float32) if with_vals else None
+    for lo, hi, s, e, _, cols_c, rows_c in chunks():
+        keep = cols_c != rows_c
+        o, d = int(indptr[lo]), int(indptr[hi])
+        cols[o:d] = cols_c[keep]
+        if with_vals:
+            v[o:d] = np.asarray(g.left_vals[s:e])[keep]
+    deg32 = deg.astype(np.int32)
+    ip32 = indptr[:-1].astype(np.int32)
+    if not with_vals:
+        return ip32, cols, deg32, n
+    rows64 = np.repeat(np.arange(n, dtype=np.int64), deg)
+    wmax = np.zeros(n, dtype=np.float32)
+    np.maximum.at(wmax, rows64, v)
+    wsum = np.zeros(n, dtype=np.float64)
+    np.add.at(wsum, rows64, v.astype(np.float64))
+    return ip32, cols, deg32, n, v, wmax, wsum.astype(np.float32)
+
+
+def _walk_mesh(mesh, n_devices, device, sharded: bool = False):
+    """The shard group of a walk run (cleora_tpu/algorithms.py:2509-2514):
+    ``mesh`` (a ``parallel.ShardGroup``), or the calling process's shard
+    for ``n_devices=``, or for sharded tables or factorization asked for
+    without either (the process is then the one shard); None for the
+    single-card path."""
+    if mesh is None and n_devices is None and not sharded:
+        return None
+    from .parallel.algorithms import _mesh_for
+
+    return _mesh_for(mesh, n_devices, device)
+
+
 def _walk_table_mode(mode: str, n: int, nnz: int, device,
-                     second_order: bool = False) -> None:
-    """The walk-table placement on one card (cleora_tpu/algorithms.py:
-    1483-1528): the CSR is replicated on the card, fit-checked against its
-    free memory (the second-order tables add the edge weights and the
-    per-row wmax/wsum); 'sharded' is the multi-GPU slice."""
+                     second_order: bool = False, world: int = 1,
+                     limit=None) -> str:
+    """Resolve the walk-table placement (cleora_tpu/algorithms.py:
+    1483-1528): 'auto' keeps the CSR replicated on every rank's card (no
+    collective per hop) while it fits 90 % of the card's free memory (the
+    second-order tables add the edge weights and the per-row wmax/wsum),
+    else shards it by rows over the ``world`` ranks when a slice fits, and
+    raises past that.  ``limit`` replaces the card's free memory (the CPU
+    has none: 'auto' is replicated there)."""
     if mode not in ("auto", "replicated", "sharded"):
         raise ValueError(
             f"Unknown walk_tables '{mode}'. Use 'auto', 'replicated' or "
             "'sharded'."
         )
-    if mode == "sharded":
-        raise NotImplementedError(_SHARDED_WALKS_NOT_PORTED)
     if mode != "auto":
-        return
-    limit = memory.device_memory_limit(device)
+        return mode
     if limit is None:
-        return
+        limit = memory.device_memory_limit(device)
+    if limit is None:
+        return "replicated"
     # cols + indptr + deg (+vals/wmax/wsum for the second-order engine) +
     # ~3 batch-sized (B, L) buffers
     per_edge = 8 if second_order else 4
     table = n * 8 + nnz * per_edge + (n * 12 if second_order else 0)
     batch = 3 * (_WALK2_BATCH if second_order else _WALK_BATCH) * 4 * 80
-    if table + batch > int(limit * 0.9):
-        raise ValueError(
-            f"walk tables need ~{table / (1 << 30):.1f} GiB (replicated "
-            f"exceeds the ~{limit / (1 << 30):.1f} GiB device budget) — use "
-            "more devices (mesh=), or backend='host' for host-RAM walks"
-        )
+    if table + batch <= int(limit * 0.9):
+        return "replicated"
+    if world > 1 and table / world + batch <= int(limit * 0.9):
+        return "sharded"
+    raise ValueError(
+        f"walk tables need ~{table / (1 << 30):.1f} GiB "
+        f"({'replicated' if world <= 1 else 'even sharded over the mesh'}"
+        f" exceeds the ~{limit / (1 << 30):.1f} GiB device budget) — "
+        "use more devices (mesh=), or backend='host' for host-RAM walks"
+    )
 
 
 def _device_walks(graph, num_walks: int, walk_length: int, seed: int,
                   batch: int = _WALK_BATCH, resident: bool = False,
-                  walk_tables: str = "auto", device=None):
+                  walk_tables: str = "auto", device=None, mesh=None):
     """Yield (B, walk_length) int32 host walk batches (sentinel == n), or
     ``(walks, pad)`` left on the device with ``resident=True``
-    (cleora_tpu/algorithms.py:1318-1373, single device): one walk from each
-    node of degree > 0 per round, ``num_walks`` rounds, by kernel K8."""
-    dev = resolve_device(device)
+    (cleora_tpu/algorithms.py:1318-1373): one walk from each node of
+    degree > 0 per round, ``num_walks`` rounds, by kernel K8.  Under a
+    shard group (``mesh``) every rank yields the same batches, bitwise the
+    single-card ones: replicated tables walk a block of lanes per rank,
+    sharded tables route each hop to the owner of the lane's row (kernel
+    K17)."""
+    mesh = _walk_mesh(mesh, None, device, walk_tables == "sharded")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     indptr, cols, deg, n = _walk_csr(graph)
-    _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev)
+    world = mesh.world_size if mesh is not None else 1
+    mode = _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev,
+                            world=world)
     starts = np.nonzero(deg > 0)[0].astype(np.int32)
     if starts.shape[0] == 0:
         return
-    tables = _cached(graph, ("walk_tables", dev),
-                     lambda: WalkTables(indptr, cols, deg, n, dev))
+    if mode == "sharded":
+        tables = _cached(
+            graph, ("walk_tables_sharded", mesh.rank, world, dev),
+            lambda: ShardedWalkTables(indptr, cols, deg, n, mesh.rank, world,
+                                      dev))
+    else:
+        tables = _cached(graph, ("walk_tables", dev),
+                         lambda: WalkTables(indptr, cols, deg, n, dev))
     yield from device_walks(tables, starts, num_walks, walk_length, seed,
-                            batch=batch, resident=resident)
+                            batch=batch, resident=resident, group=mesh)
 
 
 def _device_walks2(graph, num_walks: int, walk_length: int, p: float,
                    q: float, seed: int, batch: int = _WALK2_BATCH,
                    tries: Optional[int] = None, resident: bool = False,
-                   walk_tables: str = "auto", device=None):
+                   walk_tables: str = "auto", device=None, mesh=None):
     """Yield (B, walk_length) int32 host batches of p/q-biased walks
     (sentinel == n), or ``(walks, pad)`` left on the device with
-    ``resident=True`` (cleora_tpu/algorithms.py:1989-2063, single device):
-    one walk from each node of degree > 0 per round, ``num_walks`` rounds,
-    by kernel K12.  ``tries`` defaults to ``min(1024, max(64, ⌈8q⌉))``;
-    the walks do not depend on ``batch``."""
-    dev = resolve_device(device)
+    ``resident=True`` (cleora_tpu/algorithms.py:1989-2063): one walk from
+    each node of degree > 0 per round, ``num_walks`` rounds, by kernel K12
+    (K18 over sharded tables, as :func:`_device_walks`).  ``tries``
+    defaults to ``min(1024, max(64, ⌈8q⌉))``; the walks depend on neither
+    ``batch`` nor the table placement."""
+    mesh = _walk_mesh(mesh, None, device, walk_tables == "sharded")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     indptr, cols, deg, n, vals, wmax, wsum = _walk_csr(graph, with_vals=True)
-    _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev,
-                     second_order=True)
+    world = mesh.world_size if mesh is not None else 1
+    mode = _walk_table_mode(walk_tables, n, int(cols.shape[0]), dev,
+                            second_order=True, world=world)
     if tries is None:
         tries = walk2_tries(q)
     starts = np.nonzero(deg > 0)[0].astype(np.int32)
     if starts.shape[0] == 0:
         return
-    tables = _cached(graph, ("walk_tables2", dev),
-                     lambda: WalkTables2(indptr, cols, deg, n, vals, wmax,
-                                         wsum, dev))
+    if mode == "sharded":
+        tables = _cached(
+            graph, ("walk_tables2_sharded", mesh.rank, world, dev),
+            lambda: ShardedWalkTables(indptr, cols, deg, n, mesh.rank, world,
+                                      dev, vals, wmax, wsum))
+    else:
+        tables = _cached(graph, ("walk_tables2", dev),
+                         lambda: WalkTables2(indptr, cols, deg, n, vals, wmax,
+                                             wsum, dev))
     yield from device_walks2(tables, starts, num_walks, walk_length, p, q,
-                             tries, seed, batch, resident=resident)
+                             tries, seed, batch, resident=resident,
+                             group=mesh)
 
 
 def _unique_counts_u64(keys: np.ndarray):
@@ -1320,18 +1408,25 @@ def _cooc_passes(graph, num_walks: int, walk_length: int,
 def _walks_ppmi_device(graph, feature_dim, window_size, seed, batches_fn,
                        passes=1, oversample=16, power_iters=4,
                        checkpoint_dir=None, checkpoint_every=1, out=None,
-                       fp_params=None, factorization="device", device=None):
+                       fp_params=None, factorization="device", device=None,
+                       mesh=None):
     """Walks → co-occurrence → PPMI → randomized SVD, all on the device
-    (cleora_tpu/algorithms.py:2537-2621, single device).  ``batches_fn()``
-    returns a fresh iterable of resident ``(walks, pad)`` batches.
+    (cleora_tpu/algorithms.py:2537-2621).  ``batches_fn()`` returns a fresh
+    iterable of resident ``(walks, pad)`` batches.
+
+    Under a shard group (``mesh``) every rank holds every walk batch and
+    counts the hash partitions ``s`` with ``s % P == rank``, which stay on
+    it (:func:`ops.cooccur.device_pair_counts`); :func:`_factorize_ranges`
+    places the factorization.
 
     ``checkpoint_dir`` makes the counting durable per hash partition
     (:class:`ops.cooccur.CountCheckpoint`, keyed by a full-content
-    fingerprint of the walk CSR and the parameters); a killed run resumes
-    from the counted partitions and a finished run returns its memmap.
-    ``out`` streams the final embedding into one ``.npy`` (defaults to
+    fingerprint of the walk CSR and the parameters, not by the rank count,
+    so a run resumes under another one); a killed run resumes from the
+    counted partitions and a finished run returns its memmap.  ``out``
+    streams the final embedding into one ``.npy`` (defaults to
     ``<checkpoint_dir>/embedding.npy`` when checkpointing)."""
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     checkpoint = None
     fact_params = dict(feature_dim=feature_dim, oversample=oversample,
                        power_iters=power_iters,
@@ -1354,27 +1449,72 @@ def _walks_ppmi_device(graph, feature_dim, window_size, seed, batches_fn,
     n = graph.num_entities
     ranges, m_total = device_pair_counts(batches_fn, n, window_size,
                                          passes=passes,
-                                         checkpoint=checkpoint, device=dev)
+                                         checkpoint=checkpoint, device=dev,
+                                         group=mesh)
     emb = _factorize_ranges(ranges, m_total, n, feature_dim, seed,
                             oversample=oversample, power_iters=power_iters,
-                            out=out, factorization=factorization, device=dev)
+                            out=out, factorization=factorization, device=dev,
+                            mesh=mesh)
     if checkpoint is not None:
-        checkpoint.mark_done(out, emb.shape, fact_params)
+        if mesh is None or mesh.rank == 0:
+            checkpoint.mark_done(out, emb.shape, fact_params)
+        if mesh is not None:
+            mesh.barrier()
     return emb
 
 
 def _factorize_ranges(ranges, m_total, n, feature_dim, seed,
                       oversample=16, power_iters=4, out=None,
-                      factorization="device", device=None):
-    """Factorization of counted ranges on one card
-    (cleora_tpu/algorithms.py:2624-2665); the mesh-sharded factorization
-    is the multi-GPU slice."""
-    if factorization == "sharded":
-        raise NotImplementedError(_SHARDED_WALKS_NOT_PORTED)
-    return _device_counts_to_embeddings(ranges, m_total, n, feature_dim,
-                                        seed, oversample=oversample,
-                                        power_iters=power_iters, out=out,
-                                        device=device)
+                      factorization="device", device=None, mesh=None):
+    """Where counted ranges are factorized (cleora_tpu/algorithms.py:
+    2624-2665).  On one card: there.  Under a shard group,
+    ``factorization='sharded'`` keeps every partition on the rank that
+    counted it and runs the sharded rsvd (parallel/cooccur.py);
+    ``'device'`` homes every partition on every rank (an all-gather of the
+    variable-length ranges) and factorizes them on each rank's card, unless
+    they would not fit one card, in which case the sharded path engages
+    (the ranks decide together)."""
+    if mesh is None:
+        return _device_counts_to_embeddings(ranges, m_total, n, feature_dim,
+                                            seed, oversample=oversample,
+                                            power_iters=power_iters, out=out,
+                                            device=device)
+    from .parallel.cooccur import home_ranges, sharded_counts_to_embeddings
+
+    def total(value: int) -> int:
+        return int(mesh.all_reduce_(torch.tensor(
+            [value], dtype=torch.int64, device=mesh.device))[0])
+
+    use_sharded = factorization == "sharded"
+    if not use_sharded and mesh.world_size > 1:
+        r = min(n, min(feature_dim, n - 1) + oversample)
+        slots = total(sum(int(c.shape[0]) for c, _, _, _ in ranges))
+        try:
+            memory.check_device_fit(n, max(1, (3 * r) // 2), slots,
+                                    device=mesh.device)
+            refused = 0
+        except ValueError:
+            refused = 1
+        use_sharded = total(refused) > 0
+    if use_sharded:
+        return sharded_counts_to_embeddings(
+            ranges, m_total, n, feature_dim, seed, oversample=oversample,
+            power_iters=power_iters, out=out, group=mesh)
+    ranges = home_ranges(ranges, mesh)
+    emb = _device_counts_to_embeddings(
+        ranges, m_total, n, feature_dim, seed, oversample=oversample,
+        power_iters=power_iters, out=out if mesh.rank == 0 else None,
+        device=mesh.device)
+    return _shared_result(emb, out, mesh)
+
+
+def _shared_result(emb, out, mesh):
+    """Under a group every rank computed ``emb``; rank 0 wrote ``out``
+    (when given) and the others return its memmap once it is there."""
+    if out is None or mesh is None:
+        return emb
+    mesh.barrier()
+    return emb if mesh.rank == 0 else np.load(out, mmap_mode="r")
 
 
 def _device_counts_to_embeddings(ranges, m_total, n, feature_dim, seed,
@@ -1406,13 +1546,28 @@ def _device_counts_to_embeddings(ranges, m_total, n, feature_dim, seed,
     return _rsvd_flat(pieces, n, k, omega, power_iters, feature_dim, out=out)
 
 
+def _host_counted(graph, batches, feature_dim, window_size, seed,
+                  factorization, out, dev, mesh):
+    """Host counting of the walk batches, then the factorization of
+    :func:`_counts_to_embeddings` (every rank of a group holds the same
+    batches and computes the same result; rank 0 writes ``out``)."""
+    keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
+    emb = _counts_to_embeddings(keys, counts, graph.num_entities,
+                                feature_dim, factorization=factorization,
+                                seed=seed, device=dev)
+    if out is not None and (mesh is None or mesh.rank == 0):
+        emb = _write_npy(emb, out)
+    return _shared_result(emb, out, mesh)
+
+
 def _deepwalk_device(graph, feature_dim, num_walks, walk_length, window_size,
                      seed, factorization="host", mesh=None, n_devices=None,
                      cooccurrence="host", checkpoint_dir=None,
                      checkpoint_every=1, out=None, walk_tables="auto",
                      device=None):
-    _check_not_sharded(mesh, n_devices)
-    dev = resolve_device(device)
+    mesh = _walk_mesh(mesh, n_devices, device,
+                      sharded="sharded" in (walk_tables, factorization))
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if cooccurrence == "device":
         # half-size batches: the counting sort shares the card with the
         # finished ranges
@@ -1420,21 +1575,19 @@ def _deepwalk_device(graph, feature_dim, num_walks, walk_length, window_size,
             graph, feature_dim, window_size, seed,
             lambda: _device_walks(graph, num_walks, walk_length, seed,
                                   batch=_WALK_BATCH // 2, resident=True,
-                                  walk_tables=walk_tables, device=dev),
+                                  walk_tables=walk_tables, device=dev,
+                                  mesh=mesh),
             passes=_cooc_passes(graph, num_walks, walk_length, window_size),
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, out=out,
             fp_params=dict(engine=_WALK_ENGINE, num_walks=num_walks,
                            walk_length=walk_length),
-            factorization=factorization, device=dev,
+            factorization=factorization, device=dev, mesh=mesh,
         )
     batches = _device_walks(graph, num_walks, walk_length, seed,
-                            walk_tables=walk_tables, device=dev)
-    keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
-    emb = _counts_to_embeddings(keys, counts, graph.num_entities,
-                                feature_dim, factorization=factorization,
-                                seed=seed, device=dev)
-    return _write_npy(emb, out) if out is not None else emb
+                            walk_tables=walk_tables, device=dev, mesh=mesh)
+    return _host_counted(graph, batches, feature_dim, window_size, seed,
+                         factorization, out, dev, mesh)
 
 
 def _node2vec_device(graph, feature_dim, num_walks, walk_length, window_size,
@@ -1442,28 +1595,27 @@ def _node2vec_device(graph, feature_dim, num_walks, walk_length, window_size,
                      n_devices=None, cooccurrence="host", checkpoint_dir=None,
                      checkpoint_every=1, out=None, walk_tables="auto",
                      device=None):
-    _check_not_sharded(mesh, n_devices)
-    dev = resolve_device(device)
+    mesh = _walk_mesh(mesh, n_devices, device,
+                      sharded="sharded" in (walk_tables, factorization))
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if cooccurrence == "device":
         return _walks_ppmi_device(
             graph, feature_dim, window_size, seed,
             lambda: _device_walks2(graph, num_walks, walk_length, p, q,
                                    seed, resident=True,
-                                   walk_tables=walk_tables, device=dev),
+                                   walk_tables=walk_tables, device=dev,
+                                   mesh=mesh),
             passes=_cooc_passes(graph, num_walks, walk_length, window_size),
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, out=out,
             fp_params=dict(engine=_WALK2_ENGINE, num_walks=num_walks,
                            walk_length=walk_length, p=p, q=q),
-            factorization=factorization, device=dev,
+            factorization=factorization, device=dev, mesh=mesh,
         )
     batches = _device_walks2(graph, num_walks, walk_length, p, q, seed,
-                             walk_tables=walk_tables, device=dev)
-    keys, counts = _walk_pair_counts(batches, graph.num_entities, window_size)
-    emb = _counts_to_embeddings(keys, counts, graph.num_entities,
-                                feature_dim, factorization=factorization,
-                                seed=seed, device=dev)
-    return _write_npy(emb, out) if out is not None else emb
+                             walk_tables=walk_tables, device=dev, mesh=mesh)
+    return _host_counted(graph, batches, feature_dim, window_size, seed,
+                         factorization, out, dev, mesh)
 
 
 # -------------------------------------------------------------- random walks
@@ -1574,9 +1726,19 @@ def embed_deepwalk(
     ``checkpoint_dir=`` (device counting) makes the counting durable per
     hash partition and resumes a killed run; ``out="path.npy"`` streams the
     final embedding to disk and returns a read-only memmap.
-    ``walk_tables`` 'auto'/'replicated' keep the walk CSR on the card;
-    'sharded', ``factorization='sharded'`` and ``mesh=``/``n_devices=`` are
-    the multi-GPU slice and raise NotImplementedError.
+    With ``mesh=`` (a ``parallel.ShardGroup``) or ``n_devices=`` the
+    pipeline runs over the shard group, one rank per card, and every rank
+    returns the same result: ``walk_tables`` 'replicated' keeps the walk
+    CSR on every card (each rank walks a block of lanes), 'sharded' cuts
+    it by rows over the ranks (each hop is computed by the owner of the
+    lane's row, kernel K17, or K18 for Node2Vec's p/q walk), 'auto' picks
+    the first that fits; the walks are bitwise the one-card walks either
+    way.  Device counting leaves hash partition ``s`` on rank ``s % P``;
+    ``factorization='sharded'`` factorizes the partitions where they lie
+    (parallel/cooccur.py), 'device' gathers them on every rank unless they
+    would not fit one card.  ``walk_tables='sharded'`` or
+    ``factorization='sharded'`` without a group run on one shard.  A
+    DiskGraph is read off its memmaps.
 
     Rows of nodes in components too small to carry a singular direction
     (their factorization rows are rounding noise, norm about 1e-10) are
@@ -1631,7 +1793,9 @@ def embed_node2vec(
     bias by composition and rejection with Philox uniforms: the walks are
     bitwise the same on the card and the CPU, and another stream than the
     JAX package's) and then counts and factorizes as DeepWalk does, in
-    every ``cooccurrence``/``factorization`` mode.  After ``min(1024,
+    every ``cooccurrence``/``factorization``/``walk_tables`` mode and over
+    a shard group (over sharded tables the hops are kernel K18's stages,
+    bitwise K12's walks).  After ``min(1024,
     max(64, ⌈8q⌉))`` rejected proposals a hop takes the last uniform
     proposal, as in the JAX package.  Host-path semantics otherwise,
     dead-row stops included; checkpoints carry the edge weights in their

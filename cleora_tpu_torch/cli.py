@@ -67,8 +67,10 @@ def main(argv=None):
                    help="deepwalk/node2vec PPMI factorization: 'device' "
                         "runs a randomized SVD on the device instead of "
                         "host ARPACK (requires --backend device; implied by "
-                        "--cooccurrence device); 'sharded' is not ported "
-                        "yet")
+                        "--cooccurrence device); 'sharded' keeps each "
+                        "counting partition on its rank and runs the SVD "
+                        "over the --sharded group (requires --cooccurrence "
+                        "device)")
     p.add_argument("--cooccurrence", choices=["host", "device"],
                    default="host",
                    help="deepwalk/node2vec pair counting: 'device' keeps "
@@ -79,7 +81,9 @@ def main(argv=None):
                    choices=["auto", "replicated", "sharded"],
                    default="auto",
                    help="deepwalk/node2vec walk-CSR placement: 'sharded' "
-                        "is not ported yet; 'auto' fit-checks")
+                        "row-partitions the tables over the --sharded ranks "
+                        "(owner-routed hops, bitwise the one-card walks); "
+                        "'auto' fit-checks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--streaming", metavar="DIR", default=None,
                    help="Out-of-core build: spill the graph to DIR "
@@ -102,9 +106,9 @@ def main(argv=None):
                         "per rank).  With a .npy --output the embedding "
                         "streams shard by shard into the file — no process "
                         "holds the full (N, D) matrix.  prone, randne, "
-                        "hope, netmf and grarep (with --backend device) run "
-                        "their device pipeline over the N ranks; deepwalk "
-                        "and node2vec: not ported yet")
+                        "hope, netmf, grarep, deepwalk and node2vec (with "
+                        "--backend device) run their device pipeline over "
+                        "the N ranks")
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="cleora + --sharded: persist the sharded loop "
                         "state to DIR every --checkpoint-every iterations. "
@@ -288,13 +292,10 @@ def _finish_embed(args, graph):
     dev = args.device
     mesh = None
     if getattr(args, "sharded", None) is not None and args.algorithm != "cleora":
-        if walk_algo:
-            from .algorithms import _SHARDED_NOT_PORTED
-
-            raise SystemExit(_SHARDED_NOT_PORTED)
-        # the spectral siblings run their whole device pipeline over the
-        # shard group (parallel/algorithms.py); under torchrun every rank
-        # joins the process group first
+        # the siblings run their whole device pipeline over the shard group
+        # (parallel/algorithms.py; the walk siblings' walks, counting and
+        # factorization, algorithms.py and parallel/cooccur.py); under
+        # torchrun every rank joins the process group first
         if be != "device":
             raise SystemExit(
                 "--sharded with a sibling algorithm requires --backend device"
@@ -382,12 +383,12 @@ def _finish_embed(args, graph):
                                        backend=be, mesh=mesh, device=dev),
         "deepwalk": lambda: embed_deepwalk(graph, args.dim, seed=args.seed,
                                            backend=be, factorization=fact,
-                                           cooccurrence=cooc,
+                                           cooccurrence=cooc, mesh=mesh,
                                            walk_tables=wtab, device=dev,
                                            **walk_kw),
         "node2vec": lambda: embed_node2vec(graph, args.dim, seed=args.seed,
                                            backend=be, factorization=fact,
-                                           cooccurrence=cooc,
+                                           cooccurrence=cooc, mesh=mesh,
                                            walk_tables=wtab, device=dev,
                                            **walk_kw),
     }

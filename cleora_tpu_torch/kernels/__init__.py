@@ -4,8 +4,9 @@ K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``edge_attention.cu``, K5 ``spmm_axpy.cu``, K6 ``dense_markov.cu``, K7
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
 ``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu``, K13
-``pq_adc.cu``, K14 ``label_prop.cu``, K15 ``relu_dropout.cu`` and K16
-``halo_pack.cu`` are built at first use (:mod:`.build`).  Each wrapper
+``pq_adc.cu``, K14 ``label_prop.cu``, K15 ``relu_dropout.cu``, K16
+``halo_pack.cu``, K17 ``walk_owned.cu`` and K18 ``walk2_owned.cu`` are
+built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -106,6 +107,42 @@ _ARGTYPES = {
     # idx, x, out, n_slots, row_bytes, vec_bytes, stream
     "halo_pack": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p],
+    # indptr, cols, deg, frontier, out, batch, hop, base, k0, k1, n, row_lo,
+    # rps, root, stream
+    "walk_owned": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                   _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
+                   _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
+                   _c.c_int64, _c.c_int, _c.c_void_p],
+    # indptr, cols, vals, deg, wmax, wsum, cur, prev, out, batch, n, row_lo,
+    # rps, inv_p, stream
+    "walk2_stats": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                    _c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int64,
+                    _c.c_int64, _c.c_float, _c.c_void_p],
+    # stats, mask, batch, inv_q, stream
+    "walk2_pending": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
+                      _c.c_void_p],
+    # indptr, cols, vals, stats, batch, lanes, count, cur, prev, hop, rnd,
+    # base, k0, k1, n, row_lo, rps, inv_q, out, stream
+    "walk2_propose": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                      _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                      _c.c_void_p, _c.c_int, _c.c_int, _c.c_int64,
+                      _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
+                      _c.c_int64, _c.c_float, _c.c_void_p, _c.c_void_p],
+    # indptr, cols, deg, stats, batch, lanes, count, prop, prev, hop, rnd,
+    # tries, base, k0, k1, n, row_lo, rps, inv_q, out, stream
+    "walk2_member": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                     _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                     _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int64,
+                     _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
+                     _c.c_int64, _c.c_float, _c.c_void_p, _c.c_void_p],
+    # stats, batch, lanes, count, prop, member, prev, hop, rnd, tries, base,
+    # k0, k1, n, inv_q, nxt, still, stream
+    "walk2_decide": [_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64,
+                     _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int,
+                     _c.c_int, _c.c_int64, _c.c_uint32, _c.c_uint32,
+                     _c.c_int32, _c.c_float, _c.c_void_p, _c.c_void_p,
+                     _c.c_void_p],
 }
 
 
@@ -731,3 +768,204 @@ def halo_pack(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(name, rc)
     return out
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _seed_words(seed: int):
+    key = int(seed) & ((1 << 64) - 1)
+    return key & _U32, key >> 32
+
+
+def _require_int32_rows(name: str, t: torch.Tensor, rows: int,
+                        width: int) -> None:
+    _require(t.dtype == torch.int32 and t.numel() == rows * width
+             and t.shape[-1] == width,
+             f"{name}: an int32 buffer of {rows} x {width} expected")
+
+
+def walk_owned(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+               frontier: torch.Tensor, hop: int, seed: int, base: int,
+               n: int, row_lo: int, root: bool,
+               out: torch.Tensor) -> torch.Tensor:
+    """K17: this rank's share of hop ``hop`` of the first-order walks over
+    its slice of the row-sharded walk CSR (``indptr`` local row starts and
+    ``deg``: int32 (rps,); ``cols`` int32), for the lanes at ``frontier``
+    (int32 (B,); lane b is walk ``base + b``), written into ``out`` (int32
+    (B,)), which is returned: K8's next node for the lanes whose row the
+    rank owns (rows ``[row_lo, row_lo + rps)``), the sentinel ``n`` for a
+    lane at the sentinel when ``root``, 0 otherwise.  The slice must be
+    valid (``ops/walk.py:ShardedWalkTables`` checks it once)."""
+    name = "walk_owned"
+    for t in (indptr, cols, deg, frontier, out):
+        _require(t.dtype == torch.int32 and t.dim() == 1,
+                 f"{name}: int32 1-D tables, frontier and out expected")
+    _require(indptr.shape == deg.shape and frontier.shape == out.shape,
+             f"{name}: indptr/deg and frontier/out must match")
+    _require(hop >= 0 and base >= 0 and row_lo >= 0,
+             f"{name}: hop, base and row_lo must be >= 0")
+    _require_cuda_contiguous(name, frontier.device, indptr, cols, deg,
+                             frontier, out)
+    k0, k1 = _seed_words(seed)
+    with torch.cuda.device(frontier.device):
+        rc = _bound(name)(
+            indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
+            frontier.data_ptr(), out.data_ptr(), frontier.shape[0], int(hop),
+            int(base), k0, k1, int(n), int(row_lo), indptr.shape[0],
+            int(bool(root)), _stream(frontier))
+    _check_launch(name, rc)
+    return out
+
+
+_WALK2 = "walk2_owned"
+
+
+def _require_lanes(name: str, lanes: torch.Tensor, device) -> None:
+    _require(lanes.dtype == torch.int64 and lanes.dim() == 1,
+             f"{name}: lanes must be a 1-D int64 tensor")
+    _require_cuda_contiguous(name, device, lanes)
+
+
+def walk2_stats(indptr, cols, vals, deg, wmax, wsum, cur: torch.Tensor,
+                prev: torch.Tensor, n: int, row_lo: int, inv_p: float,
+                out: torch.Tensor) -> torch.Tensor:
+    """K18, stage one: for the lanes at ``cur`` (int32 (B,); ``prev`` the
+    node before, the sentinel ``n`` on the first hop) whose current row
+    this rank's slice holds, the degree, ``wmax``, ``wsum`` and the
+    backtrack weight ``vals[pos(prev)]·inv_p``, into ``out`` ((4, B)
+    int32, the floats by their bits), 0 for the other lanes.  Returns
+    ``out``.  The slice must be valid (``ShardedWalkTables``)."""
+    name = _WALK2
+    for t in (indptr, cols, deg, cur, prev):
+        _require(t.dtype == torch.int32 and t.dim() == 1,
+                 f"{name}: int32 1-D tables, cur and prev expected")
+    for t in (vals, wmax, wsum):
+        _require(t.dtype == torch.float32 and t.dim() == 1,
+                 f"{name}: float32 1-D vals, wmax and wsum expected")
+    _require(indptr.shape == deg.shape == wmax.shape == wsum.shape
+             and vals.shape == cols.shape and cur.shape == prev.shape,
+             f"{name}: table or lane shapes disagree")
+    b = cur.shape[0]
+    _require_int32_rows(name, out, 4, b)
+    _require_cuda_contiguous(name, cur.device, indptr, cols, vals, deg, wmax,
+                             wsum, cur, prev, out)
+    with torch.cuda.device(cur.device):
+        rc = _bound(_WALK2, "walk2_stats")(
+            indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            deg.data_ptr(), wmax.data_ptr(), wsum.data_ptr(), cur.data_ptr(),
+            prev.data_ptr(), out.data_ptr(), b, int(n), int(row_lo),
+            indptr.shape[0], float(np.float32(inv_p)), _stream(cur))
+    _check_launch(name, rc)
+    return out
+
+
+def walk2_pending(stats: torch.Tensor, inv_q: float) -> torch.Tensor:
+    """K18, the pending test on the summed stats ((4, B) int32): a bool
+    (B,) mask of the lanes with degree > 0 whose row is not dead."""
+    name = _WALK2
+    _require(stats.dim() == 2 and stats.shape[0] == 4,
+             f"{name}: stats must be (4, B)")
+    b = stats.shape[1]
+    _require_int32_rows(name, stats, 4, b)
+    _require_cuda_contiguous(name, stats.device, stats)
+    mask = torch.empty((b,), dtype=torch.bool, device=stats.device)
+    with torch.cuda.device(stats.device):
+        rc = _bound(_WALK2, "walk2_pending")(
+            stats.data_ptr(), mask.data_ptr(), b, float(np.float32(inv_q)),
+            _stream(stats))
+    _check_launch(name, rc)
+    return mask
+
+
+def walk2_propose(indptr, cols, vals, stats: torch.Tensor,
+                  lanes: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor,
+                  hop: int, rnd: int, seed: int, base: int, n: int,
+                  row_lo: int, inv_q: float,
+                  out: torch.Tensor) -> torch.Tensor:
+    """K18, the proposal of round ``rnd``: for each pending lane of
+    ``lanes`` (sorted int64) that does not take the backtrack edge and
+    whose current row this rank holds, the uniform proposal and its weight
+    into ``out`` ((2, len(lanes)) int32), 0 elsewhere.  Returns ``out``."""
+    name = _WALK2
+    _require(indptr.dtype == cols.dtype == cur.dtype == prev.dtype
+             == torch.int32 and vals.dtype == torch.float32
+             and vals.shape == cols.shape and cur.shape == prev.shape,
+             f"{name}: int32 tables, cur and prev, float32 vals expected")
+    b, count = cur.shape[0], lanes.shape[0]
+    _require_int32_rows(name, stats, 4, b)
+    _require_int32_rows(name, out, 2, count)
+    _require_lanes(name, lanes, cur.device)
+    _require_cuda_contiguous(name, cur.device, indptr, cols, vals, stats, cur,
+                             prev, out)
+    k0, k1 = _seed_words(seed)
+    with torch.cuda.device(cur.device):
+        rc = _bound(_WALK2, "walk2_propose")(
+            indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            stats.data_ptr(), b, lanes.data_ptr(), count, cur.data_ptr(),
+            prev.data_ptr(), int(hop), int(rnd), int(base), k0, k1, int(n),
+            int(row_lo), indptr.shape[0], float(np.float32(inv_q)),
+            out.data_ptr(), _stream(cur))
+    _check_launch(name, rc)
+    return out
+
+
+def walk2_member(indptr, cols, deg, stats: torch.Tensor, lanes: torch.Tensor,
+                 prop: torch.Tensor, prev: torch.Tensor, hop: int, rnd: int,
+                 tries: int, seed: int, base: int, n: int, row_lo: int,
+                 inv_q: float, out: torch.Tensor) -> torch.Tensor:
+    """K18, the common-neighbour test of round ``rnd``: 1 for each pending
+    lane that tests its summed proposal (``prop``) and whose previous row
+    this rank holds when the proposal is in that row, into ``out``
+    ((len(lanes),) int32), 0 elsewhere.  Returns ``out``."""
+    name = _WALK2
+    _require(indptr.dtype == cols.dtype == deg.dtype == prev.dtype
+             == torch.int32 and indptr.shape == deg.shape,
+             f"{name}: int32 tables and prev expected")
+    b, count = prev.shape[0], lanes.shape[0]
+    _require_int32_rows(name, stats, 4, b)
+    _require_int32_rows(name, prop, 2, count)
+    _require_int32_rows(name, out, 1, count)
+    _require_lanes(name, lanes, prev.device)
+    _require_cuda_contiguous(name, prev.device, indptr, cols, deg, stats,
+                             prop, prev, out)
+    k0, k1 = _seed_words(seed)
+    with torch.cuda.device(prev.device):
+        rc = _bound(_WALK2, "walk2_member")(
+            indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
+            stats.data_ptr(), b, lanes.data_ptr(), count, prop.data_ptr(),
+            prev.data_ptr(), int(hop), int(rnd), int(tries), int(base), k0,
+            k1, int(n), int(row_lo), indptr.shape[0],
+            float(np.float32(inv_q)), out.data_ptr(), _stream(prev))
+    _check_launch(name, rc)
+    return out
+
+
+def walk2_decide(stats: torch.Tensor, lanes: torch.Tensor, prop: torch.Tensor,
+                 member: torch.Tensor, prev: torch.Tensor, hop: int, rnd: int,
+                 tries: int, seed: int, base: int, n: int, inv_q: float,
+                 nxt: torch.Tensor) -> torch.Tensor:
+    """K18, the decision of round ``rnd`` from the summed proposal and
+    membership: writes each decided lane's node into ``nxt`` (int32 (B,))
+    and returns a bool mask of the lanes of ``lanes`` still pending."""
+    name = _WALK2
+    _require(prev.dtype == nxt.dtype == torch.int32
+             and prev.shape == nxt.shape, f"{name}: int32 prev/nxt expected")
+    b, count = prev.shape[0], lanes.shape[0]
+    _require_int32_rows(name, stats, 4, b)
+    _require_int32_rows(name, prop, 2, count)
+    _require_int32_rows(name, member, 1, count)
+    _require_lanes(name, lanes, prev.device)
+    _require_cuda_contiguous(name, prev.device, stats, prop, member, prev,
+                             nxt)
+    still = torch.empty((count,), dtype=torch.bool, device=prev.device)
+    k0, k1 = _seed_words(seed)
+    with torch.cuda.device(prev.device):
+        rc = _bound(_WALK2, "walk2_decide")(
+            stats.data_ptr(), b, lanes.data_ptr(), count, prop.data_ptr(),
+            member.data_ptr(), prev.data_ptr(), int(hop), int(rnd),
+            int(tries), int(base), k0, k1, int(n), float(np.float32(inv_q)),
+            nxt.data_ptr(), still.data_ptr(), _stream(prev))
+    _check_launch(name, rc)
+    return still

@@ -114,11 +114,15 @@ def run_length_plain(keys: torch.Tensor, counts: Optional[torch.Tensor],
 
 # ------------------------------------------------------------ sweep + merges
 def _reduce_sweep(walks: torch.Tensor, pad: int, n: int, window: int,
-                  passes: int):
+                  passes: int, keep: Optional[torch.Tensor] = None):
     """One batch's all-partition reduce (``_reduce_walks_sweep_impl``):
-    K9, ``torch.sort``, K10.  Returns (cen, ctx, cnt, m_per as a host
-    list)."""
+    K9, ``torch.sort``, K10.  ``keep`` (bool (passes,)) drops the keys of
+    the other partitions before the sort.  Returns (cen, ctx, cnt, m_per
+    as a host list)."""
     keys = pair_keys(walks, walks.shape[0] - pad, n, window, passes)
+    if keep is not None:
+        part = torch.clamp(keys // (n * n), max=passes)  # INT64_MAX: passes
+        keys = keys[torch.cat([keep, keep.new_zeros(1)])[part]]
     keys = torch.sort(keys).values
     cen, ctx, cnt, m_per = run_length(keys, None, n, passes)
     return cen, ctx, cnt, [int(v) for v in m_per.cpu()]
@@ -140,13 +144,19 @@ def _run_sweep(batches_fn, passes: int, n: int, window: int, skip=()):
     """Count every hash partition not in ``skip`` in one sweep over the
     corpus (``_run_sweep``, cleora_tpu/ops/cooccur.py:303-336): per batch,
     one reduce emits every partition's segment, which chain-merges into
-    that partition's accumulator.  Returns one range per partition (None
-    for a skipped one), or None for an empty corpus."""
+    that partition's accumulator (the keys of skipped partitions are
+    dropped before the sort).  Returns one range per partition (None for a
+    skipped one), or None for an empty corpus."""
     acc: List = [None] * passes
     seen = False
+    keep = None
     for walks, pad in batches_fn():
         seen = True
-        cen, ctx, cnt, m_per = _reduce_sweep(walks, pad, n, window, passes)
+        if skip and keep is None:
+            keep = torch.tensor([s not in skip for s in range(passes)],
+                                device=walks.device)
+        cen, ctx, cnt, m_per = _reduce_sweep(walks, pad, n, window, passes,
+                                             keep)
         start = 0
         for s, m_s in enumerate(m_per):
             end = start + m_s
@@ -258,7 +268,7 @@ class CountCheckpoint:
 
 def device_pair_counts(batches_fn, n: int, window: int, passes: int = 1,
                        checkpoint: Optional[CountCheckpoint] = None,
-                       device=None):
+                       device=None, group=None):
     """Reduce device walk batches to device-resident unique
     (center, context, count) ranges.
 
@@ -269,41 +279,67 @@ def device_pair_counts(batches_fn, n: int, window: int, passes: int = 1,
     ``checkpoint`` supplies the partitions it already holds (loaded onto
     ``device``); the sweep counts the rest and each is saved.
 
-    Returns ``(ranges, m_total)``: one ``(cen, ctx, cnt, m)`` per partition,
-    in partition order, exactly ``m`` int32 entries each, sorted by
-    (center, context); ``[]`` for an empty corpus."""
+    Under a shard group (``group``, every rank holding the same batches)
+    rank r counts the partitions ``s`` with ``s % P == r`` and drops the
+    keys of the others before the sort (the JAX package's pass-parallel
+    counting with ``gather_home=False``, cleora_tpu/ops/cooccur.py:677-753,
+    without its fallback to one device for a corpus of one batch): the
+    ranges stay on their rank.  The ranks sweep together or not at all
+    (the walks may run collectives), and a checkpoint written under one
+    rank count resumes under another.
+
+    Returns ``(ranges, m_total)``: one ``(cen, ctx, cnt, m)`` per partition
+    of this rank, in partition order, exactly ``m`` int32 entries each,
+    sorted by (center, context); ``m_total`` counts every rank's; ``[]``
+    for an empty corpus."""
     passes = max(1, int(passes))
-    loaded = [None] * passes
+    dev = (group.device if group is not None else
+           resolve_device(device) if checkpoint is not None else None)
+    world = group.world_size if group is not None else 1
+    mine = [s for s in range(passes) if group is None or s % world ==
+            group.rank]
+    loaded = {s: None for s in mine}
     if checkpoint is not None:
-        dev = resolve_device(device)
-        loaded = [checkpoint.load_pass(s, dev) if checkpoint.has_pass(s)
-                  else None for s in range(passes)]
-    skip = {s for s, r in enumerate(loaded) if r is not None}
-    if len(skip) < passes:
+        loaded = {s: checkpoint.load_pass(s, dev) if checkpoint.has_pass(s)
+                  else None for s in mine}
+    skip = set(range(passes)) - {s for s in mine if loaded[s] is None}
+    sweep = len(skip) < passes
+    if group is not None:
+        sweep = int(group.all_reduce_(torch.tensor(
+            [int(sweep)], device=dev))[0]) > 0
+    if sweep:
         counted = _run_sweep(batches_fn, passes, n, window, skip)
         if counted is None:
             return [], 0
-        for s, r in enumerate(counted):
+        for s in mine:
             if s not in skip:
-                loaded[s] = r
+                loaded[s] = counted[s]
                 if checkpoint is not None:
-                    checkpoint.save_pass(s, r)
-    ranges = [r for r in loaded if r is not None]
-    _check_count_overflow(ranges, n)
-    return ranges, sum(r[3] for r in ranges)
+                    checkpoint.save_pass(s, counted[s])
+    ranges = [loaded[s] for s in mine if loaded[s] is not None]
+    _check_count_overflow(ranges, n, group)
+    m_total = sum(r[3] for r in ranges)
+    if group is not None:
+        m_total = int(group.all_reduce_(torch.tensor(
+            [m_total], dtype=torch.int64, device=dev))[0])
+    return ranges, m_total
 
 
-def _check_count_overflow(ranges, n: int) -> None:
+def _check_count_overflow(ranges, n: int, group=None) -> None:
     """Counts are int32 (the host path counts in int64); a pair seen more
     than 2³¹ - 1 times wraps negative.  One reduction per range catches
-    that first wrap (cleora_tpu/ops/cooccur.py:902-923)."""
-    for _, _, cnt, m in ranges:
-        if m and int(cnt.min()) < 0:
-            raise ValueError(
-                "co-occurrence count overflow: one (center, context) pair "
-                "exceeds 2^31 occurrences — use cooccurrence='host' "
-                "(int64 counts) for this corpus"
-            )
+    that first wrap (cleora_tpu/ops/cooccur.py:902-923); under a group the
+    ranks raise together."""
+    wrapped = any(m and int(cnt.min()) < 0 for _, _, cnt, m in ranges)
+    if group is not None:
+        wrapped = int(group.all_reduce_(torch.tensor(
+            [int(wrapped)], device=group.device))[0]) > 0
+    if wrapped:
+        raise ValueError(
+            "co-occurrence count overflow: one (center, context) pair "
+            "exceeds 2^31 occurrences — use cooccurrence='host' "
+            "(int64 counts) for this corpus"
+        )
 
 
 def pair_total(ranges, n: int) -> int:

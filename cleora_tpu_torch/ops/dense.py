@@ -98,18 +98,27 @@ def _apply_pieces(pieces: List[CsrMatrix], x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-@full_float32_matmul()
 def rsvd_sparse(pieces: List[CsrMatrix], k: int, omega: torch.Tensor,
                 power_iters: int) -> torch.Tensor:
-    """``U_k·√S_k`` of a symmetric sparse matrix M by randomized subspace
-    iteration over the sketch ``omega`` (n, r): the steps of
-    ``_rsvd_flat`` (cleora_tpu/algorithms.py:2211-2225) in its order."""
-    y = _apply_pieces(pieces, omega)
+    """``U_k·√S_k`` of a symmetric sparse matrix M given as row-disjoint
+    CSR pieces, by randomized subspace iteration over the sketch ``omega``
+    (n, r): the steps of ``_rsvd_flat`` (cleora_tpu/algorithms.py:
+    2211-2225) in its order."""
+    return rsvd_apply(lambda x: _apply_pieces(pieces, x), k, omega,
+                      power_iters)
+
+
+@full_float32_matmul()
+def rsvd_apply(apply, k: int, omega: torch.Tensor,
+               power_iters: int) -> torch.Tensor:
+    """:func:`rsvd_sparse` with the product ``M·x`` given as ``apply(x)``
+    (the sharded factorization sums each rank's pieces there)."""
+    y = apply(omega)
     for _ in range(power_iters):  # M symmetric
-        y = _apply_pieces(pieces, _apply_pieces(pieces, torch.linalg.qr(y)[0]))
+        y = apply(apply(torch.linalg.qr(y)[0]))
     q = torch.linalg.qr(y)[0]
     del y
-    c = _apply_pieces(pieces, q)
+    c = apply(q)
     ub, s, _ = torch.linalg.svd(c.T, full_matrices=False)
     su = torch.sqrt(torch.clamp_min(s[:k], 0.0))
     return torch.matmul(q, ub[:, :k]) * su

@@ -4,9 +4,9 @@ The JAX package shards the embedding rows over one mesh axis of devices
 (cleora_tpu/parallel/mesh.py).  Here a shard is a process: rank k of a
 ``torch.distributed`` group owns rows [k·rps, (k+1)·rps) on its own device,
 one card per rank (NCCL) or the CPU (gloo).  :class:`ShardGroup` carries the
-rank, the world size, the device and the group, and runs the loop's four
-collectives.  Without an initialized group the calling process is the one
-shard and the collectives are identities.
+rank, the world size, the device and the group, and runs the collectives
+of the loop and of the sharded siblings.  Without an initialized group the
+calling process is the one shard and the collectives are identities.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ class ShardGroup:
         """Sum ``t`` over the shards, in place."""
         if self.group is not None:
             dist.all_reduce(t, group=self.group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every shard, in place."""
+        if self.group is not None:
+            dist.broadcast(t, src, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:

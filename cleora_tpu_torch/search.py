@@ -10,8 +10,9 @@ similarity.
 L2-normalized table on the card (``device=None`` means CUDA;
 ``device="cpu"`` runs the same PyTorch calls on the CPU; without a card and
 without ``device="cpu"`` they raise): a query is a full-float32 product
-with the table and ``torch.topk``.  ``ShardedDeviceIndex`` holds the table
-on one card; sharding it over several (``mesh=``) is the multi-GPU slice.
+with the table and ``torch.topk``.  ``ShardedDeviceIndex(mesh=)`` cuts the
+table by rows over the ranks of a shard group (``parallel.ShardGroup``),
+one block per rank's card.
 """
 
 from __future__ import annotations
@@ -22,12 +23,6 @@ import numpy as np
 import torch
 
 from ._util import full_float32_matmul, resolve_device
-
-_SHARDED_NOT_PORTED = (
-    "mesh= (a table sharded over several cards) is not ported yet: it is "
-    "the multi-GPU slice of the port (ROADMAP.md, queue A item 8); "
-    "mesh=None holds the table on one card"
-)
 
 # table rows normalized and uploaded, or upcast from bfloat16 for one
 # product, at a time
@@ -260,14 +255,18 @@ class ShardedDeviceIndex:
     """Exact cosine top-k over a device-RESIDENT table, the serving path
     for large embedding tables (cleora_tpu/search.py:229-401).
 
-    The L2-normalized (N, D) table is placed ONCE on the card (optionally
-    bfloat16 for double capacity) and stays resident: each query batch is
-    one full-float32 product with the table (bfloat16 rows upcast, products
-    summed in float32) and ``torch.topk``; rows past N (the padding of an
-    empty table) are masked with −inf.  No part of the table returns to the
-    host except the rows ``query`` fetches.  ``mesh=`` (row shards over
-    several cards) is the multi-GPU slice and raises NotImplementedError.
-    """
+    The L2-normalized (N, D) table is placed ONCE (optionally bfloat16 for
+    double capacity) and stays resident: on one card without ``mesh``, or
+    with ``mesh`` (a ``parallel.ShardGroup``) cut by rows, rank r holding
+    rows ``[r·rps, (r + 1)·rps)`` of the table padded to
+    ``rps = ⌈max(N, P) / P⌉`` rows a rank.  Each query batch is one
+    full-float32 product with the rank's rows (bfloat16 rows upcast,
+    products summed in float32) and ``torch.topk`` of ``min(k, rps)`` with
+    the padded rows masked to −inf; under a group an all-gather of every
+    rank's (Q, k) candidates and their global ids and a final top-k follow.
+    Every rank then holds the same answer, so every rank of the group must
+    make the same calls.  No part of the table returns to the host except
+    the rows ``query`` fetches (from their owner)."""
 
     def __init__(self, graph, embeddings: np.ndarray, mesh=None,
                  dtype: str = "float32", device=None):
@@ -276,30 +275,39 @@ class ShardedDeviceIndex:
                 f"Unknown dtype '{dtype}'. Use 'float32' or 'bfloat16'."
             )
         if mesh is not None:
-            raise NotImplementedError(_SHARDED_NOT_PORTED)
-        dev = resolve_device(device)
+            from .parallel.algorithms import _mesh_for
+
+            mesh = _mesh_for(mesh, None, device)
+            dev, world, rank = mesh.device, mesh.world_size, mesh.rank
+        else:
+            dev, world, rank = resolve_device(device), 1, 0
         self._graph = graph
+        self._mesh = mesh
         emb = np.asarray(embeddings)
         self._n, self._dim = emb.shape
-        # row norms once (N floats); the table is normalized, cast and
-        # uploaded in row blocks, so the host never holds a second copy
+        # row norms once (N floats); the rank's rows are normalized, cast
+        # and uploaded in row blocks, so the host never holds a second copy
         norms = np.maximum(
             np.sqrt(np.einsum("ij,ij->i", emb, emb,
                               dtype=np.float32)), 1e-10
         ).astype(np.float32)[:, None]
-        self._n_padded = max(self._n, 1)
+        self._n_padded = -(-max(self._n, world) // world) * world
+        self._rps = self._n_padded // world
+        self._base = rank * self._rps
         tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-        self._table = torch.zeros((self._n_padded, self._dim), dtype=tdtype,
+        self._table = torch.zeros((self._rps, self._dim), dtype=tdtype,
                                   device=dev)
-        for lo in range(0, self._n, _ROW_BLOCK):
-            block = (emb[lo:lo + _ROW_BLOCK].astype(np.float32)
-                     / norms[lo:lo + _ROW_BLOCK])
-            self._table[lo:lo + block.shape[0]] = torch.from_numpy(
+        hi = min(self._base + self._rps, self._n)
+        for lo in range(self._base, hi, _ROW_BLOCK):
+            top = min(lo + _ROW_BLOCK, hi)
+            block = emb[lo:top].astype(np.float32) / norms[lo:top]
+            self._table[lo - self._base:top - self._base] = torch.from_numpy(
                 block).to(dev).to(tdtype)
 
     def query_batch(self, vectors: np.ndarray,
                     top_k: int = 10) -> List[List[Dict]]:
-        """Global top-k for a (Q, dim) block in one product on the card."""
+        """Global top-k for a (Q, dim) block: the product on the rank's
+        rows, and under a group the merge of every rank's candidates."""
         if top_k <= 0:
             raise ValueError(f"top_k must be positive, got {top_k}")
         vectors = np.asarray(vectors, dtype=np.float32)
@@ -315,8 +323,19 @@ class ShardedDeviceIndex:
             self._table.device).to(self._table.dtype)
         sims = _similarities(q, self._table)
         # mask padded rows (zero vectors would outrank negative cosines)
-        sims[:, self._n:] = -torch.inf
-        sims, idx = torch.topk(sims, k, dim=1)
+        sims[:, max(self._n - self._base, 0):] = -torch.inf
+        # a rank may hold fewer than k rows; the P·k_local candidates still
+        # cover the global top-k (k ≤ n ≤ P·rps)
+        sims, idx = torch.topk(sims, min(k, self._rps), dim=1)
+        if self._mesh is not None:
+            nq = q.shape[0]
+            idx = idx + self._base
+            s_all = self._mesh.all_gather(sims).reshape(-1, nq, sims.shape[1])
+            i_all = self._mesh.all_gather(idx).reshape(-1, nq, idx.shape[1])
+            s_all = s_all.permute(1, 0, 2).reshape(nq, -1)
+            i_all = i_all.permute(1, 0, 2).reshape(nq, -1)
+            sims, pick = torch.topk(s_all, k, dim=1)
+            idx = torch.gather(i_all, 1, pick)
         sims, idx = sims.cpu().numpy(), idx.cpu().numpy()
         return [self._results(idx[i], sims[i]) for i in range(len(qn))]
 
@@ -338,8 +357,14 @@ class ShardedDeviceIndex:
         return results[:top_k]
 
     def _row(self, idx: int) -> np.ndarray:
-        """One table row, fetched from the card as float32."""
-        return self._table[int(idx)].float().cpu().numpy()
+        """One table row as float32, fetched from the card of the rank that
+        holds it (a broadcast under a group)."""
+        owner, local = divmod(int(idx), self._rps)
+        if self._mesh is None:
+            return self._table[local].float().cpu().numpy()
+        row = (self._table[local].float() if owner == self._mesh.rank else
+               torch.empty((self._dim,), device=self._table.device))
+        return self._mesh.broadcast_(row, owner).cpu().numpy()
 
     def _results(self, indices, sims) -> List[Dict]:
         ids = self._graph.entity_ids

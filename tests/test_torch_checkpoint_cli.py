@@ -266,8 +266,7 @@ def test_cli_info_similar_merge_like_jax(edge_file, tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["plan", "-i", "x"], "queue A item 7"),
     (["scaling", "--smoke"], "queue A item 8"),
-    (["embed", "-i", "EDGES", "-o", "y.npz", "--sharded", "-a", "deepwalk"],
-     "queue A item 8"),
+    (["scaling"], "queue A item 8"),
 ])
 def test_cli_not_ported_commands_say_so(edge_file, argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -215,8 +215,10 @@ def test_error_strings_match(graphs, kwargs):
 
 def test_disk_graph_not_ported(tmp_path):
     """embed() takes a streamed build (through the sharded loop, held
-    against the JAX package in tests/test_torch_sharded.py); the walk
-    siblings do not yet, and say so; anything else is refused."""
+    against the JAX package in tests/test_torch_sharded.py), and so do the
+    walk siblings (queue A item 7, ported: the walk CSR read off the
+    memmaps, so the result is bitwise the in-RAM graph's); anything else
+    is refused."""
     from cleora_tpu_torch.algorithms import embed_deepwalk
     from cleora_tpu_torch.graph.stream import build_graph_streaming
 
@@ -228,8 +230,15 @@ def test_disk_graph_not_ported(tmp_path):
     np.testing.assert_array_equal(
         ctt.embed(dg, feature_dim=8, num_iterations=3, device="cpu"),
         ctt.embed(sm, feature_dim=8, num_iterations=3, device="cpu"))
-    with pytest.raises(NotImplementedError, match="DiskGraph.*queue A item 7"):
-        embed_deepwalk(dg, 4, backend="device", device="cpu")
+    from cleora_tpu_torch.algorithms import _walk_csr
+
+    for a, b in zip(_walk_csr(dg, with_vals=True),
+                    _walk_csr(sm, with_vals=True)):
+        np.testing.assert_array_equal(a, b)
+    kw = dict(feature_dim=4, num_walks=2, walk_length=6, backend="device",
+              cooccurrence="device", device="cpu")
+    np.testing.assert_array_equal(embed_deepwalk(dg, **kw),
+                                  embed_deepwalk(sm, **kw))
     with pytest.raises(TypeError, match="SparseMatrix or a DiskGraph"):
         ctt.embed(object(), device="cpu")
 

@@ -25,7 +25,8 @@ version's, the row sum in another order than the plain version's atomics:
 about 7e-6 relative on a row of 5,000 edges); K15 bitwise (the same Philox
 words, comparisons and true divisions); the GCN SpMM's backward (K1 over
 Âᵀ) rtol=1e-5, atol=1e-6, as K1; K16 bitwise (a copy); K1 with a
-separate residual operand as K1.
+separate residual operand as K1; K17 and K18 bitwise (K8's and K12's
+arithmetic on each rank's rows; one nonzero term per summed lane).
 """
 
 import numpy as np
@@ -71,11 +72,14 @@ from cleora_tpu_torch.ops.label_prop import (
 from cleora_tpu_torch.ops.halo import halo_pack, halo_pack_plain
 from cleora_tpu_torch.ops.pq import pq_adc_plain
 from cleora_tpu_torch.ops.walk import (
+    ShardedWalkTables,
     WalkTables,
     WalkTables2,
     walk2_tries,
     walk_p_q_plain,
+    walk_p_q_sharded,
     walk_uniform_plain,
+    walk_uniform_sharded,
 )
 from cleora_tpu_torch.ops.spmm import (
     CsrMatrix,
@@ -244,16 +248,20 @@ def test_k7_matches_plain(cuda_device, shape, mode, scaled):
         atol=1e-6)
 
 
-def walk_tables(n, seed, device):
-    """A walk CSR with dead ends (every 9th node has degree 0) and one hub
-    of degree 3000."""
+def walk_csr(n, seed):
+    """A walk CSR (indptr, cols, deg) with dead ends (every 9th node has
+    degree 0) and one hub of degree 3000."""
     rng = np.random.default_rng(seed)
     deg = rng.poisson(5, size=n)
     deg[::9] = 0
     deg[1] = 3000
     indptr = np.concatenate([[0], np.cumsum(deg)[:-1]])
     cols = rng.integers(0, n, size=int(deg.sum()))
-    return WalkTables(indptr, cols, deg, n, device)
+    return indptr, cols, deg
+
+
+def walk_tables(n, seed, device):
+    return WalkTables(*walk_csr(n, seed), n, device)
 
 
 def sample_walks(device, n=2000, batch=1500, length=12, seed=3):
@@ -355,8 +363,14 @@ def test_k11_matches_plain(cuda_device, passes):
 
 
 def weighted_walk_tables(n, seed, device, hub_degree=3000):
-    """A weighted walk CSR with (row, col)-sorted rows, one hub (node 1), a
-    row whose weights are all 0 (node 2) and an isolated node (n - 1)."""
+    arrays = weighted_walk_csr(n, seed, hub_degree)
+    return WalkTables2(*arrays[:3], n, *arrays[3:], device)
+
+
+def weighted_walk_csr(n, seed, hub_degree=3000):
+    """A weighted walk CSR (indptr, cols, deg, vals, wmax, wsum) with
+    (row, col)-sorted rows, one hub (node 1), a row whose weights are all 0
+    (node 2) and an isolated node (n - 1)."""
     rng = np.random.default_rng(seed)
     m = 3 * n
     src = np.concatenate([rng.integers(0, n - 1, m), np.ones(hub_degree,
@@ -375,8 +389,7 @@ def weighted_walk_tables(n, seed, device, hub_degree=3000):
     np.maximum.at(wmax, rows, vals)
     wsum = np.zeros(n, np.float64)
     np.add.at(wsum, rows, vals.astype(np.float64))
-    return WalkTables2(indptr, cols, deg, n, vals, wmax,
-                       wsum.astype(np.float32), device)
+    return indptr, cols, deg, vals, wmax, wsum.astype(np.float32)
 
 
 @cuda
@@ -801,4 +814,88 @@ def test_k16_wrapper_rejects_bad_operands():
         kernels.halo_pack(x.double(), idx)
     with pytest.raises(ValueError, match="int32"):
         kernels.halo_pack(x, idx.long())
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+@cuda
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("seed,base", [(0, 0), (2**40 + 3, 2**33 + 5)])
+def test_k17_matches_k8_and_plain(cuda_device, world, seed, base):
+    """The owner-routed first-order hop over ``world`` rank slices, their
+    shares summed in this process: bitwise K8's walks and the plain
+    version's on the CPU."""
+    n, length = 3000, 20
+    arrays = walk_csr(n, 1)
+    t = WalkTables(*arrays, n, cuda_device)
+    starts = torch.randint(0, n + 1, (4099,), dtype=torch.int32)
+    slices = [ShardedWalkTables(*arrays, n, r, world, cuda_device)
+              for r in range(world)]
+    before = kernels.LAUNCHES["walk_owned"]
+    got = walk_uniform_sharded(slices, starts.to(cuda_device), length, seed,
+                               base)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk_owned"] == before + world * (length - 1)
+    assert torch.equal(got, kernels.walk_uniform(
+        t.indptr, t.cols, t.deg, starts.to(cuda_device), length, seed, base,
+        n))
+    cpu = [ShardedWalkTables(*arrays, n, r, world, "cpu")
+           for r in range(world)]
+    assert torch.equal(got.cpu(), walk_uniform_sharded(cpu, starts, length,
+                                                       seed, base))
+
+
+@cuda
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25), (1.0, 100.0)])
+def test_k18_matches_k12_and_plain(cuda_device, world, p, q):
+    """The owner-routed p/q walk (K18's five stages) over ``world`` rank
+    slices, their shares summed in this process: bitwise K12's walks and
+    the plain stages' on the CPU."""
+    n = 4000
+    arrays = weighted_walk_csr(n, 2)
+    t = WalkTables2(*arrays[:3], n, *arrays[3:], cuda_device)
+    starts = torch.randint(0, n + 1, (1500,), dtype=torch.int32)
+    starts[0] = 1  # the hub
+    args = (10, float(np.float32(1.0 / p)), float(np.float32(1.0 / q)),
+            walk2_tries(q), 2**40 + 7, 3)
+    slices = [ShardedWalkTables(*arrays[:3], n, r, world, cuda_device,
+                                *arrays[3:]) for r in range(world)]
+    before = kernels.LAUNCHES["walk2_owned"]
+    got = walk_p_q_sharded(slices, starts.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk2_owned"] > before
+    assert torch.equal(got, kernels.walk_p_q(
+        t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
+        starts.to(cuda_device), *args, n))
+    cpu = [ShardedWalkTables(*arrays[:3], n, r, world, "cpu", *arrays[3:])
+           for r in range(world)]
+    assert torch.equal(got.cpu(), walk_p_q_sharded(cpu, starts, *args))
+
+
+def test_k17_and_k18_wrappers_reject_bad_operands():
+    n = 50
+    arrays = weighted_walk_csr(n, 3, hub_degree=10)
+    t = ShardedWalkTables(*arrays[:3], n, 0, 2, "cpu", *arrays[3:])
+    cur = torch.zeros(7, dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.walk_owned(t.indptr, t.cols, t.deg, cur, 0, 0, 0, n, 0, True,
+                           torch.empty_like(cur))
+    with pytest.raises(ValueError, match="int32"):
+        kernels.walk_owned(t.indptr, t.cols, t.deg, cur.long(), 0, 0, 0, n,
+                           0, True, torch.empty_like(cur))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.walk2_stats(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
+                            cur, cur, n, 0, 1.0,
+                            torch.empty((4, 7), dtype=torch.int32))
+    with pytest.raises(ValueError, match="4 x 7"):
+        kernels.walk2_stats(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
+                            cur, cur, n, 0, 1.0,
+                            torch.empty((3, 7), dtype=torch.int32))
+    with pytest.raises(ValueError, match="int64"):
+        kernels.walk2_decide(torch.zeros((4, 7), dtype=torch.int32),
+                             torch.zeros(2, dtype=torch.int32),
+                             torch.zeros((2, 2), dtype=torch.int32),
+                             torch.zeros(2, dtype=torch.int32), cur, 0, 0, 4,
+                             0, 0, n, 1.0, torch.empty_like(cur))
     assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)

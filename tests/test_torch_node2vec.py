@@ -312,10 +312,24 @@ def test_wrappers_run_plain_versions_on_cpu_and_launch_nothing(graphs):
     dict(cooccurrence="device", factorization="sharded"),
 ])
 def test_multi_gpu_arguments_raise_not_implemented(graphs, kw):
+    """The multi-GPU arguments of the p/q walk (queue A item 8, ported):
+    ``n_devices=2`` without a process group names torchrun, a ``mesh=``
+    that is no ``ShardGroup`` is refused, and the sharded tables (K18's
+    stages) and the sharded factorization run on one shard, bitwise the
+    one-card result."""
     _, g = graphs
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        talg.embed_node2vec(g, feature_dim=8, backend="device", device="cpu",
-                            num_walks=1, walk_length=5, p=0.5, q=2.0, **kw)
+    base = dict(feature_dim=8, backend="device", device="cpu", num_walks=1,
+                walk_length=5, p=0.5, q=2.0)
+    error = {"mesh": (TypeError, "ShardGroup"),
+             "n_devices": (ValueError, "torchrun --nproc-per-node 2")}.get(
+                 next(iter(kw)))
+    if error is not None:
+        with pytest.raises(error[0], match=error[1]):
+            talg.embed_node2vec(g, **base, **kw)
+        return
+    want = talg.embed_node2vec(g, **base, cooccurrence=kw.get(
+        "cooccurrence", "host"))
+    assert np.array_equal(talg.embed_node2vec(g, **base, **kw), want)
 
 
 # ---------------------------------------------------------------- lifecycle
@@ -426,5 +440,6 @@ def test_fit_check_accepts_and_refuses_at_the_jax_limits(monkeypatch):
             jalg._walk_table_mode("auto", None, n, nnz, second,
                                   limit=1 << 20)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        talg._walk_table_mode("sharded", n, nnz, CPU, second_order=True)
+    # the sharded tables (queue A item 8) are taken as asked for
+    assert talg._walk_table_mode("sharded", n, nnz, CPU,
+                                 second_order=True) == "sharded"

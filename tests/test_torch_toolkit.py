@@ -136,8 +136,14 @@ def test_search_errors_are_the_jax_ones(setup):
         with pytest.raises(ValueError) as got:
             call(ours)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    # mesh= (queue A item 8, ported) takes a parallel.ShardGroup; one
+    # shard of this process holds the whole table
+    with pytest.raises(TypeError, match="ShardGroup"):
         tsearch.ShardedDeviceIndex(g, emb, mesh=object(), device="cpu")
+    from cleora_tpu_torch.parallel import make_mesh
+
+    one = tsearch.ShardedDeviceIndex(g, emb, mesh=make_mesh(device="cpu"))
+    _same_results(one.query("33", top_k=5), ours.query("33", top_k=5))
 
 
 def test_device_search_without_a_card_raises(setup):

@@ -412,16 +412,30 @@ def test_validation_errors_are_the_jax_ones(graphs, kw):
     dict(cooccurrence="device", factorization="sharded"),
 ])
 def test_multi_gpu_arguments_raise_not_implemented(graphs, kw):
+    """The multi-GPU arguments (queue A item 8, ported): ``n_devices=2``
+    without a process group names torchrun, a ``mesh=`` that is no
+    ``ShardGroup`` is refused, and the sharded tables and the sharded
+    factorization run on one shard, bitwise the one-card result (the
+    multi-rank runs: tests/test_torch_walks_sharded.py)."""
     _, g = graphs
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        talg.embed_deepwalk(g, feature_dim=8, backend="device", device="cpu",
-                            num_walks=1, walk_length=5, **kw)
+    base = dict(feature_dim=8, backend="device", device="cpu", num_walks=1,
+                walk_length=5)
+    error = {"mesh": (TypeError, "ShardGroup"),
+             "n_devices": (ValueError, "torchrun --nproc-per-node 2")}.get(
+                 next(iter(kw)))
+    if error is not None:
+        with pytest.raises(error[0], match=error[1]):
+            talg.embed_deepwalk(g, **base, **kw)
+        return
+    want = talg.embed_deepwalk(g, **base, cooccurrence=kw.get(
+        "cooccurrence", "host"))
+    assert np.array_equal(talg.embed_deepwalk(g, **base, **kw), want)
 
 
 def test_biased_node2vec_gives_unit_rows_and_sharded_tables_name_item_8(graphs):
     """A biased Node2Vec on one device runs (kernel K12) and returns finite
-    unit rows; ``walk_tables="sharded"`` raises with the multi-GPU item's
-    name (queue A item 8)."""
+    unit rows; ``walk_tables="sharded"`` (queue A item 8) walks the same
+    walks on one shard through K18's stages and gives the same rows."""
     _, g = graphs
     kw = dict(feature_dim=8, p=0.5, num_walks=2, walk_length=10,
               backend="device", device="cpu")
@@ -429,8 +443,8 @@ def test_biased_node2vec_gives_unit_rows_and_sharded_tables_name_item_8(graphs):
     assert e.shape == (g.num_entities, 8) and np.isfinite(e).all()
     norms = np.linalg.norm(e, axis=1)
     assert np.all((np.abs(norms - 1) < 1e-5) | (norms < 1e-6))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        talg.embed_node2vec(g, walk_tables="sharded", **kw)
+    assert np.array_equal(talg.embed_node2vec(g, walk_tables="sharded", **kw),
+                          e)
 
 
 def test_device_backend_without_a_card_raises(graphs):
