@@ -13,9 +13,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/pair_enum.cu), K10 (kernels/run_length.cu), K11
    (kernels/ppmi.cu), K12 (kernels/walk_p_q.cu), K13 (kernels/pq_adc.cu),
    K14 (kernels/label_prop.cu), K15 (kernels/relu_dropout.cu), K16
-   (kernels/halo_pack.cu), K17 (kernels/walk_owned.cu) and K18
-   (kernels/walk2_owned.cu) are compiled from the checkout's sources, one
-   nvcc each, in parallel;
+   (kernels/halo_pack.cu), K17 (kernels/walk_owned.cu), K18
+   (kernels/walk2_owned.cu) and K19 (kernels/spmm_acc.cu) are compiled
+   from the checkout's sources, one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
    Markov CSR with zero-degree rows and one row of degree 50,000, D in
    {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
@@ -203,14 +203,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the plain versions of K17 and K18 run on the card, (p, q) in {(0.5,
    2), (2, 0.5)}; (b) embed_deepwalk on phase 7's corpus in phase 7's
    configuration with n_devices=1, walk_tables="sharded",
-   factorization="sharded" as a main path (K17 79 times a batch) and once
-   under the stage stopwatch: its first walk batch bitwise equal to phase
-   7's (K17 against K8), every count range equal to phase 7's (entries,
-   pair sum and a weighted key sum), the embedding by the Gram matrix of
-   4,096 sampled rows against phase 7's (atol=1e-4, as the port's CPU
-   tests hold the rsvd; the same products in the same order make it
-   bitwise in practice), one apply of the sharded rsvd (K1 and K5 over
-   the rank's ranges, then the all-reduce) timed; (c) embed_node2vec in
+   factorization="sharded" as a main path (K17 79 times a batch): its
+   first walk batch bitwise equal to phase 7's (K17 against K8), every
+   count range equal to phase 7's (entries, pair sum and a weighted key
+   sum), the embedding by the Gram matrix of 4,096 sampled rows against
+   phase 7's (atol=1e-4, as the port's CPU tests hold the rsvd; the same
+   products in the same order make it bitwise in practice), the rsvd's
+   all-reduce timed (its second run, under the stage stopwatch, was cut
+   to make room for phase 14); (c) embed_node2vec in
    phase 8's configuration
    with walk_tables="sharded" (K18's stages) under the stage stopwatch:
    its first batch bitwise equal to phase 8's K12 walks, exactly phase
@@ -219,8 +219,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
    plain versions on the card and K8's and K12's time on the same walks,
    with their bounds in 32-byte sectors; (e) ShardedDeviceIndex(mesh=)
    over phase 5's output, 1,024 queries at top_k=10, equal to the
-   unsharded index's scores and, but for exact ties, indices.  Phases 8
-   to 13 print their seconds.
+   unsharded index's scores and, but for exact ties, indices;
+14. the overlapped and hierarchical halo exchanges on phase 5's graph and
+   output: (a) shard 0 of plan_overlap(shard_graph(graph, 4)) (phase
+   11's ShardedCoo and plan_halo): each round's slab packed by K16 from
+   its owner's rows in this process and accumulated by K19, each round
+   against spmm_acc_plain in float32 and bfloat16 (rtol=1e-5, atol=1e-6:
+   the row sum in another order than the plain version's atomics), the
+   four rounds' sum against K1 over shard 0's halo-remapped CSR on the
+   same slabs (atol=1e-5), each round timed beside torch.sparse.mm +
+   add_, and the step (3 packs, 4 rounds) timed; (b) in a one-rank NCCL
+   group, as main paths, embed_sharded(halo="overlap") (K19 40 times, K1
+   never; bitwise phase 11 (b)'s output, else by the Gram of 4,096 rows
+   within 2e-5, the log says which) and embed_sharded(halo="hier",
+   mesh=make_hier_mesh(1, 1)) (K16 80 times, bitwise phase 11 (b)); K19
+   at that main path's shape (round 0 over every edge) against plain and
+   timed; (c) K16 over shard 0's send_intra and send_cross of
+   plan_halo_hier(shard_graph(graph, 4), 2, 2), bitwise against plain
+   and timed; (d) tracing.trace() around one embed() iteration on phase
+   4's graph, in this process (logged) and in a fresh one, whose Chrome
+   trace must name the annotate() span and K1's kernel;
+   device_memory_stats()'s bytes_limit equal to mem_get_info()'s total;
+   (e) plan_report on phase 5's graph ("fits" at P=1) and on phase 7's
+   corpus with walks=True (the walk-table mode phase 7 chose), printed;
+   (f) `python -m cleora_tpu_torch scaling --json PATH` as a subprocess,
+   its ranks on the card, edges/s printed with the card.  Phases 8 to 14
+   print their seconds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -1326,6 +1350,24 @@ def stopwatch(*targets):
     finally:
         for owner, name, real in saved:
             setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def recorded(owner, name: str):
+    """Collect what ``owner.name`` returns while the block runs (it still
+    runs as it is); yields the list."""
+    real, seen = getattr(owner, name), []
+
+    def call(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    setattr(owner, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, real)
 
 
 def run_spectral(name: str, call, expected=None, keep=None) -> dict:
@@ -2954,7 +2996,9 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
                      arxiv) -> list:
     """Phase 11: the streamed build, embed(DiskGraph) through the sharded
     loop without a group and in a one-rank NCCL group, its halo path,
-    checkpoint/resume and .npy output, K16 at full width, and the CLI."""
+    checkpoint/resume and .npy output, K16 at full width, and the CLI.
+    Returns the kernels' rows and what phase 14 takes over: (b)'s output,
+    the 4-way ShardedCoo and its halo plan."""
     import io
     import tempfile
 
@@ -3059,7 +3103,7 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
             "equal to the uninterrupted run"
             + (", which equals (b)" if whole.tobytes() == out_b.tobytes()
                else "") + "; out='.npy' equal to (b)")
-        del whole, resumed, npy, out_b
+        del whole, resumed, npy
 
         # ---- (e) K16 on shard 0's send slabs of a 4-way halo plan
         t0 = time.perf_counter()
@@ -3090,7 +3134,7 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
             f"{k16_plain_ms:.3f}, index_select {k16_lib_ms:.3f}); bound "
             f"{k16_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bitwise equal to "
             f"plain in float32 and bfloat16; [{card}]")
-        del block, send, sharded, plan
+        del block, send
 
         # ---- (f) the CLI, in-process
         edges, columns, emb = arxiv
@@ -3122,7 +3166,8 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
     return [kernel_row("halo_pack", "cleora_tpu_torch/kernels/halo_pack.cu",
                        "cleora_tpu/parallel/embed.py:138", k16_ms,
                        k16_plain_ms, k16_lib_ms, 0.0, k16_bytes, 0,
-                       halo_launches["halo_pack"])]
+                       halo_launches["halo_pack"])], {
+        "out_b": out_b, "sharded": sharded, "plan": plan}
 
 
 # --------------------------------------- phase 12: the sharded siblings
@@ -3532,9 +3577,24 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                     "run_length": batches + (batches - 1) * passes,
                     "ppmi": passes, "spmm_csr": applies,
                     "spmm_axpy": applies * (passes - 1)}
+        counted = {}
+        real_counts = alg.device_pair_counts
+
+        def counts(*args, **kwargs):
+            # records what the run counted; adds no synchronisation
+            ranges, m_total = real_counts(*args, **kwargs)
+            counted["m_total"] = m_total
+            counted["pairs"] = cooccur.pair_total(ranges, n)
+            counted["ranges"] = [range_fingerprint(r, n) for r in ranges]
+            return ranges, m_total
+
         kept = {}
-        launches = run_spectral("embed_deepwalk(sharded, n_devices=1)",
-                                deepwalk, expected, kept)
+        alg.device_pair_counts = counts
+        try:
+            launches = run_spectral("embed_deepwalk(sharded, n_devices=1)",
+                                    deepwalk, expected, kept)
+        finally:
+            alg.device_pair_counts = real_counts
         got = kept.pop("embed_deepwalk(sharded, n_devices=1)")
         err, top = gram_err(got, p7["emb"], rows)
         raw = float(np.abs(got - p7["emb"]).max())
@@ -3544,40 +3604,12 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
             + (" (bitwise equal)" if raw == 0.0 else ""))
         assert err <= 1e-4, err
         del got
-        counted = {}
-        real_counts = alg.device_pair_counts
-
-        def counts(*args, **kwargs):
-            ranges, m_total = real_counts(*args, **kwargs)
-            counted["m_total"] = m_total
-            counted["pairs"] = cooccur.pair_total(ranges, n)
-            counted["ranges"] = [range_fingerprint(r, n) for r in ranges]
-            return ranges, m_total
-
-        alg.device_pair_counts = counts
-        try:
-            staged_spectral(
-                "embed_deepwalk(sharded, n_devices=1) stopwatch run",
-                deepwalk, expected, (walk, "walk_uniform_sharded"),
-                (cooccur, "pair_keys"), (torch, "sort"),
-                (cooccur, "run_length"), (cooccur, "ppmi_colsum_"),
-                (cooccur, "ppmi_values"), (dense, "spmm"),
-                (dense, "spmm_axpy"), (torch.linalg, "qr"),
-                (torch.linalg, "svd"), (alg, "_finalize_factor"), keep=kept)
-        finally:
-            alg.device_pair_counts = real_counts
-        kept.pop("embed_deepwalk(sharded, n_devices=1) stopwatch run")
-        # one apply of the sharded rsvd: this rank's K1 and K5 over its
-        # ranges (the stopwatch's seconds over the applies), then the
-        # all-reduce of the (n, r) partial, timed alone
-        stages = kept.pop("stages")
+        # the all-reduce of the sharded rsvd's (n, r) partial, timed alone
+        # (its stopwatch run, which timed the applies, was cut: PERF.md)
         y = torch.randn((n, DIM + 16), device=dev)
         reduce_ms = time_ms(lambda: mesh.all_reduce_(y))
         del y
-        apply_ms = (stages["spmm"] + stages["spmm_axpy"]) / applies * 1e3
-        log(f"  one apply of the sharded rsvd: K1 + K5 over the rank's "
-            f"{passes} ranges {apply_ms:.3f} ms (the stopwatch's, over "
-            f"{applies} applies), the all-reduce of the ({n}, {DIM + 16}) "
+        log(f"  the all-reduce of the sharded rsvd's ({n}, {DIM + 16}) "
             f"partial {reduce_ms:.3f} ms; [{card}]")
         assert counted["m_total"] == p7["m_total"], counted["m_total"]
         assert counted["ranges"] == p7["ranges"]
@@ -3705,11 +3737,382 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
     ]
 
 
+# ------------------------------- phase 14: the overlapped and hier exchanges
+def round_tensors(rc, dev: torch.device) -> tuple:
+    """A RoundCsr's arrays on the card: (row_ids, indptr, cols, vals)."""
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (rc.row_ids, rc.indptr, rc.cols, rc.vals))
+
+
+def round_bytes(rc, itemsize: int, width: int) -> int:
+    """K19's bound: the compact CSR, each distinct table row it names and
+    each accumulator row it updates read once, those rows written once."""
+    distinct = int(np.unique(rc.cols).shape[0])
+    r = int(rc.row_ids.shape[0])
+    return (4 * r + 8 * (r + 1) + 8 * int(rc.cols.shape[0])
+            + distinct * width * itemsize + 2 * r * width * 4)
+
+
+def round_library(rc, n_rows: int, n_table: int, dev: torch.device):
+    """The round as a (n_rows, n_table) torch sparse CSR for the library
+    yardstick: torch.sparse.mm of it, then add_ into the accumulator."""
+    counts = np.zeros(n_rows, dtype=np.int64)
+    counts[rc.row_ids] = np.diff(rc.indptr)
+    crow = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=crow[1:])
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(crow).to(dev),
+        torch.from_numpy(rc.cols.astype(np.int64)).to(dev),
+        torch.from_numpy(rc.vals).to(dev), size=(n_rows, n_table))
+
+
+def trace_kernels(events: list) -> list:
+    """The names of the device kernels in a Chrome trace's events."""
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+TRACE_SPAN = "phase14_embed_iteration"
+
+
+def traced_embed_iteration(fresh_process: bool = False) -> tuple:
+    """tracing.trace() around one embed() iteration on phase 4's graph,
+    with an annotate() span: (span found, kernel names, event count).
+    ``fresh_process`` runs it in a new interpreter over this checkout: in
+    this long process a session once recorded the library's kernels but
+    none of the port's (PERF.md §7)."""
+    if fresh_process:
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke as cs; "
+             "print(json.dumps(cs.traced_embed_iteration()))"],
+            capture_output=True, text=True, timeout=600, cwd=here)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
+    import tempfile
+
+    import cleora_tpu_torch as ctt
+    from cleora_tpu_torch.tracing import annotate, trace
+
+    g = random_graph(PARITY_NODES, PARITY_EDGES, seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            with annotate(TRACE_SPAN):
+                ctt.embed(g, feature_dim=DIM, num_iterations=1)
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    return (any(e.get("name") == TRACE_SPAN for e in events),
+            trace_kernels(events), len(events))
+
+
+def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
+                   p11: dict, walk_graph, walk_modes: list) -> list:
+    """Phase 14: the overlapped and hierarchical halo exchanges (K16, K19,
+    P2P rounds, the two-level collectives) at full width on phase 5's
+    graph and output, as main paths in a one-rank NCCL group; tracing,
+    the capacity plan and the scaling report on the card."""
+    import cleora_tpu_torch as ctt
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.halo import halo_pack, halo_pack_plain
+    from cleora_tpu_torch.ops.spmm import (
+        CsrMatrix,
+        spmm,
+        spmm_acc,
+        spmm_acc_plain,
+    )
+    from cleora_tpu_torch.parallel import embed_sharded, make_hier_mesh
+    from cleora_tpu_torch.parallel.shard import (
+        RoundCsr,
+        plan_halo_hier,
+        plan_overlap,
+    )
+    from cleora_tpu_torch.plan import format_plan, plan_report
+    from cleora_tpu_torch.tracing import device_memory_stats
+
+    sharded, plan, out_b = p11["sharded"], p11["plan"], p11["out_b"]
+    n = big.num_entities
+    rps, P = sharded.rows_per_shard, sharded.n_shards
+    padded = np.zeros((sharded.n_rows_padded, DIM), dtype=np.float32)
+    padded[:n] = table
+    blocks = [torch.from_numpy(padded[k * rps:(k + 1) * rps]).to(dev)
+              for k in range(P)]
+    del padded
+
+    # ---- (a) shard 0 of the 4-way overlap plan: each round's slab packed
+    # by K16 from its owner's rows here, accumulated by K19
+    t0 = time.perf_counter()
+    oplan = plan_overlap(sharded, halo=plan)
+    plan_s = time.perf_counter() - t0
+    M = oplan.M
+    rounds = oplan.rounds[0]
+    slab_of = {r: (-r) % P for r in range(P)}  # round r: shard (0 - r) mod P
+    sends = {r: torch.from_numpy(np.ascontiguousarray(
+        oplan.send_idx[slab_of[r], 0][None])).to(dev) for r in range(1, P)}
+
+    def tables(dtype):
+        out = {0: blocks[0].to(dtype)}
+        for r in range(1, P):
+            out[r] = halo_pack(blocks[slab_of[r]].to(dtype),
+                               sends[r]).view(M, DIM)
+        return out
+
+    log(f"phase 14 (a), shard 0 of plan_overlap(shard_graph(graph, {P})) "
+        f"({rps} rows a shard, M={M}, planned in {plan_s:.3f} s on the host "
+        "from phase 11's plan_halo): rounds of "
+        + ", ".join(f"{rc.row_ids.shape[0]} rows / {rc.cols.shape[0]} edges"
+                    for rc in rounds))
+    acc_total = torch.zeros((rps, DIM), device=dev)
+    k19_round_ms = []
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
+                       (torch.bfloat16, dict(rtol=1e-5, atol=1e-6))):
+        tabs = tables(dtype)
+        for r, rc in enumerate(rounds):
+            args = round_tensors(rc, dev)
+            acc0 = torch.randn((rps, DIM), device=dev)
+            got = spmm_acc(acc0.clone(), *args, tabs[r])
+            want = spmm_acc_plain(acc0.clone(), *args, tabs[r])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            if dtype == torch.float32:
+                spmm_acc(acc_total, *args, tabs[r])
+        del tabs, got, want, acc0
+    # the four rounds' sum against K1 over shard 0's halo-remapped CSR
+    lr = sharded.local_rows[0]
+    indptr = np.zeros(rps + 1, dtype=np.int64)
+    np.cumsum(np.bincount(lr, minlength=rps), out=indptr[1:])
+    halo_csr = CsrMatrix(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in (indptr, plan.remapped_cols[0],
+                                     sharded.vals[0])))
+    recv = torch.cat([halo_pack(blocks[k], torch.from_numpy(
+        np.ascontiguousarray(plan.send_idx[k, 0][None])).to(dev)).view(M, DIM)
+        for k in range(P)])
+    k1 = spmm(halo_csr, recv)
+    sum_err = max_err(acc_total, k1)
+    log(f"  K19 against spmm_acc_plain in float32 and bfloat16 on every "
+        f"round (rtol=1e-5, atol=1e-6); the four rounds' sum against K1 "
+        f"over shard 0's halo-remapped CSR on the same slabs: max |diff| "
+        f"{sum_err:.3e}")
+    assert sum_err <= 1e-5, sum_err
+    del recv, k1, halo_csr
+    tabs = tables(torch.float32)
+    scratch = torch.zeros((rps, DIM), device=dev)
+    step_plain_ms = step_lib_ms = step_bytes = 0.0
+    for r, rc in enumerate(rounds):
+        args = round_tensors(rc, dev)
+        ms = time_ms(lambda: spmm_acc(scratch, *args, tabs[r]))
+        plain = time_ms(lambda: spmm_acc_plain(scratch, *args, tabs[r]),
+                        reps=3, warmup=1)
+        S = round_library(rc, rps, tabs[r].shape[0], dev)
+        lib = time_ms(lambda: scratch.add_(torch.sparse.mm(S, tabs[r])))
+        nbytes = round_bytes(rc, 4, DIM)
+        k19_round_ms.append(ms)
+        step_plain_ms += plain
+        step_lib_ms += lib
+        step_bytes += nbytes
+        log(f"  K19 round {r} ({rc.row_ids.shape[0]} rows, "
+            f"{rc.cols.shape[0]} edges, table {tabs[r].shape[0]} rows): "
+            f"{ms:.3f} ms (plain {plain:.3f}, torch.sparse.mm + add_ "
+            f"{lib:.3f}); bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+            f"(bytes); [{card}]")
+        del S
+    pack_ms = sum(time_ms(lambda r=r: halo_pack(blocks[slab_of[r]],
+                                                sends[r]))
+                  for r in range(1, P))
+    pack_plain = sum(time_ms(lambda r=r: halo_pack_plain(blocks[slab_of[r]],
+                                                         sends[r]))
+                     for r in range(1, P))
+    pack_lib = sum(time_ms(lambda r=r: blocks[slab_of[r]].index_select(
+        0, sends[r].flatten())) for r in range(1, P))
+    pack_bytes = sum(4 * int(torch.unique(sends[r]).numel()) * DIM
+                     + 4 * M * DIM + 4 * M for r in range(1, P))
+
+    def overlap_step():
+        acc = torch.zeros((rps, DIM), device=dev)
+        for r, rc_args in enumerate(step_args):
+            tab = blocks[0] if r == 0 else halo_pack(
+                blocks[slab_of[r]], sends[r]).view(M, DIM)
+            spmm_acc(acc, *rc_args, tab)
+        return acc
+
+    step_args = [round_tensors(rc, dev) for rc in rounds]
+    step_ms = time_ms(overlap_step)
+    log(f"  shard 0's overlap step in one process ({P - 1} K16 packs + {P} "
+        f"K19 rounds, no transfers): {step_ms:.3f} ms; the packs alone "
+        f"{pack_ms:.3f} ms (plain {pack_plain:.3f}, index_select "
+        f"{pack_lib:.3f}); [{card}]")
+    del tabs, scratch, step_args, acc_total
+
+    # ---- (c) K16 over shard 0's slabs of the 2x2 hierarchical plan
+    t0 = time.perf_counter()
+    hplan = plan_halo_hier(sharded, 2, 2)
+    hplan_s = time.perf_counter() - t0
+    hier_sends = [torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+                  for a in (hplan.send_intra, hplan.send_cross)]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = blocks[0].to(dtype)
+        for s in hier_sends:
+            got = halo_pack(x, s)
+            torch.cuda.synchronize()
+            assert torch.equal(got, halo_pack_plain(x, s)), dtype
+    del x, got
+    hier_ms = sum(time_ms(lambda s=s: halo_pack(blocks[0], s))
+                  for s in hier_sends)
+    hier_plain = sum(time_ms(lambda s=s: halo_pack_plain(blocks[0], s))
+                     for s in hier_sends)
+    hier_lib = sum(time_ms(lambda s=s: blocks[0].index_select(
+        0, s.flatten())) for s in hier_sends)
+    hier_bytes = sum(4 * int(torch.unique(s).numel()) * DIM
+                     + 4 * s.numel() * DIM + 4 * s.numel()
+                     for s in hier_sends)
+    log(f"  (c) K16 over shard 0's send_intra {tuple(hier_sends[0].shape)} "
+        f"and send_cross {tuple(hier_sends[1].shape)} of plan_halo_hier(.., "
+        f"2, 2) (Mc={hplan.Mc}, Mh={hplan.Mh}, table {hplan.table_rows} "
+        f"rows; planned in {hplan_s:.3f} s): bitwise equal to plain in "
+        f"float32 and bfloat16; {hier_ms:.3f} ms for both (plain "
+        f"{hier_plain:.3f}, index_select {hier_lib:.3f}); bound "
+        f"{hier_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; [{card}]")
+    del blocks, hier_sends, hplan, oplan, sends
+
+    # ---- (b) both modes as main paths in a one-rank NCCL group
+    kw = dict(feature_dim=DIM, num_iterations=ITERATIONS, whiten=True)
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
+    rows = sample_rows(n)
+    with one_rank_nccl_group():
+        out_o, o_launches = run_main_path(
+            "  (b) embed_sharded(halo=\"overlap\"), one-rank NCCL group",
+            lambda: embed_sharded(big, halo="overlap", **kw))
+        assert o_launches == none | {"spmm_acc": ITERATIONS,
+                                     "row_normalize": ITERATIONS,
+                                     "hash_init": 1}, o_launches
+        if out_o.tobytes() == out_b.tobytes():
+            log("  overlap: bitwise equal to phase 11 (b)")
+        else:
+            err, top = gram_err(out_o, out_b, rows)
+            log(f"  overlap: Gram of {len(rows)} rows against phase 11 (b) "
+                f"max |diff| {err:.3e} (entries up to {top:.1f}); raw max "
+                f"|diff| {float(np.abs(out_o - out_b).max()):.3e}")
+            assert err <= 2e-5, err
+        check_covariance(out_o, dev)
+        del out_o
+        mesh = make_hier_mesh(1, 1)
+        out_h, h_launches = run_main_path(
+            "  (b) embed_sharded(halo=\"hier\", mesh=make_hier_mesh(1, 1)), "
+            "one-rank NCCL group",
+            lambda: embed_sharded(big, halo="hier", mesh=mesh, **kw))
+        assert h_launches == none | {"spmm_csr": ITERATIONS,
+                                     "row_normalize": ITERATIONS,
+                                     "hash_init": 1,
+                                     "halo_pack": 2 * ITERATIONS}, h_launches
+        assert out_h.tobytes() == out_b.tobytes()
+        log("  hier: bitwise equal to phase 11 (b)")
+        del out_h, mesh
+
+    # ---- K19 at the main path's shape: one shard, round 0 over every edge
+    ds = big.data
+    deg = np.diff(ds.indptr)
+    nz = np.nonzero(deg)[0]
+    rc0 = RoundCsr(nz.astype(np.int32), np.concatenate(
+        [[0], np.cumsum(deg[nz])]).astype(np.int64),
+        np.asarray(ds.indices, dtype=np.int32),
+        np.asarray(ds.left_vals, dtype=np.float32))
+    args = round_tensors(rc0, dev)
+    x = torch.from_numpy(table).to(dev)
+    acc = torch.zeros((n, DIM), device=dev)
+    got = spmm_acc(acc.clone(), *args, x)
+    want = spmm_acc_plain(acc.clone(), *args, x)
+    torch.cuda.synchronize()
+    k19_err = max_err(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    del got, want
+    k19_ms = time_ms(lambda: spmm_acc(acc, *args, x))
+    k19_plain_ms = time_ms(lambda: spmm_acc_plain(acc, *args, x), reps=3,
+                           warmup=1)
+    S = round_library(rc0, n, n, dev)
+    k19_lib_ms = time_ms(lambda: acc.add_(torch.sparse.mm(S, x)))
+    k19_bytes = round_bytes(rc0, 4, DIM)
+    log(f"  K19 at the main path's shape (one shard, round 0: "
+        f"{rc0.row_ids.shape[0]} rows, {rc0.cols.shape[0]} edges, D={DIM}): "
+        f"{k19_ms:.3f} ms (plain {k19_plain_ms:.3f}, torch.sparse.mm + add_ "
+        f"{k19_lib_ms:.3f}); bound {k19_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms (bytes); max |diff| against plain {k19_err:.3e}; [{card}]")
+    del S, args, x, acc
+
+    # ---- (d) tracing: one embed() iteration on phase 4's graph
+    import tempfile
+
+    span, kernels, n_events = traced_embed_iteration()
+    here = f"{len(kernels)} kernel launches, K1 " + (
+        "among them" if any("spmm_csr" in k for k in kernels) else "NOT among "
+        "them (a fresh process below is held to it)")
+    span, kernels, n_events = traced_embed_iteration(fresh_process=True)
+    assert span, "the trace lacks the annotate() span"
+    assert any("spmm_csr" in k for k in kernels), \
+        f"the trace names no K1 kernel: {sorted(set(kernels))[:8]}"
+    stats = device_memory_stats()
+    assert stats[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    log(f"  (d) trace() of one embed() iteration: in this process {here}; "
+        f"in a fresh process {n_events} events, {len(kernels)} kernel "
+        "launches, naming the annotate() span and K1's kernel; "
+        f"device_memory_stats(): {stats[0]}")
+
+    # ---- (e) the capacity plan
+    rep = plan_report(big, feature_dim=DIM)
+    assert rep["embed"][0]["fits"], rep["embed"]
+    log("  (e) plan_report(phase 5's graph):\n    "
+        + format_plan(rep).replace("\n", "\n    "))
+    rep = plan_report(walk_graph, feature_dim=DIM, walks=True,
+                      num_walks=WALKS_PER_NODE, walk_length=WALK_LENGTH,
+                      window_size=WINDOW)
+    assert walk_modes and set(walk_modes) == {rep["walks"]["table_mode"]}, \
+        (walk_modes, rep["walks"])
+    log(f"  plan_report(phase 7's corpus, walks=True): table mode "
+        f"{rep['walks']['table_mode']!r}, as phase 7 chose; "
+        f"{rep['walks']['counting_passes']} counting passes, worst case "
+        f"{rep['walks']['worst_case_pairs']} pairs")
+
+    # ---- (f) the scaling report through the CLI, its ranks on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scaling.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cleora_tpu_torch", "scaling", "--json",
+             path], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        with open(path) as f:
+            scaling = json.load(f)
+    res = scaling["results"]
+    assert [r["devices"] for r in res] == list(
+        c for c in (1, 2, 4, 8) if c <= torch.cuda.device_count())
+    log(f"  (f) `python -m cleora_tpu_torch scaling`: "
+        + "; ".join(f"{r['devices']} rank(s) {r['edges_per_s']:.4e} edges/s, "
+                    f"efficiency {r['efficiency']:.3f}" for r in res)
+        + f" ({time.perf_counter() - t0:.1f} s with its processes); [{card}]")
+
+    src = "cleora_tpu_torch/"
+    return [
+        kernel_row("spmm_acc", src + "kernels/spmm_acc.cu",
+                   "cleora_tpu/parallel/embed.py:49", k19_ms, k19_plain_ms,
+                   k19_lib_ms, k19_err, k19_bytes, 2 * rc0.cols.shape[0] * DIM,
+                   o_launches["spmm_acc"]),
+        kernel_row("overlap_propagate", src + "parallel/embed.py",
+                   "cleora_tpu/parallel/embed.py:42", step_ms,
+                   step_plain_ms + pack_plain, step_lib_ms + pack_lib,
+                   sum_err, step_bytes + pack_bytes,
+                   2 * sum(rc.cols.shape[0] for rc in rounds) * DIM,
+                   o_launches["spmm_acc"]),
+        kernel_row("hier_exchange", src + "parallel/embed.py",
+                   "cleora_tpu/parallel/embed.py:97", hier_ms, hier_plain,
+                   hier_lib, 0.0, hier_bytes, 0, h_launches["halo_pack"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cleora_tpu_torch.algorithms as alg
+
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = environment()
@@ -3721,7 +4124,8 @@ def main() -> int:
     spectral_rows, spectral_refs = spectral_full_width(dev, card, graph)
     rows += spectral_rows
     graph._device_cache.clear()  # phase 9 reads its entity ids only
-    walk_rows, walk_graph, walk_refs = walk_full_width(dev, card)
+    with recorded(alg, "_walk_table_mode") as walk_modes:
+        walk_rows, walk_graph, walk_refs = walk_full_width(dev, card)
     rows += walk_rows
     t0 = time.perf_counter()
     n2v_rows, gq, emb_q, n2v_walks = node2vec_full_width(dev, card,
@@ -3737,7 +4141,8 @@ def main() -> int:
     rows += nc_rows
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows += streamed_sharded(dev, card, graph, table, arxiv)
+    p11_rows, p11 = streamed_sharded(dev, card, graph, table, arxiv)
+    rows += p11_rows
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     del arxiv
     t0 = time.perf_counter()
@@ -3748,7 +4153,12 @@ def main() -> int:
     rows += walk_siblings_sharded(dev, card, walk_graph, walk_refs,
                                   n2v_walks, graph, table)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
-    del walk_graph, walk_refs, n2v_walks, table
+    del walk_refs, n2v_walks
+    t0 = time.perf_counter()
+    rows += halo_exchanges(dev, card, graph, table, p11, walk_graph,
+                           walk_modes)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    del walk_graph, table, p11
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

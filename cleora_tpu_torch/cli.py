@@ -1,11 +1,11 @@
 """Command-line interface of the port, ``python -m cleora_tpu_torch`` or
-``cleora-tpu-torch``: ``embed|info|benchmark|similar|merge-shards`` with the
-flags and output of the JAX package's CLI (cleora_tpu/cli.py, itself after
-the reference's pycleora/cli.py).
+``cleora-tpu-torch``: ``embed|info|plan|scaling|benchmark|similar|
+merge-shards`` with the flags and output of the JAX package's CLI
+(cleora_tpu/cli.py, itself after the reference's pycleora/cli.py).
 
 The commands that compute run on the card unless ``--device cpu`` is
-given (the JAX CLI's ``--cpu``).  ``plan`` and ``scaling`` are not ported
-yet and exit with a message that says so.
+given (the JAX CLI's ``--cpu``).  ``plan`` reads the live card's memory
+when there is one and never dispatches work.
 """
 
 from __future__ import annotations
@@ -14,14 +14,6 @@ import argparse
 import time
 
 import numpy as np
-
-
-_NOT_PORTED = {
-    "scaling": "the scaling report is not ported yet: it measures the "
-               "multi-GPU slice of the port (ROADMAP.md, queue A item 8)",
-    "plan": "the capacity plan is not ported yet (ROADMAP.md, queue A "
-            "item 7)",
-}
 
 
 def main(argv=None):
@@ -131,12 +123,53 @@ def main(argv=None):
     p.add_argument("--output", "-o", required=True, help="Merged graph dir")
     p.add_argument("--verbose", "-v", action="store_true")
 
-    for name in _NOT_PORTED:  # they exit saying so, whatever follows
-        sub.add_parser(name, help="Not ported yet")
+    p = sub.add_parser(
+        "scaling",
+        help="Measure multi-card scaling efficiency (hard >=80%% gate)",
+    )
+    p.add_argument("--smoke", action="store_true",
+                   help="Tiny shapes / few iterations — structural check")
+    p.add_argument("--check", nargs="?", const=-1.0, type=float,
+                   default=None, metavar="X",
+                   help="Gate: efficiency at the largest rank count must "
+                        "be >= X (default 0.80, the BASELINE target); "
+                        "exits 2 on FAIL")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="Write the measurement table as JSON")
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="Ranks on the CUDA cards, one each (default), or "
+                        "up to 2 gloo ranks on the CPU")
 
     p = sub.add_parser("info", help="Show graph information")
     p.add_argument("--input", "-i", required=True, help="Input edge file")
     p.add_argument("--columns", "-c", default="complex::reflexive::node")
+
+    p = sub.add_parser(
+        "plan",
+        help="Pre-deployment capacity report: layout, per-device memory "
+             "fit, walk-pipeline placement (host only — no device work)",
+    )
+    p.add_argument("--input", "-i", required=True,
+                   help="Input edge file OR a streaming-build graph dir")
+    p.add_argument("--columns", "-c", default="complex::reflexive::node")
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--devices", type=int, default=1,
+                   help="Planned group size (ranks, one card each)")
+    p.add_argument("--hbm-gib", type=float, default=None,
+                   help="Per-device memory budget to plan for "
+                        "(default: the live card, else 80 = H100)")
+    p.add_argument("--walks", action="store_true",
+                   help="Also plan the DeepWalk/Node2Vec device pipeline")
+    p.add_argument("--num-walks", type=int, default=10)
+    p.add_argument("--walk-length", type=int, default=80)
+    p.add_argument("--window", type=int, default=5)
+    p.add_argument("--second-order", action="store_true",
+                   help="Plan the Node2Vec (p/q) engine's larger tables")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="Also write the raw report dict as JSON "
+                        "('-' for stdout instead of the text report)")
 
     p = sub.add_parser("benchmark", help="Run benchmarks")
     p.add_argument("--dataset", "-d", default="karate_club", help="Dataset name")
@@ -151,16 +184,13 @@ def main(argv=None):
     p.add_argument("--dim", "-d", type=int, default=256)
     device_flag(p)
 
-    args, extra = parser.parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        raise SystemExit(_NOT_PORTED[args.command])
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return
-    rc = {"embed": _cmd_embed, "info": _cmd_info,
-          "benchmark": _cmd_benchmark, "similar": _cmd_similar,
+    rc = {"embed": _cmd_embed, "info": _cmd_info, "plan": _cmd_plan,
+          "scaling": _cmd_scaling, "benchmark": _cmd_benchmark,
+          "similar": _cmd_similar,
           "merge-shards": _cmd_merge_shards}[args.command](args)
     if rc:
         raise SystemExit(rc)
@@ -427,6 +457,48 @@ def _finish_embed(args, graph):
     else:
         print(f"{graph.num_entities} entities -> {emb.shape} saved to "
               f"{args.output}")
+
+
+def _cmd_scaling(args):
+    from .scaling import TARGET_EFFICIENCY, run_report
+
+    check = args.check
+    if check is not None and check < 0:  # bare --check → baseline target
+        check = TARGET_EFFICIENCY
+    return run_report(smoke=args.smoke, check=check, json_path=args.json,
+                      device=args.device)
+
+
+def _cmd_plan(args):
+    import os
+
+    from .plan import format_plan, plan_report
+
+    if os.path.isdir(args.input) and \
+            os.path.exists(os.path.join(args.input, "meta.json")):
+        from .graph.stream import DiskGraph
+
+        graph = DiskGraph(args.input)
+    else:
+        from .sparse import SparseMatrix
+
+        graph = SparseMatrix.from_iterator(iter(_read_edges(args.input)),
+                                           args.columns)
+    rep = plan_report(
+        graph, feature_dim=args.dim, dtype=args.dtype,
+        n_devices=args.devices, hbm_gib=args.hbm_gib, walks=args.walks,
+        num_walks=args.num_walks, walk_length=args.walk_length,
+        window_size=args.window, second_order=args.second_order,
+    )
+    if args.json is not None:
+        import json
+
+        if args.json == "-":
+            print(json.dumps(rep))
+            return
+        with open(args.json, "w") as f:
+            json.dump(rep, f, indent=2)
+    print(format_plan(rep))
 
 
 def _cmd_merge_shards(args):

@@ -5,8 +5,8 @@ K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
 ``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu``, K13
 ``pq_adc.cu``, K14 ``label_prop.cu``, K15 ``relu_dropout.cu``, K16
-``halo_pack.cu``, K17 ``walk_owned.cu`` and K18 ``walk2_owned.cu`` are
-built at first use (:mod:`.build`).  Each wrapper
+``halo_pack.cu``, K17 ``walk_owned.cu``, K18 ``walk2_owned.cu`` and K19
+``spmm_acc.cu`` are built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`.  The wrappers take CUDA tensors
@@ -104,6 +104,11 @@ _ARGTYPES = {
                               _c.c_int64, _c.c_float, _c.c_float, _c.c_uint32,
                               _c.c_uint32, _c.c_uint32, _c.c_uint32,
                               _c.c_void_p],
+    # row_ids, indptr, cols, vals, table, table_bf16, acc, n_rows, d, vec4,
+    # stream
+    "spmm_acc": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                 _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int64, _c.c_int64,
+                 _c.c_int, _c.c_void_p],
     # idx, x, out, n_slots, row_bytes, vec_bytes, stream
     "halo_pack": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p],
@@ -744,11 +749,13 @@ def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
     return dz
 
 
-def halo_pack(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
-    """K16: the halo send slab ``out[p, m] = x[send_idx[p, m]]``, a new
-    (P, M, D) tensor in ``x``'s dtype (float32 or bfloat16).  The indices
-    must lie in [0, rows of x): the sharded loop checks its plan on the
-    host when it is built."""
+def halo_pack(x: torch.Tensor, send_idx: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K16: the halo send slab ``out[p, m] = x[send_idx[p, m]]``, a
+    (P, M, D) tensor in ``x``'s dtype (float32 or bfloat16): ``out`` when
+    given (a buffer the caller reuses), else a new one.  The indices must
+    lie in [0, rows of x): the sharded loop checks its plan on the host
+    when it is built."""
     name = "halo_pack"
     _require(x.dtype in (torch.float32, torch.bfloat16) and x.dim() == 2,
              f"{name}: x must be a 2-D float32 or bfloat16 tensor")
@@ -756,7 +763,13 @@ def halo_pack(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
              f"{name}: send_idx must be a 2-D int32 tensor")
     _require_cuda_contiguous(name, x.device, x, send_idx)
     p, m = send_idx.shape
-    out = torch.empty((p, m, x.shape[1]), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((p, m, x.shape[1]), dtype=x.dtype, device=x.device)
+    _require(out.shape == (p, m, x.shape[1]) and out.dtype == x.dtype,
+             f"{name}: out must be a ({p}, {m}, {x.shape[1]}) tensor of x's "
+             "dtype")
+    _require_cuda_contiguous(name, x.device, out)
+    _require(not _overlap(out, x), f"{name}: out must not share memory with x")
     row_bytes = x.shape[1] * x.element_size()
     vec = next(v for v in (16, 4, 2)
                if row_bytes % v == 0 and x.data_ptr() % v == 0
@@ -768,6 +781,48 @@ def halo_pack(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(name, rc)
     return out
+
+
+def spmm_acc_(acc: torch.Tensor, row_ids: torch.Tensor, indptr: torch.Tensor,
+              cols: torch.Tensor, vals: torch.Tensor,
+              table: torch.Tensor) -> torch.Tensor:
+    """K19: ``acc[row_ids[i]] += Σ_e vals[e]·table[cols[e]]`` over the
+    edges ``e`` of compact row ``i`` (``indptr``), in place on float32
+    (rows, D) ``acc``; ``table`` is float32 or bfloat16 (T, D).  The row
+    ids must be distinct and lie in [0, rows of acc), the cols in [0, T):
+    the sharded loop checks its plan on the host when it is built.  A
+    round with no rows launches nothing.  Returns ``acc``."""
+    name = "spmm_acc_"
+    _require_csr(name, indptr, cols, vals)
+    _require(row_ids.dtype == torch.int32 and row_ids.dim() == 1
+             and row_ids.shape[0] == indptr.shape[0] - 1,
+             f"{name}: row_ids must be int32 with one id per compact row")
+    _require(acc.dtype == torch.float32 and acc.dim() == 2,
+             f"{name}: acc must be a 2-D float32 tensor")
+    _require(table.dtype in (torch.float32, torch.bfloat16)
+             and table.dim() == 2 and table.shape[1] == acc.shape[1],
+             f"{name}: table must be a 2-D float32 or bfloat16 tensor of "
+             "acc's width")
+    _require_cuda_contiguous(name, acc.device, row_ids, indptr, cols, vals,
+                             table, acc)
+    # other rows gather the table through the read-only cache while a
+    # row's threads update acc
+    _require(not _overlap(acc, table),
+             f"{name}: acc must not share memory with table")
+    n = row_ids.shape[0]
+    if n == 0 or acc.shape[1] == 0:
+        return acc
+    d = acc.shape[1]
+    bf16 = table.dtype == torch.bfloat16
+    vec4 = (d % 4 == 0 and table.data_ptr() % (8 if bf16 else 16) == 0
+            and _aligned16(acc))
+    fn = _bound("spmm_acc")
+    with torch.cuda.device(acc.device):
+        rc = fn(row_ids.data_ptr(), indptr.data_ptr(), cols.data_ptr(),
+                vals.data_ptr(), table.data_ptr(), int(bf16), acc.data_ptr(),
+                n, d, int(vec4), _stream(acc))
+    _check_launch("spmm_acc", rc)
+    return acc
 
 
 def _stream(t: torch.Tensor) -> int:

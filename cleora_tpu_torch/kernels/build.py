@@ -23,7 +23,7 @@ KERNELS = ("spmm_csr", "row_normalize", "hash_init", "edge_attention",
            "spmm_axpy", "dense_markov", "log_clip", "walk_uniform",
            "pair_enum", "run_length", "ppmi", "walk_p_q", "pq_adc",
            "label_prop", "relu_dropout", "halo_pack", "walk_owned",
-           "walk2_owned")
+           "walk2_owned", "spmm_acc")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -177,3 +177,38 @@ def spmm_axpy_plain(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
     if acc is not None:
         acc += float(d) * out
     return out
+
+
+def spmm_acc(acc: torch.Tensor, row_ids: torch.Tensor, indptr: torch.Tensor,
+             cols: torch.Tensor, vals: torch.Tensor,
+             table: torch.Tensor) -> torch.Tensor:
+    """One round of the overlapped halo exchange
+    (cleora_tpu/parallel/embed.py:_overlap_propagate, ``seg`` at :49-54):
+    ``acc[row_ids[i]] += Σ_e vals[e]·table[cols[e]]`` over the edges of
+    compact row ``i`` (``indptr``), in place on the float32 accumulator.
+    On CUDA this launches K19 (``kernels/spmm_acc.cu``); on the CPU it
+    runs :func:`spmm_acc_plain`.  Returns ``acc``."""
+    if acc.is_cuda:
+        return kernels.spmm_acc_(acc, row_ids, indptr, cols, vals,
+                                 table.contiguous())
+    return spmm_acc_plain(acc, row_ids, indptr, cols, vals, table)
+
+
+def spmm_acc_plain(acc: torch.Tensor, row_ids: torch.Tensor,
+                   indptr: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K19: the round's per-row sums by gather,
+    scale and ``index_add_`` (in edge chunks, as :func:`spmm_plain`), then
+    one ``index_add_`` of them into ``acc``."""
+    n = row_ids.shape[0]
+    seg = torch.repeat_interleave(
+        torch.arange(n, device=acc.device), indptr[1:] - indptr[:-1])
+    sums = torch.zeros((n, acc.shape[1]), dtype=torch.float32,
+                       device=acc.device)
+    cols = cols.long()
+    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, acc.shape[1]))
+    for s in range(0, cols.shape[0], chunk):
+        e = s + chunk
+        scaled = table.index_select(0, cols[s:e]).float() * vals[s:e, None]
+        sums.index_add_(0, seg[s:e], scaled)
+    return acc.index_add_(0, row_ids.long(), sums)

@@ -7,9 +7,15 @@ the only shard.  Each iteration, on every rank (:func:`_local_step`):
 
 1. exchange: ``all_gather`` of the row shards into the full gather table,
    or the halo exchange — kernel K16 packs the rows each peer reads into
-   a (P, M, D) slab and one ``all_to_all_single`` swaps the slabs;
+   a (P, M, D) slab and one ``all_to_all_single`` swaps the slabs — or its
+   two-level form on a ("host", "chip") grid (``halo="hier"``: K16 twice,
+   a chip-axis and a host-axis ``all_to_all_single`` and a chip-axis
+   ``all_gather_into_tensor``);
 2. kernel K1 over the shard's local CSR, whose column ids point into the
-   gather table, with the residual mix taken from the shard's own state;
+   gather table, with the residual mix taken from the shard's own state.
+   ``halo="overlap"`` fuses 1 and 2: P-1 point-to-point rounds, each
+   slab packed by K16 and sent with ``batch_isend_irecv`` while kernel
+   K19 adds the previous round's edges into a float32 accumulator;
 3. row normalization (kernel K2), or the spectral rescale with an
    all-reduced Gram matrix;
 4. whitening with global statistics: the masked column sum and the D×D
@@ -33,21 +39,19 @@ from ..ops.halo import halo_pack
 from ..ops.loop import effective_residual_weight
 from ..ops.memory import check_device_fit
 from ..ops.normalize import l1_normalize, l2_normalize
-from ..ops.spmm import CsrMatrix, spmm
+from ..ops.spmm import CsrMatrix, spmm, spmm_acc
 from . import state as lifecycle
 from .mesh import ShardGroup, make_mesh
 from .shard import (
     HaloPlan,
+    HierHaloPlan,
+    OverlapPlan,
     ShardedCsr,
     pad_rows,
     plan_halo_distributed,
+    plan_halo_hier,
+    plan_overlap,
     shard_csr,
-)
-
-_HALO_NOT_PORTED = (
-    'halo="{}" is not ported yet: the overlapped and hierarchical '
-    "exchanges belong to the multi-GPU slice of the port (ROADMAP.md, "
-    "queue A item 8); use halo=None, True or False"
 )
 
 # elements per pinned staging block of the host→device CSR upload
@@ -163,16 +167,140 @@ def _propagate_local(x: torch.Tensor, csr: CsrMatrix, mesh: ShardGroup,
                 residual=None if table is x else x)
 
 
+def _check_rows(name: str, a: np.ndarray, n: int) -> None:
+    """Every entry of a plan's index array lies in [0, n)."""
+    if a.size and (a.min() < 0 or a.max() >= n):
+        raise ValueError(f"malformed {name} plan: row out of range")
+
+
+class OverlapExchange:
+    """``halo="overlap"`` on this shard (cleora_tpu/parallel/embed.py:
+    _overlap_propagate): calling it with the shard's state returns the
+    float32 local SpMM.  In round r the shard sends the slab its peer
+    (me + r) mod P reads, packed by K16, and receives the one from
+    (me - r) mod P with one ``batch_isend_irecv``; K19 adds round 0's
+    edges (the shard's own rows) while round 1 is in flight, and each
+    later round's edges once its slab has arrived, while the next one is
+    in flight.  Two send and two receive slabs alternate, so a slab is
+    repacked only after the send that read it has completed; on NCCL the
+    transfers wait for the packs on the compute stream, and ``wait()``
+    makes the compute stream wait for the transfers.  One shard runs round
+    0 alone."""
+
+    def __init__(self, mesh: ShardGroup, sharded: ShardedCsr,
+                 plan: OverlapPlan, width: int, dtype: str = "float32"):
+        k, P = mesh.rank, mesh.world_size
+        rps, M = sharded.rows_per_shard, plan.M
+        if len(plan.rounds) != P:
+            raise ValueError(
+                f"overlap plan of {len(plan.rounds)} shards but the process "
+                f"group has {P} ranks")
+        _check_rows("overlap", plan.send_idx, rps)
+        dev = mesh.device
+        self.rounds = []
+        for r, rc in enumerate(plan.rounds[k]):
+            _check_rows("overlap", rc.row_ids, rps)
+            _check_rows("overlap", rc.cols, rps if r == 0 else M)
+            self.rounds.append(tuple(torch.from_numpy(a).to(dev) for a in (
+                rc.row_ids, rc.indptr, rc.cols, rc.vals)))
+        # round r packs what peer (k + r) mod P reads of my rows
+        self.send = [torch.from_numpy(np.ascontiguousarray(
+            plan.send_idx[k, (k + r) % P][None])).to(dev) for r in range(P)]
+        state_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        n_slabs = 2 if P > 1 else 0
+        check_device_fit(rps + 2 * n_slabs * M, int(width), sharded.nnz(k),
+                         dtype, dev)
+        self.slabs = [torch.empty((1, M, int(width)), dtype=state_dtype,
+                                  device=dev) for _ in range(2 * n_slabs)]
+        self.mesh, self.rps, self.M = mesh, rps, M
+
+    def _post(self, x: torch.Tensor, r: int):
+        """Pack round r's slab and start its transfer; returns (works,
+        receive slab)."""
+        mesh, P = self.mesh, self.mesh.world_size
+        send = halo_pack(x, self.send[r], out=self.slabs[r % 2])
+        recv = self.slabs[2 + r % 2]
+        import torch.distributed as dist
+
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, (mesh.rank + r) % P, mesh.group),
+            dist.P2POp(dist.irecv, recv, (mesh.rank - r) % P, mesh.group),
+        ])
+        return works, recv
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        P = self.mesh.world_size
+        acc = torch.zeros((self.rps, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        pending = self._post(x, 1) if P > 1 else None
+        spmm_acc(acc, *self.rounds[0], x)
+        for r in range(1, P):
+            works, recv = pending
+            for w in works:
+                w.wait()
+            if r + 1 < P:
+                pending = self._post(x, r + 1)
+            spmm_acc(acc, *self.rounds[r], recv.view(self.M, x.shape[1]))
+        return acc
+
+
+class HierExchange:
+    """``halo="hier"`` on this shard (cleora_tpu/parallel/embed.py:
+    _hier_exchange): calling it with the shard's state returns the gather
+    table in the plan's receive layout [intra C·Mc | cross C·H·Mh].  K16
+    packs the intra-host slabs, one chip-axis ``all_to_all_single`` puts
+    them straight into the table's first rows; K16 packs the cross-host
+    union slabs, one host-axis ``all_to_all_single`` swaps them, and one
+    chip-axis ``all_gather_into_tensor`` fans them out into the rest of
+    the table, with no concatenation copy.  The table and slabs are
+    allocated once.  ``csr`` is the shard's local CSR over the table."""
+
+    def __init__(self, mesh: ShardGroup, sharded: ShardedCsr,
+                 plan: HierHaloPlan, width: int, dtype: str = "float32"):
+        k, rps = mesh.rank, sharded.rows_per_shard
+        H, C = plan.n_hosts, plan.chips_per_host
+        if H * C != mesh.world_size:
+            raise ValueError(
+                f"a {H}x{C} hier plan but the process group has "
+                f"{mesh.world_size} ranks")
+        _check_rows("hier", plan.send_intra, rps)
+        _check_rows("hier", plan.send_cross, rps)
+        dev, d = mesh.device, int(width)
+        check_device_fit(rps + plan.table_rows, d, sharded.nnz(k), dtype, dev)
+        self.csr = _local_csr(sharded, k, plan.remapped_cols[k],
+                              plan.table_rows, dev)
+        self.send_intra, self.send_cross = (
+            torch.from_numpy(np.ascontiguousarray(a[k])).to(dev)
+            for a in (plan.send_intra, plan.send_cross))
+        sdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        self.table = torch.empty((plan.table_rows, d), dtype=sdt, device=dev)
+        self.intra = torch.empty((C, plan.Mc, d), dtype=sdt, device=dev)
+        self.cross = torch.empty((H, plan.Mh, d), dtype=sdt, device=dev)
+        self.cross_recv = torch.empty((H * plan.Mh, d), dtype=sdt,
+                                      device=dev)
+        self.mesh, self.split = mesh, C * plan.Mc
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        mesh, d, s = self.mesh, x.shape[1], self.split
+        halo_pack(x, self.send_intra, out=self.intra)
+        mesh.sub_all_to_all_(self.table[:s], self.intra.view(-1, d), "chip")
+        halo_pack(x, self.send_cross, out=self.cross)
+        mesh.sub_all_to_all_(self.cross_recv, self.cross.view(-1, d), "host")
+        mesh.sub_all_gather_(self.table[s:], self.cross_recv, "chip")
+        return self.table
+
+
 @full_float32_matmul()
-def _local_step(x: torch.Tensor, csr: CsrMatrix, mesh: ShardGroup, *,
-                send_idx: Optional[torch.Tensor], n_rows: int, n_real: int,
-                residual_weight: float, normalization: str,
+def _local_step(x: torch.Tensor, propagate: Callable, mesh: ShardGroup, *,
+                n_rows: int, n_real: int, normalization: str,
                 do_whiten: bool) -> torch.Tensor:
-    """One propagate → normalize → whiten step on this shard.  bf16 state
-    is exchanged in bf16; everything after the gather computes in float32
-    and the result is stored back at x's dtype.  ``n_real`` rows of the
-    shard are real (a prefix: the pad rows are the last global rows)."""
-    y = _propagate_local(x, csr, mesh, send_idx, residual_weight)
+    """One propagate → normalize → whiten step on this shard;
+    ``propagate(x)`` is the exchange, the local SpMM and the residual mix
+    in float32.  bf16 state is exchanged in bf16; everything after the
+    gather computes in float32 and the result is stored back at x's dtype.
+    ``n_real`` rows of the shard are real (a prefix: the pad rows are the
+    last global rows)."""
+    y = propagate(x)
     if normalization == "l2":
         y = l2_normalize(y)
     elif normalization == "l1":
@@ -221,6 +349,8 @@ def build_sharded_embed(
     convergence_threshold: float = 0.0,
     halo: Optional[HaloPlan] = None,
     dtype: str = "float32",
+    overlap: Optional[OverlapPlan] = None,
+    hier: Optional[HierHaloPlan] = None,
 ):
     """The loop of this process's shard, ready to run.
 
@@ -232,17 +362,41 @@ def build_sharded_embed(
     iteration 0 (``start_iter`` + i), so a run cut into checkpoint
     segments stops where the same run in one piece would.  With a
     ``halo`` plan each step swaps only boundary rows (K16 +
-    ``all_to_all_single``) instead of all-gathering the full table."""
+    ``all_to_all_single``) instead of all-gathering the full table; with
+    an ``overlap`` plan (:func:`.shard.plan_overlap`) it runs the
+    pipelined rounds of :class:`OverlapExchange`, with a ``hier`` plan
+    (:func:`.shard.plan_halo_hier`, a :func:`.mesh.make_hier_mesh` group
+    of more than one rank) the two-level :class:`HierExchange`.  As in
+    the JAX package, ``hier`` wins over ``overlap``, and either over
+    ``halo``."""
     n_rows = sharded.n_rows
     lo, hi = lifecycle.shard_rows(mesh, n_rows, sharded.rows_per_shard)
-    csr, send_idx = shard_operator(mesh, sharded, halo, feature_dim, dtype)
     nd = n_rows * int(feature_dim)
     state_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    w = float(residual_weight)
+    if hier is not None:
+        exchange = HierExchange(mesh, sharded, hier, feature_dim, dtype)
+
+        def propagate(x):
+            return spmm(exchange.csr, exchange(x), w, residual=x)
+    elif overlap is not None:
+        exchange = OverlapExchange(mesh, sharded, overlap, feature_dim, dtype)
+
+        def propagate(x):
+            y = exchange(x)
+            if w > 0.0:  # the residual mix of cleora_tpu/parallel/embed.py:193
+                y = (1.0 - w) * y + w * x.float()
+            return y
+    else:
+        csr, send_idx = shard_operator(mesh, sharded, halo, feature_dim,
+                                       dtype)
+
+        def propagate(x):
+            return _propagate_local(x, csr, mesh, send_idx, w)
 
     def step(x):
         return _local_step(
-            x, csr, mesh, send_idx=send_idx, n_rows=n_rows, n_real=hi - lo,
-            residual_weight=float(residual_weight),
+            x, propagate, mesh, n_rows=n_rows, n_real=hi - lo,
             normalization=normalization, do_whiten=bool(do_whiten))
 
     def fn(x, iterations: int, start_iter: int = 0):
@@ -300,8 +454,13 @@ def embed_sharded(
     ``halo=None`` (auto) uses the boundary-row exchange with more than one
     shard whenever its gather table is smaller than the all-gathered full
     table; True/False force the choice (True with one shard exchanges the
-    shard's rows with itself); ``"overlap"`` and ``"hier"`` are not
-    ported.  ``banded`` and
+    shard's rows with itself).  ``"overlap"`` pipelines the exchange as
+    P-1 point-to-point rounds against the local SpMM (kernel K19);
+    ``"hier"`` runs the two-level exchange of a ("host", "chip") grid
+    and needs ``mesh=make_hier_mesh(...)`` with more than one rank.  With
+    one shard both exchange with the shard itself: ``"overlap"`` is round
+    0 alone, ``"hier"`` a 1×1 grid.  Both need every shard's edges (not
+    one rank's piece of a sharded build).  ``banded`` and
     ``ell`` are the JAX package's layout choices and are accepted and
     ignored: the local CSR serves them.  ``dtype="bfloat16"`` stores and
     exchanges the state in bf16 (float32 compute).
@@ -348,8 +507,6 @@ def embed_sharded(
         )
     if normalization not in ("l2", "l1", "spectral", "none"):
         raise ValueError(f"Unknown normalization method: {normalization}")
-    if halo in ("overlap", "hier"):
-        raise NotImplementedError(_HALO_NOT_PORTED.format(halo))
     if not (hasattr(graph, "data") or isinstance(graph, DiskGraph)):
         raise TypeError(
             "the sharded embed takes a SparseMatrix or a DiskGraph, got "
@@ -372,11 +529,30 @@ def embed_sharded(
                 "merged graph (graph.stream.merge_disk_graph_shards) or a "
                 "multi-process run where every host holds its own piece."
             )
+        if halo in ("overlap", "hier"):
+            raise ValueError(
+                "banded/overlap/hier/ell-split layouts need global edge "
+                "data; a sharded-build piece supports the flat, halo and "
+                "ELL layouts (merge the pieces for the others)."
+            )
         check_piece_range(int(piece_range[0]), int(piece_range[1]), n, mesh)
 
     sharded = shard_csr(graph, propagation, n_shards)
-    plan = None
-    if halo is True or (halo is None and n_shards > 1):
+    plan = overlap_plan = hier_plan = None
+    if halo == "hier":
+        if n_shards > 1 and not mesh.is_hier:
+            raise ValueError(
+                'halo="hier" needs a ("host", "chip") mesh — build it '
+                "with make_hier_mesh"
+            )
+        # one shard without a hier group is the 1×1 grid (both axes the
+        # whole group): the exchange with the shard itself, as halo=True
+        hier_plan = plan_halo_hier(
+            sharded, *((mesh.n_hosts, mesh.chips_per_host) if mesh.is_hier
+                       else (1, 1)))
+    elif halo == "overlap":
+        overlap_plan = plan_overlap(sharded)
+    elif halo is True or (halo is None and n_shards > 1):
         # forced with one shard, the exchange is the shard's own (K16 and
         # a one-member all_to_all): NCCL refuses two ranks on one card, so
         # this is how a one-card machine runs a halo deployment's exchange
@@ -399,6 +575,7 @@ def embed_sharded(
         mesh, sharded, int(feature_dim), residual_weight=residual_weight,
         normalization=normalization, do_whiten=whiten,
         convergence_threshold=convergence_threshold, halo=plan, dtype=dtype,
+        overlap=overlap_plan, hier=hier_plan,
     )
     rps = sharded.rows_per_shard
     if x0 is None:
@@ -434,7 +611,9 @@ def embed_sharded(
             fn, x, mesh, sharded, int(feature_dim), int(num_iterations),
             residual_weight=residual_weight, normalization=normalization,
             whiten=whiten, convergence_threshold=convergence_threshold,
-            mode="halo" if plan is not None else "flat", dtype=dtype,
+            mode=("hier" if hier_plan is not None else
+                  "overlap" if overlap_plan is not None else
+                  "halo" if plan is not None else "flat"), dtype=dtype,
             seed=seed, propagation=propagation, user_init=x0 is not None,
             content=lifecycle.content_digest(sharded, mesh, x0=x0),
             checkpoint_dir=checkpoint_dir,

@@ -9,7 +9,10 @@ cut this module copies so that both packages give shard k the same rows):
 * every edge lives on the shard that owns its OUTPUT row, so the SpMM's
   accumulation is local;
 * the gather side needs remote rows: an all-gather of the row shards, or
-  the halo exchange of only the rows each shard reads (:class:`HaloPlan`).
+  the halo exchange of only the rows each shard reads (:class:`HaloPlan`),
+  either in one ``all_to_all`` or in the JAX package's two other forms:
+  P-1 pipelined point-to-point rounds (:class:`OverlapPlan`) and the
+  two-level exchange of a ("host", "chip") grid (:class:`HierHaloPlan`).
 
 The JAX package's (P, E) padded COO (:class:`ShardedCoo`, ``shard_coo``,
 ``shard_graph``, ``shard_disk_graph``) is kept for API parity.  The port's
@@ -19,8 +22,9 @@ arrays are read one shard at a time and never copied on the host.  Its
 column ids point into the gather table: global rows for the all-gather, the
 remapped slab slots for the halo exchange.  This follows the port's rule
 that CSR replaces the JAX package's ELL, banded and edge-cut layouts
-(``band_shards``, ``plan_overlap``, ``plan_halo_hier`` and ``ell_shards``
-are not ported).
+(``band_shards`` and ``ell_shards`` are not ported).  The overlap and
+hierarchical plans are bitwise the JAX package's; the overlap plan adds
+one compact CSR per round for kernel K19.
 """
 
 from __future__ import annotations
@@ -267,6 +271,13 @@ def _fill_send(send, j, uniq, gs, rps):
         send[k, j, :len(rows_needed)] = rows_needed
 
 
+def _stack_like(sharded, per_shard: list):
+    """Per-shard int32 arrays as the source's form: (P, E) for a
+    ShardedCoo, one array per shard for a ShardedCsr."""
+    return np.stack(per_shard) if isinstance(sharded, ShardedCoo) \
+        else per_shard
+
+
 def plan_halo(sharded: Union[ShardedCoo, ShardedCsr]) -> HaloPlan:
     """The halo exchange plan of every shard, in one process."""
     P = len(sharded.cols)
@@ -278,9 +289,8 @@ def plan_halo(sharded: Union[ShardedCoo, ShardedCsr]) -> HaloPlan:
     for j, (uniq, gs) in enumerate(needs):
         _fill_send(send_idx, j, uniq, gs, rps)
         remapped.append(_remap(sharded.cols[j], uniq, gs, rps, M))
-    if isinstance(sharded, ShardedCoo):
-        remapped = np.stack(remapped)
-    return HaloPlan(send_idx=send_idx, remapped_cols=remapped, M=M)
+    return HaloPlan(send_idx=send_idx,
+                    remapped_cols=_stack_like(sharded, remapped), M=M)
 
 
 def plan_halo_distributed(sharded: Union[ShardedCoo, ShardedCsr],
@@ -321,6 +331,194 @@ def plan_halo_distributed(sharded: Union[ShardedCoo, ShardedCsr],
         remapped = [None] * P
         remapped[j] = mine
     return HaloPlan(send_idx=send_idx, remapped_cols=remapped, M=M)
+
+
+def _local_rows(sharded, j: int) -> np.ndarray:
+    """Shard j's local output row of every edge (pads included for a
+    ShardedCoo)."""
+    if isinstance(sharded, ShardedCoo):
+        return sharded.local_rows[j]
+    return np.repeat(np.arange(sharded.rows_per_shard, dtype=np.int32),
+                     np.diff(sharded.indptr(j))).astype(np.int32)
+
+
+@dataclass
+class RoundCsr:
+    """One overlap round's edges of one shard as a compact CSR: local row
+    ``row_ids[i]`` (ascending) sums ``vals[e]·table[cols[e]]`` over
+    ``e`` in ``[indptr[i], indptr[i+1])``.  Only rows with an edge in the
+    round appear."""
+
+    row_ids: np.ndarray  # int32 (R,)
+    indptr: np.ndarray  # int64 (R + 1,)
+    cols: np.ndarray  # int32 (E_r,) — the round's table rows
+    vals: np.ndarray  # float32 (E_r,)
+
+    @classmethod
+    def from_edges(cls, lrows: np.ndarray, cols: np.ndarray,
+                   vals: np.ndarray) -> "RoundCsr":
+        """From a round's edges in ascending local-row order."""
+        row_ids, counts = np.unique(lrows, return_counts=True)
+        indptr = np.zeros(len(row_ids) + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return cls(row_ids.astype(np.int32), indptr,
+                   np.ascontiguousarray(cols, dtype=np.int32),
+                   np.ascontiguousarray(vals, dtype=np.float32))
+
+
+@dataclass
+class OverlapPlan:
+    """Per-round edge groups of the overlapped halo exchange
+    (cleora_tpu/parallel/shard.py:OverlapPlan).
+
+    The all_to_all of boundary rows becomes P-1 point-to-point rounds: in
+    round r shard d sends the slab for peer (d+r) mod P and receives the
+    one from (d-r) mod P, while it accumulates the previous round's edges.
+
+    ``groups[r] = (local_rows, cols, vals)``, each (P, E_r), bitwise the
+    JAX package's: shard d's edges (zero values dropped) whose column
+    owner is (d - r) mod P, padded with (rps - 1, 0, 0.0) to a multiple of
+    8.  Round 0's cols index the shard's own rows, later rounds' the
+    received slab [0, M).  ``rounds[d][r]`` is the same edges as a
+    :class:`RoundCsr`, without the padding, for kernel K19.
+    """
+
+    send_idx: np.ndarray  # int32 (P, P, M): [k, j] = LOCAL rows k sends to j
+    M: int
+    groups: tuple  # per round r: (lrows (P,E_r), cols (P,E_r), vals (P,E_r))
+    rounds: list  # rounds[d][r]: RoundCsr
+
+
+def plan_overlap(sharded: Union[ShardedCoo, ShardedCsr],
+                 halo: Optional[HaloPlan] = None) -> OverlapPlan:
+    """Group each shard's edges by column owner for the pipelined exchange
+    (needs every shard's edges, as in the JAX package)."""
+    if halo is None:
+        halo = plan_halo(sharded)
+    P = len(sharded.cols)
+    rps = sharded.rows_per_shard
+    M = halo.M
+    picks = [[None] * P for _ in range(P)]  # picks[r][j]
+    rounds = [[None] * P for _ in range(P)]  # rounds[j][r]
+    for j in range(P):
+        cols_j = np.asarray(sharded.cols[j])
+        vals_j = np.asarray(sharded.vals[j])
+        lrows_j = _local_rows(sharded, j)
+        owner = (cols_j // rps).astype(np.int64)
+        slot = (np.asarray(halo.remapped_cols[j]) % M).astype(np.int32)
+        real = vals_j != 0.0
+        for r in range(P):
+            m = real & (owner == (j - r) % P)
+            sc = ((cols_j[m] - j * rps).astype(np.int32) if r == 0
+                  else slot[m])
+            picks[r][j] = (lrows_j[m], sc, vals_j[m])
+            rounds[j][r] = RoundCsr.from_edges(*picks[r][j])
+    groups = []
+    for r in range(P):
+        e_r = round_up(max(1, max(p[0].shape[0] for p in picks[r])), 8)
+        lrows = np.full((P, e_r), rps - 1, dtype=np.int32)
+        cols = np.zeros((P, e_r), dtype=np.int32)
+        vals = np.zeros((P, e_r), dtype=np.float32)
+        for j, (lr, sc, sv) in enumerate(picks[r]):
+            lrows[j, :lr.shape[0]] = lr
+            cols[j, :lr.shape[0]] = sc
+            vals[j, :lr.shape[0]] = sv
+        groups.append((lrows, cols, vals))
+    return OverlapPlan(send_idx=halo.send_idx, M=M, groups=tuple(groups),
+                       rounds=rounds)
+
+
+@dataclass
+class HierHaloPlan:
+    """The two-level boundary-row exchange of a ("host", "chip") grid
+    (cleora_tpu/parallel/shard.py:HierHaloPlan): a chip-axis all_to_all
+    of the intra-host slabs, a host-axis all_to_all of per-destination-host
+    UNION slabs (a row that several chips of one host read crosses hosts
+    once), then a chip-axis all_gather that fans the cross-host slabs out
+    within the host.  Receive table per shard: [intra C·Mc rows | cross
+    C·H·Mh rows], cross slot (c_owner·H + h_owner)·Mh + rank;
+    ``remapped_cols`` point the edges into it.
+    """
+
+    send_intra: np.ndarray  # int32 (P, C, Mc): rows k sends to same-host chip c
+    send_cross: np.ndarray  # int32 (P, H, Mh): union rows k sends to host h
+    # edge cols → receive-table slots: (P, E) for a ShardedCoo, one array
+    # per shard for a ShardedCsr
+    remapped_cols: Union[np.ndarray, List[np.ndarray]]
+    Mc: int
+    Mh: int
+    n_hosts: int
+    chips_per_host: int
+
+    @property
+    def table_rows(self) -> int:
+        C, H = self.chips_per_host, self.n_hosts
+        return C * self.Mc + C * H * self.Mh
+
+
+def plan_halo_hier(sharded: Union[ShardedCoo, ShardedCsr], n_hosts: int,
+                   chips_per_host: int) -> HierHaloPlan:
+    """The two-level exchange plan (host-major shard order: shard k =
+    host·C + chip, as :func:`.mesh.make_hier_mesh` numbers the ranks);
+    needs every shard's edges, as in the JAX package."""
+    P = len(sharded.cols)
+    H, C = int(n_hosts), int(chips_per_host)
+    if H * C != P:
+        raise ValueError(f"mesh {H}x{C} != {P} shards")
+    rps = sharded.rows_per_shard
+    uniq_j = [np.unique(sharded.cols[j]) for j in range(P)]
+
+    # cross need: union over the destination host's chips, per owner shard
+    cross_need = {}
+    for h in range(H):
+        allcols = np.unique(np.concatenate(
+            [uniq_j[j] for j in range(h * C, (h + 1) * C)]))
+        gs = np.searchsorted(allcols // rps, np.arange(P + 1))
+        for k in range(P):
+            if k // C != h:
+                cross_need[(k, h)] = allcols[gs[k]:gs[k + 1]] - k * rps
+    Mh = max(1, max((len(v) for v in cross_need.values()), default=1))
+
+    # intra need: per (same-host owner, destination chip)
+    intra_need = {}
+    for j in range(P):
+        u = uniq_j[j]
+        gs = np.searchsorted(u // rps, np.arange(P + 1))
+        for c in range(C):
+            k = (j // C) * C + c
+            intra_need[(k, j)] = u[gs[k]:gs[k + 1]] - k * rps
+    Mc = max(1, max(len(v) for v in intra_need.values()))
+
+    send_intra = np.zeros((P, C, Mc), dtype=np.int32)
+    for (k, j), rv in intra_need.items():
+        send_intra[k, j % C, :len(rv)] = rv
+    send_cross = np.zeros((P, H, Mh), dtype=np.int32)
+    for (k, h), rv in cross_need.items():
+        send_cross[k, h, :len(rv)] = rv
+
+    remapped = []
+    for j in range(P):
+        hj = j // C
+        cols_j = np.asarray(sharded.cols[j]).astype(np.int64)
+        owner = cols_j // rps
+        local = cols_j - owner * rps
+        out = np.empty(len(cols_j), dtype=np.int64)
+        for k in range(P):
+            m = owner == k
+            if not m.any():
+                continue
+            if k // C == hj:
+                out[m] = ((k % C) * Mc
+                          + np.searchsorted(intra_need[(k, j)], local[m]))
+            else:
+                out[m] = (C * Mc + ((k % C) * H + k // C) * Mh
+                          + np.searchsorted(cross_need[(k, hj)], local[m]))
+        remapped.append(out.astype(np.int32))
+    return HierHaloPlan(
+        send_intra=send_intra, send_cross=send_cross,
+        remapped_cols=_stack_like(sharded, remapped), Mc=Mc, Mh=Mh,
+        n_hosts=H, chips_per_host=C,
+    )
 
 
 def local_shard_degrees(sharded: ShardedCoo) -> np.ndarray:

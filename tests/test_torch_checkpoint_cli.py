@@ -261,13 +261,3 @@ def test_cli_info_similar_merge_like_jax(edge_file, tmp_path, capsys):
         with open(tmp_path / "m_ref" / name, "rb") as a, \
                 open(tmp_path / "m_ours" / name, "rb") as b:
             assert a.read() == b.read(), name
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["plan", "-i", "x"], "queue A item 7"),
-    (["scaling", "--smoke"], "queue A item 8"),
-    (["scaling"], "queue A item 8"),
-])
-def test_cli_not_ported_commands_say_so(edge_file, argv, match):
-    with pytest.raises(SystemExit, match=match):
-        tcli.main([edge_file if a == "EDGES" else a for a in argv])

@@ -26,7 +26,10 @@ about 7e-6 relative on a row of 5,000 edges); K15 bitwise (the same Philox
 words, comparisons and true divisions); the GCN SpMM's backward (K1 over
 Âᵀ) rtol=1e-5, atol=1e-6, as K1; K16 bitwise (a copy); K1 with a
 separate residual operand as K1; K17 and K18 bitwise (K8's and K12's
-arithmetic on each rank's rows; one nonzero term per summed lane).
+arithmetic on each rank's rows; one nonzero term per summed lane); K19
+rtol=1e-5, atol=1e-6 in float32 and bfloat16 (exact bf16→float32 loads;
+the row sum in another order than the plain version's atomics), and
+bitwise K1 over a round that holds every edge (K1's loop, in K1's order).
 """
 
 import numpy as np
@@ -84,6 +87,8 @@ from cleora_tpu_torch.ops.walk import (
 from cleora_tpu_torch.ops.spmm import (
     CsrMatrix,
     spmm,
+    spmm_acc,
+    spmm_acc_plain,
     spmm_axpy,
     spmm_axpy_plain,
     spmm_plain,
@@ -802,6 +807,117 @@ def test_k1_separate_residual_matches_plain(cuda_device, x_dtype):
     tol = ({"rtol": 1e-5, "atol": 1e-6} if x_dtype == torch.float32
            else {"rtol": 0.0, "atol": 1e-2})
     torch.testing.assert_close(out, spmm_plain(csr, table, 0.3, res), **tol)
+
+
+@cuda
+def test_k16_packs_into_a_given_buffer(cuda_device):
+    x = torch.randn((100, 16), device=cuda_device)
+    idx = torch.randint(0, 100, (2, 9), dtype=torch.int32,
+                        device=cuda_device)
+    out = torch.empty((2, 9, 16), device=cuda_device)
+    assert halo_pack(x, idx, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, halo_pack_plain(x, idx))
+    with pytest.raises(ValueError, match="out must be"):
+        kernels.halo_pack(x, idx, out[:1])
+    with pytest.raises(ValueError, match="share memory"):
+        kernels.halo_pack(x, idx[:, :6].contiguous(),
+                          x.view(-1)[:192].view(2, 6, 16))
+
+
+def _round_arrays(n_rows, n_table, seed, hub_degree=5000):
+    """A round's compact CSR: every third row of ``n_rows``, one of them
+    of degree ``hub_degree``, each row's values summing to at most 1 as
+    in a left-Markov operator (so a row's sum does not cancel far below
+    its terms, where two float32 summation orders part by more than the
+    tolerance)."""
+    rng = np.random.default_rng(seed)
+    row_ids = np.arange(1, n_rows, 3, dtype=np.int32)
+    deg = rng.poisson(5, size=row_ids.shape[0]) + 1
+    deg[3] = hub_degree
+    indptr = np.zeros(row_ids.shape[0] + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    cols = rng.integers(0, n_table, size=int(indptr[-1])).astype(np.int32)
+    vals = (rng.random(int(indptr[-1]))
+            / np.repeat(deg, deg)).astype(np.float32)
+    return row_ids, indptr, cols, vals
+
+
+@pytest.mark.parametrize("d", [7, 64, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@cuda
+def test_k19_matches_plain(cuda_device, d, dtype, offset):
+    """A round over a slab (here 700 rows) into a 3,000-row accumulator,
+    every width class, and a table that starts one element past an
+    aligned address (the scalar path then)."""
+    arrays = _round_arrays(3000, 700, d)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    base = torch.randn((700 * d + offset,), device=cuda_device).to(dtype)
+    table = base[offset:].view(700, d)
+    acc0 = torch.randn((3000, d), device=cuda_device)
+    before = kernels.LAUNCHES["spmm_acc"]
+    got = spmm_acc(acc0.clone(), *args, table)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_acc"] == before + 1
+    want = spmm_acc_plain(acc0.clone(), *args, table)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    untouched = torch.ones(3000, dtype=torch.bool, device=cuda_device)
+    untouched[args[0].long()] = False
+    assert torch.equal(got[untouched], acc0[untouched])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@cuda
+def test_k19_over_every_edge_is_k1(cuda_device, dtype):
+    """Round 0 of one shard holds every edge: into a zero accumulator K19
+    gives K1's output bitwise (the same loop in the same edge order)."""
+    indptr, cols, vals = markov_csr(3000, 4, 2000)
+    x = torch.randn((3000, 256), device=cuda_device).to(dtype)
+    csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
+    deg = np.diff(indptr)
+    rows = np.nonzero(deg)[0].astype(np.int32)
+    compact = np.zeros(rows.shape[0] + 1, dtype=np.int64)
+    np.cumsum(deg[rows], out=compact[1:])
+    acc = torch.zeros((3000, 256), device=cuda_device)
+    spmm_acc(acc, torch.from_numpy(rows).to(cuda_device),
+             torch.from_numpy(compact).to(cuda_device), csr.indices,
+             csr.vals, x)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, spmm(csr, x))
+
+
+@cuda
+def test_k19_empty_round_launches_nothing(cuda_device):
+    acc = torch.randn((10, 8), device=cuda_device)
+    before = acc.clone()
+    n0 = kernels.LAUNCHES["spmm_acc"]
+    empty = [torch.zeros(0, dtype=torch.int32, device=cuda_device),
+             torch.zeros(1, dtype=torch.int64, device=cuda_device),
+             torch.zeros(0, dtype=torch.int32, device=cuda_device),
+             torch.zeros(0, device=cuda_device)]
+    assert spmm_acc(acc, *empty, torch.randn((4, 8), device=cuda_device)) \
+        is acc
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_acc"] == n0 and torch.equal(acc, before)
+
+
+def test_k19_wrapper_rejects_bad_operands():
+    arrays = [torch.from_numpy(a) for a in _round_arrays(30, 7, 0, 9)]
+    acc, table = torch.zeros((30, 4)), torch.zeros((7, 4))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.spmm_acc_(acc, *arrays, table)
+    with pytest.raises(ValueError, match="acc must be a 2-D float32"):
+        kernels.spmm_acc_(acc.double(), *arrays, table)
+    with pytest.raises(ValueError, match="row_ids must be int32"):
+        kernels.spmm_acc_(acc, arrays[0].long(), *arrays[1:], table)
+    with pytest.raises(ValueError, match="acc's width"):
+        kernels.spmm_acc_(acc, *arrays, torch.zeros((7, 5)))
+    with pytest.raises(ValueError, match="indptr int64"):
+        kernels.spmm_acc_(acc, arrays[0], arrays[1].int(), *arrays[2:],
+                          table)
+    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
 def test_k16_wrapper_rejects_bad_operands():

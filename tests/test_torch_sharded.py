@@ -278,9 +278,10 @@ def test_argument_checks(graphs, tmp_path):
         embed_sharded(tdg, propagation="banana", **CPU)
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         embed_sharded(tdg, n_devices=2, **CPU)
-    for mode in ("overlap", "hier"):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            embed_sharded(tdg, halo=mode, **CPU)
+    # several shards: the hierarchical exchange needs make_hier_mesh's grid
+    with pytest.raises(ValueError, match="build it with make_hier_mesh"):
+        embed_sharded(tdg, halo="hier",
+                      mesh=ShardGroup(0, 2, torch.device("cpu")), **CPU)
     with pytest.raises(TypeError, match="SparseMatrix or a DiskGraph"):
         embed_sharded(object(), **CPU)
     # a piece of a sharded build needs its other ranks
