@@ -113,9 +113,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    embed_deepwalk(feature_dim=256, backend="device", cooccurrence="device")
    once untouched and once under the stage stopwatch, the count alone
    (unique pairs within 1 % of the JAX package's 810,145,222 on this
-   corpus shape), the count reductions and the column signs timed alone,
-   K8-K11 against their plain versions at the main path's
-   shapes and timed beside torch.sort and torch.unique_consecutive; and
+   corpus shape; each of the 8 count ranges' fingerprints equal to those of
+   the sort-based merge that K10's merge form replaced), the count
+   reductions and the column signs timed alone, K8-K11 against their plain
+   versions at the main path's shapes and timed beside torch.sort and
+   torch.unique_consecutive, K10's merge form bitwise against its plain
+   version on partition 0's first and last chain merge and timed beside the
+   sort path it replaced (pack, torch.sort, gather, K10's sweep form), the
+   rsvd apply over the 8 PPMI pieces at width 272 by K5's long-row path
+   against the short-row path that served it before (K1 + 7 K5 over every
+   row; max |diff| within 1e-4 of the largest entry), and K5 over one piece
+   against its plain version (rtol=1e-5, atol=1e-6 with the piece's rows
+   made left-Markov, as the card tests hold K5; the PPMI values' own
+   difference logged) and torch.sparse.mm +
+   add_, with both bounds (each input once; one gathered x row an entry);
+   and
    scripts/walk_quality_probe.py's 100,000-node, 50-community planted
    partition, whose centroid accuracy must reach 0.99;
 8. Node2Vec at full width on phase 7's graph: embed_node2vec(feature_dim=
@@ -152,7 +164,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gcn_classify (K1 3 times an epoch and twice an evaluation, K15 twice an
    epoch and once an evaluation); card against CPU on the same embedding:
    label propagation's predictions equal but for near-ties (top two within
-   1e-6), 5 GCN steps at dropout 0.5 and one epoch of the linear probe
+   1e-6), 2 GCN steps at dropout 0.5 (a cut from 5) and one epoch of the
+   linear probe
    with parameters within 1e-4 relative; K14 at C = 47 and 40, K15 at
    width 64 and K1 over the GCN operator's transpose at width 64 on phase
    5's 1,958,363-row graph against their plain versions, timed beside
@@ -237,8 +250,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    timed; (c) K16 over shard 0's send_intra and send_cross of
    plan_halo_hier(shard_graph(graph, 4), 2, 2), bitwise against plain
    and timed; (d) tracing.trace() around one embed() iteration on phase
-   4's graph, in this process (logged) and in a fresh one, whose Chrome
-   trace must name the annotate() span and K1's kernel;
+   4's graph, in this process (logged: late in this process a session
+   records the library's kernels but none of the port's, ROADMAP §C1)
+   and in a fresh one, whose Chrome trace must name the annotate() span
+   and K1's kernel;
    device_memory_stats()'s bytes_limit equal to mem_get_info()'s total;
    (e) plan_report on phase 5's graph ("fits" at P=1) and on phase 7's
    corpus with walks=True (the walk-table mode phase 7 chose), printed;
@@ -298,6 +313,23 @@ WINDOW = 5
 # unique pairs the JAX package counted on this corpus shape (RESULTS.md:
 # 813-838); the port's walks are another stream, so its count is held to 1 %
 JAX_UNIQUE_PAIRS = 810_145_222
+# range_fingerprint of each of phase 7's count ranges as the sort-based
+# chain merge (concatenate, torch.sort, K10) counted them before K10's merge
+# form (scripts/torch_count_probe.py --parent, on an H100): the merge form
+# must give the same ranges
+PHASE7_RANGES = [
+    (101370584, 192705464, -283451686025372627),
+    (101139824, 192280095, -471666219084290650),
+    (101001751, 192037797, -559989136647682646),
+    (101109357, 192200668, -410903413773179449),
+    (101311164, 192606342, -296430078698956060),
+    (101268614, 192490564, -281206758178831419),
+    (101482574, 192935571, -62108586126456443),
+    (101352177, 192714239, -227893189790885466),
+]
+# phase 7's skewed piece: hub rows added to a PPMI piece (time_hub_rows)
+HUB_ROWS = 16
+HUB_ENTRIES = 100_000
 WALK_PARITY_LENGTH = 40
 WALK_PARITY_DIM = 32
 WALK_PARITY_PASSES = 3
@@ -350,7 +382,8 @@ CENTROID_MIN = 0.99
 PROBE_EPOCHS = 10
 GCN_EPOCHS = 200
 LP_ITERATIONS = 30
-GCN_PARITY_EPOCHS = 5
+GCN_PARITY_EPOCHS = 2
+LP_PARITY_ITERATIONS = 10  # the card-vs-CPU check's depth (a cut from 30)
 GCN_HIDDEN = 64
 # K14 at full size: ogbn-products' class count (47) and ogbn-arxiv's (40)
 K14_FULL_WIDTHS = (47, 40)
@@ -390,6 +423,9 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILER_SESSIONS = [0]  # device_busy's sessions in this process
+
+
 def device_busy(what: str, call, per: int, unit: str) -> None:
     """Device busy share of ``call``, and the kernels that take the time
     (per ``unit``, ``per`` of them in the call), from a torch.profiler
@@ -397,6 +433,7 @@ def device_busy(what: str, call, per: int, unit: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    PROFILER_SESSIONS[0] += 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1423,7 +1460,7 @@ def staged_spectral(name: str, call, expected, *targets, keep=None) -> dict:
     return launches
 
 
-def check_blocked_block(alg, graph, dev: torch.device) -> dict:
+def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
     """The kernels of the blocked NetMF and GraRep paths against their
     plain versions at the shapes and on the states those paths give them:
     the first row block of ``graph``, walked step by step as
@@ -1462,6 +1499,18 @@ def check_blocked_block(alg, graph, dev: torch.device) -> dict:
                                 max_err(acc, want_acc))
         y = got
         del want, want_acc, got
+    # K5 at this panel's shape (a NetMF walk step), with both bounds: x,
+    # acc read and acc, out written once; or one gathered x row an entry
+    acc_t = acc.clone()
+    k5_ms = time_ms(lambda: spmm_axpy(csr_pt, y, 1.0, acc=acc_t, d=1.0))
+    del acc_t
+    panel = 4 * n * b
+    once = 8 * (n + 1) + 8 * csr_pt.nnz + 4 * panel
+    gathered = once - panel + 4 * csr_pt.nnz * b
+    log(f"  K5 at the blocked panel ({n}, {b}): {k5_ms:.3f} ms; bounds "
+        f"{once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
+        f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an entry); "
+        f"[{card}]")
     errs["log_clip"] = check_log_clip(acc, deg_dev, s_col, 1.0, 0.0)
     del acc
 
@@ -1600,11 +1649,16 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     # x, z and out move once, acc is read and written
     k5_bytes = 8 * (n + 1) + 8 * nnz + 3 * 4 * n * DIM + 8 * n * DIM
     k5_flops = 2 * nnz * DIM + 7 * n * DIM
+    # one gathered x row an entry in place of each state row once
+    k5_gathered = k5_bytes - 4 * n * DIM + 4 * nnz * DIM
     log(f"K5 D={DIM}: Chebyshev step (z, acc) {k5_ms:.3f} ms (plain "
         f"{k5_plain_ms:.3f}, torch.sparse.mm + 4 elementwise calls "
         f"{k5_lib_ms:.3f}); RandNE step (acc) {k5_randne_ms:.3f} ms; "
         f"x - N x alone {k5_bare_ms:.3f} ms; Katz step at D=136 "
-        f"{k5_katz_ms:.3f} ms; max |err| {k5_err:.3e}; [{card}]")
+        f"{k5_katz_ms:.3f} ms; max |err| {k5_err:.3e}; bounds of the "
+        f"Chebyshev step {k5_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (each "
+        f"input once), {k5_gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x "
+        f"row an entry); [{card}]")
     del csr, x, z, acc
     torch.cuda.empty_cache()
 
@@ -1725,7 +1779,7 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
                                 backend="device", block_rows=BLOCK_ROWS,
                                 power_iters=1)
 
-    blocked_errs = check_blocked_block(alg, gb, dev)
+    blocked_errs = check_blocked_block(alg, gb, dev, card)
     torch.cuda.empty_cache()
     run_spectral("embed_netmf() blocked", netmf_blocked,
                  {"spmm_axpy": blocks * sweeps * 5,
@@ -1792,17 +1846,6 @@ def centroid_accuracy(emb, labels, rng, train_frac=0.5):
     return float(np.mean(pred == labels[te]))
 
 
-def merge_plain(a, b, n: int):
-    """ops/cooccur.py:_merge with K10's plain version."""
-    from cleora_tpu_torch.ops.cooccur import run_length_plain
-
-    keys = torch.cat([a[0].long() * n + a[1], b[0].long() * n + b[1]])
-    keys, order = torch.sort(keys)
-    cen, ctx, cnt, _ = run_length_plain(keys, torch.cat([a[2], b[2]])[order],
-                                        n, 1)
-    return cen, ctx, cnt, int(cen.shape[0])
-
-
 def partition(r, s: int):
     """Partition ``s``'s segment of a sweep reduce's (cen, ctx, cnt, m_per)."""
     start = sum(r[3][:s])
@@ -1837,7 +1880,7 @@ def walk_kernels_vs_plain(g, dev: torch.device, passes: int, label: str):
                                                      passes))
     sorted_keys = torch.sort(keys).values
     del keys
-    got = cooccur.run_length(sorted_keys, None, n, passes)
+    got = cooccur.run_length(sorted_keys, n, passes)
     want = cooccur.run_length_plain(sorted_keys, None, n, passes)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     del want
@@ -1846,7 +1889,7 @@ def walk_kernels_vs_plain(g, dev: torch.device, passes: int, label: str):
               for lo, hi in ((0, h), (h, b))]
     a0, b0 = (partition(r, 0) for r in halves)
     merged = cooccur._merge(a0, b0, n)
-    plain = merge_plain(a0, b0, n)
+    plain = cooccur.merge_plain(a0, b0, n)
     assert all(torch.equal(x, y) for x, y in zip(merged[:3], plain[:3]))
     torch.cuda.synchronize()
     log(f"{label}: K8 walks ({b}, {WALK_LENGTH}), K9 keys "
@@ -2019,15 +2062,16 @@ def walk_full_width(dev: torch.device, card: str) -> list:
             cooccurrence="device")
 
     expected = {"walk_uniform": batches, "pair_enum": batches,
-                "run_length": batches + (batches - 1) * passes,
-                "ppmi": passes, "spmm_csr": applies,
-                "spmm_axpy": applies * (passes - 1)}
+                "run_length": batches,
+                "run_length_merge": (batches - 1) * passes,
+                "ppmi": passes, "spmm_axpy": applies * passes}
     kept = {}
     launches = run_spectral("embed_deepwalk()", deepwalk, expected, kept)
     targets = ((walk, "walk_uniform"), (cooccur, "pair_keys"),
                (torch, "sort"), (cooccur, "run_length"),
                (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
-               (dense, "spmm"), (dense, "spmm_axpy"), (torch.linalg, "qr"),
+               (dense, "spmm_accumulate_"), (cooccur, "_merge"),
+               (torch.linalg, "qr"),
                (torch.linalg, "svd"), (alg, "_finalize_factor"))
     staged_spectral("embed_deepwalk() stopwatch run", deepwalk, expected,
                     *targets)
@@ -2039,8 +2083,9 @@ def walk_full_width(dev: torch.device, card: str) -> list:
                                  batch=batch, resident=True, device=dev)
 
     t0 = time.perf_counter()
-    ranges, m_total = cooccur.device_pair_counts(batches_fn, n, WINDOW,
-                                                 passes=passes, device=dev)
+    with captured_merges(cooccur, passes) as merges:
+        ranges, m_total = cooccur.device_pair_counts(
+            batches_fn, n, WINDOW, passes=passes, device=dev)
     torch.cuda.synchronize()
     count_s = time.perf_counter() - t0
     pairs = cooccur.pair_total(ranges, n)
@@ -2051,6 +2096,9 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     assert abs(m_total / JAX_UNIQUE_PAIRS - 1) <= 0.01, m_total
     log_rsvd_bound(m_total, n, card)
     fingerprints = [range_fingerprint(r, n) for r in ranges]
+    assert fingerprints == PHASE7_RANGES, fingerprints
+    log("  the 8 count ranges' fingerprints (entries, pair sum, weighted key "
+        "sum) equal those the sort-based merge gave on this corpus")
     # the count reductions (the overflow check's minimum, the pair sum)
     # and the column signs of the factor, timed alone
     cnt_min_ms = time_ms(lambda: [r[2].min() for r in ranges])
@@ -2068,7 +2116,12 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     k11_plain_ms = time_ms(lambda: cooccur.ppmi_values_plain(
         cen, ctx, cnt, col, total, n), reps=3, warmup=1)
     k11_bytes = 12 * m0 + 8 * n + 8 + 4 * m0 + 8 * (n + 1)
-    del ranges, cen, ctx, cnt, col, total
+    del cen, ctx, cnt, col, total
+    merge_rows = [time_merge(cooccur, merges[k], n, k, card)
+                  for k in ("first", "last")]
+    del merges
+    apply = time_rsvd_apply(cooccur.ppmi_csrs(ranges, n), n, dev, card)
+    del ranges
     torch.cuda.empty_cache()
 
     # ---- K8-K10 at the main path's batch, against plain, and timed
@@ -2095,7 +2148,7 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     log(f"torch.sort ({keys.shape[0]} int64 keys) {sort_ms:.3f} ms, bound "
         f"{sort_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); [{card}]")
     del keys
-    k10_ms = time_ms(lambda: cooccur.run_length(sorted_keys, None, n,
+    k10_ms = time_ms(lambda: cooccur.run_length(sorted_keys, n,
                                                 passes))
     k10_plain_ms = time_ms(lambda: cooccur.run_length_plain(
         sorted_keys, None, n, passes), reps=3, warmup=1)
@@ -2145,8 +2198,232 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         kernel_row("ppmi", src + "ppmi.cu", "cleora_tpu/ops/cooccur.py:939",
                    k11_ms, k11_plain_ms, None, k11_err, k11_bytes, 0,
                    launches["ppmi"]),
+        kernel_row("run_length_merge", src + "run_length.cu",
+                   "cleora_tpu/ops/cooccur.py:339", merge_rows[-1]["ms"],
+                   merge_rows[-1]["plain_ms"], None, 0.0,
+                   merge_rows[-1]["bytes"], 0, launches["run_length_merge"]),
+        kernel_row("spmm_axpy_long", src + "spmm_axpy.cu",
+                   "cleora_tpu/algorithms.py:2142", apply["k5_ms"],
+                   apply["k5_plain_ms"], apply["k5_lib_ms"], apply["k5_err"],
+                   apply["k5_bytes"], 0, launches["spmm_axpy"]),
     ], g, {"emb": kept["embed_deepwalk()"], "walks": first_batch,
            "m_total": m_total, "ranges": fingerprints, "k8_ms": k8_ms}
+
+
+@contextlib.contextmanager
+def captured_merges(cooccur, passes: int):
+    """Copies of the inputs of partition 0's first and last chain merge
+    while the block counts (one sweep, no skipped partition: partition 0's
+    merges are every ``passes``-th)."""
+    real, seen, calls = cooccur._merge, {}, [0]
+
+    def merge(a, b, n):
+        if calls[0] % passes == 0:
+            seen["last" if "first" in seen else "first"] = tuple(
+                t.clone() for t in (*a[:3], *b[:3]))
+        calls[0] += 1
+        return real(a, b, n)
+
+    cooccur._merge = merge
+    try:
+        yield seen
+    finally:
+        cooccur._merge = real
+
+
+def time_merge(cooccur, inputs, n: int, label: str, card: str) -> dict:
+    """K10's merge form on one captured chain merge: bitwise against its
+    plain version, timed beside the sort that the path it replaces ran
+    first (pack, torch.sort, gather; that path then reduced the sorted
+    entries by the earlier K10, which scripts/torch_count_probe.py
+    --parent times), with its bound (a and b read once at 12 bytes an
+    entry, the output written once)."""
+    a, b = inputs[:3], inputs[3:]
+    got = cooccur._merge(a, b, n)
+    want = cooccur.merge_plain(a, b, n)
+    torch.cuda.synchronize()
+    assert got[3] == want[3] and all(torch.equal(x, y) for x, y in
+                                     zip(got[:3], want[:3]))
+
+    def sort_path():
+        keys = torch.cat([a[0].long() * n + a[1], b[0].long() * n + b[1]])
+        keys, order = torch.sort(keys)
+        return keys, torch.cat([a[2], b[2]])[order]
+
+    row = {"ms": time_ms(lambda: cooccur._merge(a, b, n), reps=5),
+           "sort_ms": time_ms(sort_path, reps=5),
+           "plain_ms": time_ms(lambda: cooccur.merge_plain(a, b, n), reps=2,
+                               warmup=1),
+           "bytes": 12 * (a[0].shape[0] + b[0].shape[0] + got[3])}
+    log(f"  K10 merge form, partition 0's {label} merge ({a[0].shape[0]} + "
+        f"{b[0].shape[0]} -> {got[3]} entries): bitwise its plain version; "
+        f"{row['ms']:.3f} ms (no torch.sort) against the sort path's "
+        f"pack, torch.sort and gather alone {row['sort_ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms; bound "
+        f"{row['bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); [{card}]")
+    return row
+
+
+def time_rsvd_apply(pieces, n: int, dev: torch.device, card: str) -> dict:
+    """The rsvd apply (ops/dense.py:_apply_pieces) over phase 7's PPMI
+    pieces at width DIM + 16, and K5 over one piece: the long-row path
+    (each piece's own rows, x in L2-sized bands) against the short-row
+    path that served it before (K1 on the first piece and K5 over every row
+    of the others) and K5's plain version, with both bounds (each input
+    once; one gathered x row per entry)."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.algorithms import _device_counts_to_embeddings
+    from cleora_tpu_torch.ops import dense
+    from cleora_tpu_torch.ops.spmm import spmm, spmm_axpy, spmm_axpy_plain
+
+    r = DIM + inspect.signature(_device_counts_to_embeddings).parameters[
+        "oversample"].default
+    x = torch.randn((n, r), device=dev)
+
+    def short_rows():  # without a row plan K5 takes its short-row kernel
+        y = spmm(pieces[0], x)
+        for p in pieces[1:]:
+            spmm_axpy(p, x, 1.0, acc=y, d=1.0)
+        return y
+
+    y = dense._apply_pieces(pieces, x)
+    y_short = short_rows()
+    torch.cuda.synchronize()
+    apply_err = max_err(y, y_short)
+    assert apply_err <= 1e-4 * max(1.0, float(y_short.abs().max())), apply_err
+    del y, y_short
+    apply_ms = time_ms(lambda: dense._apply_pieces(pieces, x), reps=3)
+    short_ms = time_ms(short_rows, reps=3)
+    nnz = sum(p.nnz for p in pieces)
+    once = 8 * nnz + 8 * (n + 1) * len(pieces) + 2 * 4 * n * r
+    gathered = 4 * r * nnz
+    piece = pieces[1]
+    acc = torch.randn((n, r), device=dev)
+    want = acc.clone()
+    dense.spmm_accumulate_(piece, x, acc)
+    spmm_axpy_plain(piece, x, 1.0, acc=want, d=1.0)
+    torch.cuda.synchronize()
+    raw_err, raw_top = max_err(acc, want), float(want.abs().max())
+    # K5's tolerance (rtol=1e-5, atol=1e-6: the row sum in another order)
+    # holds on left-Markov rows, as in the card tests: the same piece with
+    # each row's values divided by the row's sum.  The PPMI values
+    # themselves sum 810 terms of either sign to ~1e2, where two float32
+    # orders part by up to ~1e-3 (logged).
+    counts = piece.indptr[1:] - piece.indptr[:-1]
+    sums = torch.zeros(n, device=dev).index_add_(
+        0, torch.repeat_interleave(torch.arange(n, device=dev), counts),
+        piece.vals)
+    markov = piece.with_vals(piece.vals / torch.repeat_interleave(
+        sums.clamp_min(1e-30), counts))
+    acc.copy_(want)
+    dense.spmm_accumulate_(markov, x, acc)
+    spmm_axpy_plain(markov, x, 1.0, acc=want, d=1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-6)
+    k5_err = max_err(acc, want)
+    del markov, sums, counts
+    k5_ms = time_ms(lambda: dense.spmm_accumulate_(piece, x, acc))
+    k5_plain_ms = time_ms(lambda: spmm_axpy_plain(piece, x, 1.0, acc=want,
+                                                  d=1.0), reps=1, warmup=0)
+
+    k5_short_ms = time_ms(lambda: spmm_axpy(piece, x, 1.0, acc=acc, d=1.0))
+    sp = torch.sparse_csr_tensor(piece.indptr.int(), piece.indices,
+                                 piece.vals, (n, n))
+    k5_lib_ms = time_ms(lambda: acc.add_(torch.sparse.mm(sp, x)))
+    del sp
+    m = int(piece.row_plan().rows.shape[0])
+    k5_once = 8 * piece.nnz + 8 * (n + 1) + 4 * m + 8 * m * r + 4 * n * r
+    k5_gathered = 4 * r * piece.nnz + 8 * piece.nnz + 8 * m * r
+    log(f"  rsvd apply over {len(pieces)} PPMI pieces ({nnz} entries, width "
+        f"{r}): {apply_ms:.3f} ms by K5's long-row path against "
+        f"{short_ms:.3f} ms by the short-row path (K1 + "
+        f"{len(pieces) - 1} x K5 over every row), max |diff| "
+        f"{apply_err:.3e}; bounds {once / HBM_BYTES_PER_S * 1e3:.3f} ms (each "
+        f"input once), {gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row "
+        f"from device memory per entry); [{card}]")
+    log(f"  K5 over piece 1 ({m} non-empty rows of {n}, {piece.nnz} entries, "
+        f"width {r}): long-row path {k5_ms:.3f} ms, short-row path "
+        f"{k5_short_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, "
+        f"torch.sparse.mm + add_ {k5_lib_ms:.3f} ms; bounds "
+        f"{k5_once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
+        f"{k5_gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row per "
+        f"entry); against plain: max |diff| {k5_err:.3e} with the rows "
+        f"left-Markov (rtol=1e-5, atol=1e-6), {raw_err:.3e} of max |entry| "
+        f"{raw_top:.3e} on the PPMI values; [{card}]")
+    time_hub_rows(piece, x, n, k5_ms, card)
+    return {"k5_ms": k5_ms, "k5_plain_ms": k5_plain_ms,
+            "k5_lib_ms": k5_lib_ms, "k5_err": k5_err, "k5_bytes": k5_once}
+
+
+def time_hub_rows(piece, x: torch.Tensor, n: int, piece_ms: float,
+                  card: str) -> None:
+    """K5's long-row path on a skewed PPMI piece: phase 7's piece 1 with
+    HUB_ROWS of its empty rows made hubs of HUB_ENTRIES random ascending
+    columns each, every row left-Markov.  The row plan cuts each hub into
+    about HUB_ENTRIES / kernels.LONG_SLICE slices, a warp each, that take
+    the hub's chunks of 32 entries in turn; timed against a plan that cuts
+    no row (a warp a hub), both held to the plain version."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops import dense
+    from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm_axpy_plain
+
+    dev = x.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    lengths = piece.indptr[1:] - piece.indptr[:-1]
+    empty = torch.nonzero(lengths == 0).flatten()
+    hubs = empty[torch.randperm(empty.shape[0], generator=gen,
+                                device=dev)[:HUB_ROWS]]
+    key = torch.cat([
+        torch.repeat_interleave(torch.arange(n, device=dev), lengths) * n
+        + piece.indices.long(),
+        hubs.repeat_interleave(HUB_ENTRIES) * n
+        + torch.randint(0, n, (HUB_ROWS * HUB_ENTRIES,), generator=gen,
+                        device=dev)])
+    key, order = torch.sort(key)
+    vals = torch.cat([piece.vals, torch.rand(HUB_ROWS * HUB_ENTRIES,
+                                             generator=gen, device=dev)])
+    vals = vals[order]
+    del order
+    rows = key // n
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    sums = torch.zeros(n, device=dev).index_add_(0, rows, vals)
+    vals /= sums.clamp_min(1e-30)[rows]
+    cols = (key % n).to(torch.int32)
+    del key, rows, sums
+    want = torch.zeros((n, x.shape[1]), device=dev)
+    spmm_axpy_plain(CsrMatrix(indptr, cols, vals), x, 1.0, acc=want, d=1.0)
+    timed = {}
+    for label, cut in (("cut", kernels.LONG_SLICE), ("whole", 1 << 62)):
+        saved, kernels.LONG_SLICE = kernels.LONG_SLICE, cut
+        try:
+            skew = CsrMatrix(indptr, cols, vals)
+            plan = skew.row_plan()  # built with this slice length
+        finally:
+            kernels.LONG_SLICE = saved
+        acc = torch.zeros_like(want)
+        dense.spmm_accumulate_(skew, x, acc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-6)
+        err = max_err(acc, want)
+        timed[label] = (time_ms(lambda: dense.spmm_accumulate_(skew, x, acc)),
+                        int(plan.whole.shape[0] + plan.item_rows.shape[0]),
+                        int(plan.split.shape[0]), err)
+        del skew, plan, acc
+    r = x.shape[1]
+    nnz = cols.shape[0]
+    gathered = 4 * r * nnz + 8 * nnz
+    log(f"  K5 over piece 1 with {HUB_ROWS} hub rows of {HUB_ENTRIES} "
+        f"entries ({nnz} entries, width {r}, left-Markov): hubs cut into "
+        f"{-(-HUB_ENTRIES // kernels.LONG_SLICE)} slices each "
+        f"({timed['cut'][1]} warps, {timed['cut'][2]} rows cut) "
+        f"{timed['cut'][0]:.3f} ms, a warp a "
+        f"row ({timed['whole'][1]} warps) {timed['whole'][0]:.3f} ms; "
+        f"piece 1 without hubs {piece_ms:.3f} ms; max |diff| against plain "
+        f"{timed['cut'][3]:.3e} / {timed['whole'][3]:.3e} (rtol=1e-5, "
+        f"atol=1e-6); bound {gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one "
+        f"x row per entry); [{card}]")
 
 
 def range_fingerprint(r, n: int) -> tuple:
@@ -2311,19 +2588,19 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
             cooccurrence="device", factorization="device")
 
     expected = {"walk_p_q": batches, "pair_enum": batches,
-                "run_length": batches + (batches - 1) * passes,
-                "ppmi": passes, "spmm_csr": applies,
-                "spmm_axpy": applies * (passes - 1)}
+                "run_length": batches,
+                "run_length_merge": (batches - 1) * passes,
+                "ppmi": passes, "spmm_axpy": applies * passes}
     launches = run_spectral("embed_node2vec()", node2vec, expected)
     groups = {"K12 walks": ("walk_p_q",),
-              "counting": ("pair_keys", "sort", "run_length"),
+              "counting": ("pair_keys", "sort", "run_length", "_merge"),
               "PPMI": ("ppmi_colsum_", "ppmi_values"),
-              "rsvd products": ("spmm", "spmm_axpy"),
+              "rsvd products": ("spmm_accumulate_",),
               "QR/SVD": ("qr", "svd"), "finalize": ("_finalize_factor",)}
     with stopwatch((walk, "walk_p_q"), (cooccur, "pair_keys"),
                    (torch, "sort"), (cooccur, "run_length"),
                    (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
-                   (dense, "spmm"), (dense, "spmm_axpy"),
+                   (dense, "spmm_accumulate_"), (cooccur, "_merge"),
                    (torch.linalg, "qr"), (torch.linalg, "svd"),
                    (alg, "_finalize_factor")) as stages:
         t0 = time.perf_counter()
@@ -2346,8 +2623,8 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
                                   resident=True, device=dev)
 
     t0 = time.perf_counter()
-    ranges, m_total = cooccur.device_pair_counts(batches_fn, n, WINDOW,
-                                                 passes=passes, device=dev)
+    ranges, m_total = cooccur.device_pair_counts(
+        batches_fn, n, WINDOW, passes=passes, device=dev)
     torch.cuda.synchronize()
     count_s = time.perf_counter() - t0
     pairs = cooccur.pair_total(ranges, n)
@@ -2798,17 +3075,17 @@ def node_classification(dev: torch.device, card: str, big) -> list:
     f_dev = cl._propagate_labels(
         CsrMatrix.from_coo(rows, cols, svals, n, dev),
         torch.from_numpy(Y).to(dev), torch.from_numpy(labeled).to(dev), 0.5,
-        LP_ITERATIONS).cpu().numpy()
+        LP_PARITY_ITERATIONS).cpu().numpy()
     t0 = time.perf_counter()
     f_cpu = cl._propagate_labels(
         CsrMatrix.from_coo(rows, cols, svals, n, "cpu"), torch.from_numpy(Y),
-        torch.from_numpy(labeled), 0.5, LP_ITERATIONS).numpy()
+        torch.from_numpy(labeled), 0.5, LP_PARITY_ITERATIONS).numpy()
     top2 = np.sort(f_cpu, axis=1)[:, -2:]
     tie = top2[:, 1] - top2[:, 0] <= 1e-6
     same = f_dev.argmax(1) == f_cpu.argmax(1)
     assert np.all(same | tie), int((~same & ~tie).sum())
-    log(f"  label propagation card vs CPU ({time.perf_counter() - t0:.3f} s "
-        f"on the CPU): max |F err| {np.abs(f_dev - f_cpu).max():.3e}, "
+    log(f"  label propagation card vs CPU, {LP_PARITY_ITERATIONS} iterations "
+        f"({time.perf_counter() - t0:.3f} s on the CPU): max |F err| {np.abs(f_dev - f_cpu).max():.3e}, "
         f"predictions equal on {same.mean():.6f} of rows, every other row a "
         f"near-tie ({int(tie.sum())} rows within 1e-6)")
 
@@ -3574,9 +3851,9 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
 
         expected = {"walk_owned": batches * (WALK_LENGTH - 1),
                     "pair_enum": batches,
-                    "run_length": batches + (batches - 1) * passes,
-                    "ppmi": passes, "spmm_csr": applies,
-                    "spmm_axpy": applies * (passes - 1)}
+                    "run_length": batches,
+                    "run_length_merge": (batches - 1) * passes,
+                    "ppmi": passes, "spmm_axpy": applies * passes}
         counted = {}
         real_counts = alg.device_pair_counts
 
@@ -3629,9 +3906,9 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
         n2v_batches = -(-int((deg > 0).sum()) * N2V_WALKS // alg._WALK2_BATCH)
         n2v_passes = alg._cooc_passes(g, N2V_WALKS, WALK_LENGTH, WINDOW)
         want = {"pair_enum": n2v_batches,
-                "run_length": n2v_batches + (n2v_batches - 1) * n2v_passes,
-                "ppmi": n2v_passes, "spmm_csr": applies,
-                "spmm_axpy": applies * (n2v_passes - 1)}
+                "run_length": n2v_batches,
+                "run_length_merge": (n2v_batches - 1) * n2v_passes,
+                "ppmi": n2v_passes, "spmm_axpy": applies * n2v_passes}
         alg.device_pair_counts = counts
         try:
             n2v_launches = staged_spectral(
@@ -3644,8 +3921,8 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                     walk_tables="sharded"),
                 None, (walk, "walk_p_q_sharded"), (cooccur, "pair_keys"),
                 (torch, "sort"), (cooccur, "run_length"),
-                (cooccur, "ppmi_values"), (dense, "spmm"),
-                (dense, "spmm_axpy"), (torch.linalg, "qr"),
+                (cooccur, "ppmi_values"), (dense, "spmm_accumulate_"),
+                (cooccur, "_merge"), (torch.linalg, "qr"),
                 (torch.linalg, "svd"), (alg, "_finalize_factor"))
         finally:
             alg.device_pair_counts = real_counts
@@ -4040,18 +4317,21 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
     import tempfile
 
     span, kernels, n_events = traced_embed_iteration()
-    here = f"{len(kernels)} kernel launches, K1 " + (
-        "among them" if any("spmm_csr" in k for k in kernels) else "NOT among "
-        "them (a fresh process below is held to it)")
-    span, kernels, n_events = traced_embed_iteration(fresh_process=True)
-    assert span, "the trace lacks the annotate() span"
-    assert any("spmm_csr" in k for k in kernels), \
-        f"the trace names no K1 kernel: {sorted(set(kernels))[:8]}"
+    in_process = sum("spmm_csr" in k for k in kernels)
+    here = (f"{len(kernels)} kernel launches, K1 {in_process} of them"
+            if in_process else f"{len(kernels)} kernel launches, K1 NOT "
+            "among them (ROADMAP §C1; a fresh process below is held to it)")
+    span_f, kernels_f, n_events_f = traced_embed_iteration(fresh_process=True)
+    for s_, k_ in ((span, kernels), (span_f, kernels_f)):
+        assert s_, "the trace lacks the annotate() span"
+    assert any("spmm_csr" in k for k in kernels_f), \
+        f"the trace names no K1 kernel: {sorted(set(kernels_f))[:8]}"
     stats = device_memory_stats()
     assert stats[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
-    log(f"  (d) trace() of one embed() iteration: in this process {here}; "
-        f"in a fresh process {n_events} events, {len(kernels)} kernel "
-        "launches, naming the annotate() span and K1's kernel; "
+    log(f"  (d) trace() of one embed() iteration after {PROFILER_SESSIONS[0]}"
+        f" earlier profiler sessions in this process: {n_events} events, "
+        f"{here}; in a fresh process {n_events_f} events, {len(kernels_f)} "
+        "kernel launches, naming the annotate() span and K1's kernel; "
         f"device_memory_stats(): {stats[0]}")
 
     # ---- (e) the capacity plan

@@ -35,9 +35,10 @@ and Node2Vec run on the card as walks (kernel K8,
 ``kernels/walk_uniform.cu``, for DeepWalk and Node2Vec with ``p == q ==
 1``; kernel K12, ``kernels/walk_p_q.cu``, the second-order p/q walk, for
 any other p, q), co-occurrence counts on the host or on the card (kernels
-K9 ``pair_enum.cu`` and K10 ``run_length.cu`` around ``torch.sort``,
-``ops/cooccur.py``), the PPMI transform (K11 ``ppmi.cu``) and a randomized
-SVD whose products are K1 and K5.  Over a shard group the walk tables may
+K9 ``pair_enum.cu``, ``torch.sort`` and K10 ``run_length.cu``, whose merge
+form chain-merges the partitions without a sort, ``ops/cooccur.py``), the
+PPMI transform (K11 ``ppmi.cu``) and a randomized SVD whose products are
+K5 over each piece's own rows.  Over a shard group the walk tables may
 be cut by rows (kernels K17 ``walk_owned.cu`` and K18 ``walk2_owned.cu``,
 the owner-routed hops), the counts stay on the rank that counted them and
 the factorization may run there (``parallel/cooccur.py``).
@@ -1523,8 +1524,9 @@ def _device_counts_to_embeddings(ranges, m_total, n, feature_dim, seed,
     """PPMI + randomized SVD over device-resident count ranges
     (cleora_tpu/algorithms.py:2668-2737).  Each range becomes one CSR of
     the PPMI matrix in original row order (kernel K11), and each product of
-    the rsvd is K1 on the first range plus K5 with ``acc`` on the others:
-    the ranges are row-disjoint, so the sum is exact.  The sketch omega is
+    the rsvd adds every range into a zeroed product by K5 with ``acc``,
+    over the range's own rows: the ranges are row-disjoint, so the sum is
+    exact.  The sketch omega is
     drawn on the host from ``default_rng(seed ^ 0x5EED)`` in float32, so the
     card and ``device="cpu"`` factor the same sketch.  Consumes ``ranges``.
     ``out`` streams the result into a ``.npy``."""

@@ -16,14 +16,16 @@ only; the plain PyTorch versions live beside their callers in ``ops/``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import build
 
-LAUNCHES = {name: 0 for name in build.KERNELS}
+# the launch counters: one a kernel library, and one for K10's merge form
+COUNTERS = (*build.KERNELS, "run_length_merge")
+LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
 def reset_launches() -> None:
@@ -48,12 +50,21 @@ _ARGTYPES = {
     "edge_attention": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
                        _c.c_int, _c.c_void_p],
-    # indptr, indices, vals, x, self, z, acc, out, n_rows, d, a, b, c, dd,
-    # vec4, stream
+    # indptr, rows, indices, vals, x, self, z, acc, out, n_rows, d, a, b, c,
+    # dd, vec4, stream
     "spmm_axpy": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                   _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                  _c.c_int64, _c.c_int64, _c.c_float, _c.c_float, _c.c_float,
-                  _c.c_float, _c.c_int, _c.c_void_p],
+                  _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
+                  _c.c_float, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # indptr, whole, n_whole, item_rows, item_starts, item_cuts, n_items,
+    # split, n_split, indices, vals, x, acc, d, a, dd, vec4, x_rows,
+    # band_rows, cursor, part, stream
+    "spmm_axpy_long": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                       _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                       _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_float, _c.c_float,
+                       _c.c_int, _c.c_int64, _c.c_int64, _c.c_void_p,
+                       _c.c_void_p, _c.c_void_p],
     # indptr, indices, vals, p, deg, vol, n, vec4, stream
     "dense_markov": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                      _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
@@ -78,12 +89,13 @@ _ARGTYPES = {
     # walks, batch, walk_length, n_valid, n, passes, window, keys, stream
     "pair_enum": [_c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p, _c.c_void_p],
-    # keys, len, heads, stream
-    "run_length_heads": [_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_void_p],
-    # keys, counts, heads, pos, len, n, passes, cen, ctx, cnt, m_per, stream
-    "run_length": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                   _c.c_int64, _c.c_int64, _c.c_int, _c.c_void_p,
-                   _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p],
+    # keys, len, n, passes, vec, scratch, out, stream
+    "run_length": [_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int, _c.c_int,
+                   _c.c_void_p, _c.c_void_p, _c.c_void_p],
+    # cen_a, ctx_a, cnt_a, ma, cen_b, ctx_b, cnt_b, mb, scratch, out, stream
+    "run_length_merge": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                         _c.c_void_p, _c.c_void_p, _c.c_void_p],
     # ctx, cnt, m, col, total, stream
     "ppmi_colsum": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
                     _c.c_void_p, _c.c_void_p],
@@ -151,13 +163,20 @@ _ARGTYPES = {
 }
 
 
+_BOUND = {}
+
+
 def _bound(name: str, entry: Optional[str] = None):
     """The launch function ``<entry>_launch`` of kernel library ``name``
-    (``entry`` defaults to ``name``; K10 and K11 export two)."""
+    (``entry`` defaults to ``name``; K5, K10 and K11 export two), bound
+    once."""
     entry = entry or name
-    fn = getattr(build.load(name), f"{entry}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[entry]
+    fn = _BOUND.get(entry)
+    if fn is None:
+        fn = getattr(build.load(name), f"{entry}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[entry]
+        _BOUND[entry] = fn
     return fn
 
 
@@ -325,16 +344,82 @@ def _overlap(s: torch.Tensor, t: torch.Tensor) -> bool:
     return s0 < t1 and t0 < s1
 
 
+# K5's long-row path, taken on a row plan (the rsvd apply's route) where a
+# row is wide enough to give each lane of a warp a float4 and the plan's
+# rows hold at least LONG_BAND_ENTRIES entries a band of x on average.  x
+# is walked in bands of about BAND_BYTES (the 50 MB L2 keeps a band while
+# every row gathers from it: 24 MB was the fastest of 6-48 MB on phase 7's
+# rsvd apply), and every row pays for each band (its cursor and its partial
+# sums), so the long-row kernel wins only where a row has enough entries in
+# each band: on an H100 at width 272 it took 8.0 ms against the short-row
+# kernel's 12.4 at 17.6 entries a row a band, and 35.5 against 12.9 at 2.8
+# (the crossover near 9).  A row of more than LONG_SLICE entries is cut into
+# ceil(entries / LONG_SLICE) slices, a warp each, which take the row's
+# chunks of 32 entries in turn.  scripts/torch_count_probe.py measures all
+# three.
+LONG_BAND_ENTRIES = 10
+LONG_ROW_MIN_WIDTH = 128
+BAND_BYTES = 24 << 20
+LONG_SLICE = 4096
+
+
+class RowPlan(NamedTuple):
+    """The rows of a CSR that hold entries, each with ascending columns,
+    and the slices of its long rows for K5's long-row kernel."""
+    rows: torch.Tensor         # int32 (m,): the non-empty rows, ascending
+    whole: torch.Tensor        # int32: the rows not cut, ascending
+    item_rows: torch.Tensor    # int32: each slice's row, a row's adjacent
+    item_starts: torch.Tensor  # int64: the first entry of each slice's
+                               # first chunk of 32
+    item_cuts: torch.Tensor    # int32: the slices of each slice's row
+    split: torch.Tensor        # int32: the first slice of each cut row
+
+
+def row_plan(indptr: torch.Tensor,
+             indices: torch.Tensor) -> Optional[RowPlan]:
+    """The :class:`RowPlan` of a CSR, on its device (one host read of the
+    number of slices), or None when some row's columns do not ascend.  A
+    row of L > LONG_SLICE entries becomes K = ceil(L / LONG_SLICE) slices
+    (at most one a chunk of 32 entries); slice j takes chunks j, j + K,
+    j + 2K, ..."""
+    if not columns_ascend(indptr, indices):
+        return None
+    lengths = indptr[1:] - indptr[:-1]
+    rows = torch.nonzero(lengths).flatten()
+    lens = lengths[rows]
+    cuts = torch.minimum((lens + LONG_SLICE - 1) // LONG_SLICE,
+                         (lens + 31) // 32)
+    many = cuts > 1
+    cut_rows, cuts = rows[many], cuts[many]
+    item_rows = torch.repeat_interleave(cut_rows, cuts)
+    first = torch.cumsum(cuts, 0) - cuts  # each cut row's first slice
+    k = (torch.arange(item_rows.shape[0], device=rows.device)
+         - torch.repeat_interleave(first, cuts))
+    return RowPlan(rows.to(torch.int32), rows[~many].to(torch.int32),
+                   item_rows.to(torch.int32), indptr[item_rows] + 32 * k,
+                   torch.repeat_interleave(cuts, cuts).to(torch.int32),
+                   first.to(torch.int32))
+
+
 def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
               x: torch.Tensor, a: float, b: float = 0.0,
               z: Optional[torch.Tensor] = None, c: float = 0.0,
               acc: Optional[torch.Tensor] = None, d: float = 0.0,
-              self_: Optional[torch.Tensor] = None) -> torch.Tensor:
+              self_: Optional[torch.Tensor] = None,
+              rows: Optional[RowPlan] = None) -> Optional[torch.Tensor]:
     """K5: ``out = a·(A @ x) + b·s + c·z`` (A in CSR) as a new float32
     (N, D) tensor, and ``acc += d·out`` in place when ``acc`` is given.
     ``s`` is ``self_`` (default ``x``): the sharded siblings gather from a
     table that is not the shard's own rows, and the table may have any
-    number of rows."""
+    number of rows.
+
+    ``rows`` (A's :class:`RowPlan`, :func:`row_plan`) touches A's non-empty
+    rows only: it needs ``acc``, ``b == 0`` and no ``z`` (a row without
+    entries then adds 0 to ``acc``), writes no ``out`` and returns None.
+    With a plan whose rows hold at least :data:`LONG_BAND_ENTRIES` entries
+    a band of x on average (x cut into bands of :data:`BAND_BYTES`), at a
+    width of at least :data:`LONG_ROW_MIN_WIDTH`, the long-row kernel runs,
+    which walks x band by band; otherwise the short-row kernel."""
     name = "spmm_axpy"
     n = indptr.shape[0] - 1
     _require_csr(name, indptr, indices, vals)
@@ -354,20 +439,78 @@ def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     _require(acc is None or not any(_overlap(acc, t) for t in (x, self_, z)
                                     if t is not None),
              f"{name}: acc must not share memory with x, self_ or z")
-    _require_cuda_contiguous(name, x.device, indptr, indices, vals, *dense)
+    plan = []
+    if rows is not None:
+        _require(acc is not None and float(b) == 0.0 and z is None,
+                 f"{name}: rows needs acc, b == 0 and no z")
+        plan = list(rows)
+        _require(all(t.dim() == 1 for t in plan)
+                 and rows.item_starts.dtype == torch.int64
+                 and all(t.dtype == torch.int32 for t in
+                         (rows.rows, rows.whole, rows.item_rows,
+                          rows.item_cuts, rows.split))
+                 and rows.item_rows.shape == rows.item_starts.shape
+                 == rows.item_cuts.shape,
+                 f"{name}: rows must be a RowPlan of 1-D int32/int64 "
+                 "tensors")
+    _require_cuda_contiguous(name, x.device, indptr, indices, vals, *dense,
+                             *plan)
     width = x.shape[1]
-    out = torch.empty((n, width), dtype=torch.float32, device=x.device)
-    vec4 = width % 4 == 0 and _aligned16(out, *dense)
-    fn = _bound(name)
+    n_work = n if rows is None else rows.rows.shape[0]
+    out = None
+    if rows is None:
+        out = torch.empty((n, width), dtype=torch.float32, device=x.device)
+        dense.append(out)
+    vec4 = width % 4 == 0 and _aligned16(*dense)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    band_rows = max(1, BAND_BYTES // (4 * width))
+    bands = -(-x.shape[0] // band_rows)
+    long_rows = (rows is not None and width >= LONG_ROW_MIN_WIDTH
+                 and indices.shape[0]
+                 >= LONG_BAND_ENTRIES * bands * max(1, n_work))
     with torch.cuda.device(x.device):
-        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
-                x.data_ptr(), s.data_ptr(),
-                None if z is None else z.data_ptr(),
-                None if acc is None else acc.data_ptr(), out.data_ptr(),
-                n, width, float(a), float(b), float(c), float(d), int(vec4),
-                torch.cuda.current_stream(x.device).cuda_stream)
+        if not long_rows:
+            rc = _bound(name)(
+                indptr.data_ptr(),
+                None if rows is None else rows.rows.data_ptr(),
+                indices.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                s.data_ptr(), None if z is None else z.data_ptr(),
+                None if acc is None else acc.data_ptr(),
+                None if out is None else out.data_ptr(), n_work, width,
+                float(a), float(b), float(c), float(d), int(vec4), stream)
+        else:
+            whole, items = rows.whole.shape[0], rows.item_rows.shape[0]
+            work = whole + items
+            cursor = part = None
+            if bands > 1:
+                cursor = torch.empty((work * -(-width // 256),),
+                                     dtype=torch.int64, device=x.device)
+            if bands > 1 or items:
+                part = torch.empty((work, width), dtype=torch.float32,
+                                   device=x.device)
+            rc = _bound(name, "spmm_axpy_long")(
+                indptr.data_ptr(), rows.whole.data_ptr(), whole,
+                rows.item_rows.data_ptr(), rows.item_starts.data_ptr(),
+                rows.item_cuts.data_ptr(), items, rows.split.data_ptr(),
+                rows.split.shape[0], indices.data_ptr(), vals.data_ptr(),
+                x.data_ptr(), acc.data_ptr(), width, float(a), float(d),
+                int(vec4), x.shape[0], band_rows,
+                None if cursor is None else cursor.data_ptr(),
+                None if part is None else part.data_ptr(), stream)
+            del cursor, part
     _check_launch(name, rc)
     return out
+
+
+def columns_ascend(indptr: torch.Tensor, indices: torch.Tensor) -> bool:
+    """Whether every row's column indices ascend (one pass over them)."""
+    if indices.shape[0] < 2:
+        return True
+    step = indices[1:] >= indices[:-1]
+    starts = indptr[1:-1]
+    starts = starts[(starts > 0) & (starts < indices.shape[0])]
+    step[starts - 1] = True  # a row's first entry follows another row's
+    return bool(step.all())
 
 
 def dense_markov(indptr: torch.Tensor, indices: torch.Tensor,
@@ -571,49 +714,75 @@ def pair_enum(walks: torch.Tensor, n_valid: int, n: int, window: int,
     return keys
 
 
-_MAX_PASSES = 8192  # run_reduce's per-block partition counts: 32 KB shared
+_TILE = 2048  # keys (or merged entries) a block of K10 reduces (kTile)
 
 
-def run_length(keys: torch.Tensor, counts: Optional[torch.Tensor], n: int,
-               passes: int):
-    """K10: the runs of ascending int64 ``keys`` (INT64_MAX = dead, at the
-    end) as exactly sized int32 ``(cen, ctx, cnt)`` in key order, with
-    ``cnt`` the run's sum of ``counts`` (int32, or 1 each when None) modulo
-    2³², and int32 ``m_per`` (passes,), the runs of each partition.  A call
-    launches the head-marking kernel, ``torch.cumsum`` and the reduce
-    kernel."""
+def run_length(keys: torch.Tensor, n: int, passes: int):
+    """K10, sweep form: the runs of ascending int64 ``keys`` (INT64_MAX =
+    dead, at the end) as int32 ``(cen, ctx, cnt)`` in key order, with
+    ``cnt`` the run's length, and int32 ``m_per`` (passes,), the runs of
+    each partition.  One launch; the outputs are views of a worst-case
+    buffer (one run a key) narrowed to the runs, which costs one read of
+    their number by the host."""
     name = "run_length"
     _require(keys.dtype == torch.int64 and keys.dim() == 1,
              f"{name}: keys must be a 1-D int64 tensor")
-    _require(counts is None or (counts.dtype == torch.int32
-                                and counts.shape == keys.shape),
-             f"{name}: counts must be int32 with one entry per key")
-    _require(1 <= passes <= _MAX_PASSES,
-             f"{name}: passes must be in [1, {_MAX_PASSES}]")
+    _require(1 <= passes < 1 << 31, f"{name}: passes must be at least 1")
     _require(keys.shape[0] < 1 << 31, f"{name}: at most 2^31 - 1 keys")
-    dense = [keys] + ([] if counts is None else [counts])
-    _require_cuda_contiguous(name, keys.device, *dense)
+    _require_cuda_contiguous(name, keys.device, keys)
     dev = keys.device
     length = keys.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    heads = torch.empty((length,), dtype=torch.int32, device=dev)
+    tiles = -(-length // _TILE)
+    out = torch.empty((3, length), dtype=torch.int32, device=dev)
+    # the look-back's status words and tile counter, then the partitions'
+    # first runs (zeroed by the launch)
+    scratch = torch.empty((tiles + passes + 2,), dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
-        rc = _bound(name, "run_length_heads")(keys.data_ptr(), length,
-                                              heads.data_ptr(), stream)
-    _check_rc(name, rc)
-    pos = torch.cumsum(heads, 0, dtype=torch.int32)
-    m = int(pos[-1]) if length else 0
-    cen, ctx, cnt = (torch.empty((m,), dtype=torch.int32, device=dev)
-                     for _ in range(3))
-    m_per = torch.zeros((passes,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _bound(name)(keys.data_ptr(),
-                          None if counts is None else counts.data_ptr(),
-                          heads.data_ptr(), pos.data_ptr(), length, int(n),
-                          int(passes), cen.data_ptr(), ctx.data_ptr(),
-                          cnt.data_ptr(), m_per.data_ptr(), stream)
+        rc = _bound(name)(keys.data_ptr(), length, int(n), int(passes),
+                          int(_aligned16(keys)), scratch.data_ptr(),
+                          out.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(name, rc)
-    return cen, ctx, cnt, m_per
+    bounds = scratch[tiles + 1:]
+    # queued before the host waits for the number of runs
+    m_per = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    m = int(bounds[-1])
+    return (*out[:, :m].unbind(0), m_per)
+
+
+def run_length_merge(a, b):
+    """K10, merge form: the union of two count ranges ``(cen, ctx, cnt)``,
+    each sorted by (cen, ctx) with unique pairs, as int32 ``(cen, ctx,
+    cnt, m)`` sorted by (cen, ctx), a pair of both ranges once with its
+    counts summed modulo 2³²: what a sort of the concatenation and the
+    sweep form compute, by a merge path instead of a sort.  The outputs
+    are views of an ``|a| + |b|``-entry buffer narrowed to the ``m``
+    entries (one read of ``m`` by the host)."""
+    name = "run_length_merge"
+    for t in (*a[:3], *b[:3]):
+        _require(t.dtype == torch.int32 and t.dim() == 1,
+                 f"{name}: cen, ctx and cnt must be 1-D int32 tensors")
+    ma, mb = a[0].shape[0], b[0].shape[0]
+    _require(all(t.shape[0] == ma for t in a[:3])
+             and all(t.shape[0] == mb for t in b[:3]),
+             f"{name}: cen, ctx and cnt of a range differ in length")
+    _require(ma + mb < 1 << 31, f"{name}: at most 2^31 - 1 entries")
+    dev = a[0].device
+    _require_cuda_contiguous(name, dev, *a[:3], *b[:3])
+    total = ma + mb
+    tiles = -(-total // _TILE)
+    out = torch.empty((3, total), dtype=torch.int32, device=dev)
+    # status words, tile counter, the merge's length, each tile's split
+    scratch = torch.empty((2 * tiles + 3,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _bound("run_length", name)(
+            *(t.data_ptr() for t in a[:3]), ma,
+            *(t.data_ptr() for t in b[:3]), mb, scratch.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(name, rc)
+    m = int(scratch[tiles + 1])
+    return (*out[:, :m].unbind(0), m)
 
 
 def ppmi_colsum_(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,

@@ -9,10 +9,11 @@ branches).  The walks stay on the device; per walk batch:
    one ascending sort orders the batch by hash partition, center, context;
 2. ``torch.sort`` sorts the keys (a library call, as ``lax.sort`` is an XLA
    primitive in the JAX program);
-3. kernel K10 (``kernels/run_length.cu``) reduces the runs to exactly sized
+3. kernel K10 (``kernels/run_length.cu``) reduces the runs in one pass to
    (cen, ctx, cnt) triples and counts each partition's runs; every
-   partition's segment is chain-merged into its accumulator (concatenate,
-   sort with the counts as payload, K10 again).
+   partition's segment is chain-merged into its accumulator by K10's merge
+   form, a merge path over the two sorted ranges (the JAX program sorts
+   their concatenation again; no sort is needed).
 
 Partition ``s`` holds the centers with ``cen % passes == s``, so the ranges
 are row-disjoint.  ``passes`` bounds one partition's merge working set, as
@@ -82,20 +83,21 @@ def pair_keys_plain(walks: torch.Tensor, n_valid: int, n: int, window: int,
 
 
 # ---------------------------------------------------- K10: run-length reduce
-def run_length(keys: torch.Tensor, counts: Optional[torch.Tensor], n: int,
-               passes: int):
-    """``(cen, ctx, cnt, m_per)`` of the runs of ascending ``keys``.  On
-    CUDA this launches K10; on the CPU it runs :func:`run_length_plain`."""
+def run_length(keys: torch.Tensor, n: int, passes: int):
+    """``(cen, ctx, cnt, m_per)`` of the runs of ascending ``keys``, a run's
+    count its length.  On CUDA this launches K10's sweep form; on the CPU it
+    runs :func:`run_length_plain`."""
     if keys.is_cuda:
-        return kernels.run_length(keys, counts, n, passes)
-    return run_length_plain(keys, counts, n, passes)
+        return kernels.run_length(keys, n, passes)
+    return run_length_plain(keys, None, n, passes)
 
 
 def run_length_plain(keys: torch.Tensor, counts: Optional[torch.Tensor],
                      n: int, passes: int):
-    """Plain PyTorch version of K10: the run heads, a cumsum, an int64
-    ``index_add_`` of the counts wrapped to int32 (the JAX program's int32
-    ``segment_sum``), the decoded heads and a bincount of partitions."""
+    """Plain PyTorch version of K10's sweep form: the run heads, a cumsum,
+    an int64 ``index_add_`` of the counts wrapped to int32 (the JAX
+    program's int32 ``segment_sum``), the decoded heads and a bincount of
+    partitions."""
     live = keys != _DEAD
     head = live.clone()
     head[1:] &= keys[1:] != keys[:-1]
@@ -124,19 +126,28 @@ def _reduce_sweep(walks: torch.Tensor, pad: int, n: int, window: int,
         part = torch.clamp(keys // (n * n), max=passes)  # INT64_MAX: passes
         keys = keys[torch.cat([keep, keep.new_zeros(1)])[part]]
     keys = torch.sort(keys).values
-    cen, ctx, cnt, m_per = run_length(keys, None, n, passes)
+    cen, ctx, cnt, m_per = run_length(keys, n, passes)
     return cen, ctx, cnt, [int(v) for v in m_per.cpu()]
 
 
 def _merge(a, b, n: int):
-    """Sort-reduce two ranges of one partition into one
-    (``_merge_impl``): the (cen, ctx) pairs packed as ``cen·n + ctx``,
-    sorted with the counts as payload, reduced by K10."""
+    """Merge two ranges of one partition into one (``_merge_impl``, which
+    sorts their concatenation): on CUDA K10's merge form, a merge path
+    over the two sorted ranges; on the CPU :func:`merge_plain`."""
+    if a[0].is_cuda:
+        return kernels.run_length_merge(a, b)
+    return merge_plain(a, b, n)
+
+
+def merge_plain(a, b, n: int):
+    """Plain PyTorch version of K10's merge form, the JAX program's order:
+    the (cen, ctx) pairs packed as ``cen·n + ctx``, sorted with the counts
+    as payload, reduced by :func:`run_length_plain`."""
     keys = torch.cat([a[0].long() * n + a[1], b[0].long() * n + b[1]])
     keys, order = torch.sort(keys)
     counts = torch.cat([a[2], b[2]])[order]
     del order
-    cen, ctx, cnt, m_per = run_length(keys, counts, n, 1)
+    cen, ctx, cnt, _ = run_length_plain(keys, counts, n, 1)
     return cen, ctx, cnt, int(cen.shape[0])
 
 
@@ -164,6 +175,8 @@ def _run_sweep(batches_fn, passes: int, n: int, window: int, skip=()):
                 r_s = (cen[start:end], ctx[start:end], cnt[start:end], m_s)
                 acc[s] = r_s if acc[s] is None else _merge(acc[s], r_s, n)
             start = end
+        # the batch's buffer lives on only in the ranges that still view it
+        r_s = None
         del cen, ctx, cnt
     return acc if seen else None
 

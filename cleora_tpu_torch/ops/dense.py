@@ -5,7 +5,7 @@ Counterpart of cleora_tpu/algorithms.py:376-404: the dense transition
 matrix scattered from the sparse one (kernel K6), the scaled log-clip
 (kernel K7) and the randomized ``U_k·√S_k``; and of the walk pipeline's
 unfused randomized SVD of the sparse PPMI matrix (``_rsvd_step_jits``,
-cleora_tpu/algorithms.py:2142-2226), whose products are kernels K1 and K5.
+cleora_tpu/algorithms.py:2142-2226), whose products are kernel K5.
 The large float32 products, QR and SVD are library calls (``torch.matmul``,
 ``torch.linalg``), as the JAX package hands them to XLA's libraries; they
 run in full float32.
@@ -19,7 +19,7 @@ import torch
 
 from .. import kernels
 from .._util import full_float32_matmul
-from .spmm import CsrMatrix, spmm, spmm_axpy
+from .spmm import CsrMatrix, spmm_accumulate_
 
 
 def dense_markov(csr: CsrMatrix):
@@ -88,13 +88,15 @@ def rsvd_u_sqrt(M: torch.Tensor, omega: torch.Tensor, k: int,
 
 def _apply_pieces(pieces: List[CsrMatrix], x: torch.Tensor) -> torch.Tensor:
     """``M·x`` for M given as row-disjoint CSR pieces (every row of M lives
-    in one piece): the first piece by K1, each further one added by K5's
-    ``acc`` (the JAX program's ``apply`` and ``apply_add``).  Exact: each
-    row gets its one piece's value plus zeros."""
+    in one piece): each piece added into a zeroed product by K5's ``acc``
+    over the piece's own rows only (the JAX program's ``apply`` and
+    ``apply_add``, which write every row of M for every piece).  Exact: a
+    row gets 0 plus its one piece's value."""
     x = x.contiguous()  # a CUDA QR's Q is column-major: copy once, not per piece
-    y = spmm(pieces[0], x)
-    for piece in pieces[1:]:
-        spmm_axpy(piece, x, 1.0, acc=y, d=1.0)
+    y = torch.zeros((pieces[0].n_rows, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for piece in pieces:
+        spmm_accumulate_(piece, x, y)
     return y
 
 

@@ -31,6 +31,7 @@ class CsrMatrix:
         self.indices = indices
         self.vals = vals
         self._plain_index: Optional[tuple] = None
+        self._row_plan = None
 
     @classmethod
     def from_numpy(cls, indptr: np.ndarray, indices: np.ndarray,
@@ -88,6 +89,7 @@ class CsrMatrix:
         tensors and, once built, the plain version's row index."""
         out = CsrMatrix(self.indptr, self.indices, vals)
         out._plain_index = self._plain_index
+        out._row_plan = self._row_plan
         return out
 
     @property
@@ -101,6 +103,16 @@ class CsrMatrix:
     @property
     def device(self) -> torch.device:
         return self.indptr.device
+
+    def row_plan(self) -> Optional[kernels.RowPlan]:
+        """The :class:`kernels.RowPlan` of this matrix (its non-empty rows,
+        and their slices for K5's long-row kernel), built once, or None when
+        some row's column indices do not ascend: K5 then touches only these
+        rows (:func:`spmm_accumulate_`)."""
+        if self._row_plan is None:
+            plan = kernels.row_plan(self.indptr, self.indices)
+            self._row_plan = False if plan is None else plan
+        return self._row_plan if self._row_plan is not False else None
 
     def plain_index(self):
         """(rows, cols) as int64, built once: ``index_select`` and
@@ -161,6 +173,21 @@ def spmm_axpy(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
             None if z is None else z.contiguous(), c, acc, d,
             None if self_ is None else self_.contiguous())
     return spmm_axpy_plain(csr, x, a, b, z, c, acc, d, self_)
+
+
+def spmm_accumulate_(csr: CsrMatrix, x: torch.Tensor,
+                     acc: torch.Tensor) -> torch.Tensor:
+    """``acc += A @ x`` in place (float32), touching only A's non-empty
+    rows where :meth:`CsrMatrix.row_plan` lists them: K5 with ``acc`` and
+    no ``out`` on CUDA (``a = d = 1``); on the CPU
+    :func:`spmm_axpy_plain`.  Returns ``acc``."""
+    if x.is_cuda:
+        rows = csr.row_plan()
+        kernels.spmm_axpy(csr.indptr, csr.indices, csr.vals, x.contiguous(),
+                          1.0, acc=acc, d=1.0, rows=rows)
+    else:
+        spmm_axpy_plain(csr, x, 1.0, acc=acc, d=1.0)
+    return acc
 
 
 def spmm_axpy_plain(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,

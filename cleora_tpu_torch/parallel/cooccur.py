@@ -13,7 +13,7 @@ column sums and the pair total of every rank (exact int64 sums all-reduced;
 the JAX package sums float64 partials on the host and casts them to
 float32, the same float32 values while the counts stay below 2⁵³), the
 same host omega (``default_rng(seed ^ 0x5EED)``), and the same subspace
-iteration whose product is each rank's K1/K5 over its pieces followed by
+iteration whose product is each rank's K5 over its pieces followed by
 one all-reduce of the (n, r) partial: the partitions are row-disjoint, so
 every row of the sum has one nonzero term and the product is the one-card
 product bit for bit.  QR, SVD and the exit are repeated on every rank.

@@ -37,7 +37,6 @@ import cleora_tpu.algorithms as jalg
 import cleora_tpu_torch.algorithms as talg
 from cleora_tpu_torch import kernels
 from cleora_tpu_torch.convert import from_jax_state
-from cleora_tpu_torch.kernels import build
 from cleora_tpu_torch.ops import memory
 from cleora_tpu_torch.ops.dense import (
     dense_markov,
@@ -186,7 +185,7 @@ def test_wrappers_run_plain_versions_on_cpu_and_launch_nothing():
         assert torch.equal(got, want)
     assert torch.equal(log_clip(x.abs(), None, None, 1.0, 0.0),
                        log_clip_plain(x.abs(), None, None, 1.0, 0.0))
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_transpose_from_coo_is_the_transpose_in_stable_order():
@@ -270,7 +269,7 @@ def test_device_backend_matches_jax_device_backend(graphs, name):
     kernels.reset_launches()
     got = getattr(talg, f"embed_{name}")(g, backend="device", device="cpu",
                                          **kw)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
     assert got.shape == want.shape == (g.num_entities, 16)
     assert got.dtype == np.float32 and got.flags.writeable
     if name == "randne":

@@ -53,7 +53,6 @@ from cleora_tpu_torch.ops.normalize import (
     normalize,
 )
 from cleora_tpu_torch.algorithms import _GRAREP_FLOOR, _GRAREP_OFFSET
-from cleora_tpu_torch.kernels import build
 from cleora_tpu_torch.ops import cooccur
 from cleora_tpu_torch.ops.dense import (
     dense_markov,
@@ -89,6 +88,7 @@ from cleora_tpu_torch.ops.spmm import (
     spmm,
     spmm_acc,
     spmm_acc_plain,
+    spmm_accumulate_,
     spmm_axpy,
     spmm_axpy_plain,
     spmm_plain,
@@ -320,14 +320,16 @@ def test_k10_bitwise_after_the_sweep_and_a_merge(cuda_device, passes):
     keys = torch.sort(kernels.pair_enum(walks, walks.shape[0] - 5, n, 5,
                                         passes)).values
     before = kernels.LAUNCHES["run_length"]
-    got = kernels.run_length(keys, None, n, passes)
+    got = kernels.run_length(keys, n, passes)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["run_length"] == before + 1
     want = cooccur.run_length_plain(keys, None, n, passes)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    # a merge: two halves of the runs, concatenated, sorted with payload
-    cen, ctx, cnt, _ = got
+    # a merge of two overlapping halves of partition 0's runs (a merge
+    # joins ranges of one partition, each sorted by (cen, ctx))
+    m0 = int(got[3][0])
+    cen, ctx, cnt = (t[:m0] for t in got[:3])
     h = cen.shape[0] // 2
     a = (cen[:h], ctx[:h], cnt[:h], h)
     b = (cen[h // 2:], ctx[h // 2:], cnt[h // 2:] * 3, cen.shape[0] - h // 2)
@@ -445,6 +447,163 @@ def test_k13_bitwise(cuda_device, q, m, c, n, dtype):
                                                                  codes))
 
 
+def _sorted_keys(rng, n, passes, runs, long_run, dead):
+    """Ascending int64 sweep keys: ``runs`` random runs of 1-40 keys, one
+    run of ``long_run`` keys (many tiles of 2,048), ``dead`` INT64_MAX."""
+    pairs = np.unique(rng.integers(0, n * n, size=runs))
+    cen, ctx = pairs // n, pairs % n
+    keys = ((cen % passes) * n + cen) * n + ctx
+    reps = rng.integers(1, 41, size=keys.shape[0])
+    reps[keys.shape[0] // 2] = long_run
+    keys = np.sort(np.repeat(keys, reps))
+    return np.concatenate([keys, np.full(dead, np.iinfo(np.int64).max)])
+
+
+@cuda
+@pytest.mark.parametrize("case", ["runs", "long_run", "all_dead", "one_key",
+                                  "unaligned"])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_k10_sweep_bitwise(cuda_device, case, passes):
+    """The sweep form against its plain version: runs that cross tiles,
+    one run over many tiles, a stream of dead keys only, a single key, and
+    keys that are not 16-byte aligned (the scalar loads)."""
+    rng = np.random.default_rng(passes)
+    n = 1000
+    keys = {"runs": lambda: _sorted_keys(rng, n, passes, 20000, 3, 777),
+            "long_run": lambda: _sorted_keys(rng, n, passes, 3000, 50000, 0),
+            "all_dead": lambda: np.full(5000, np.iinfo(np.int64).max),
+            "one_key": lambda: np.array([(passes - 1) * n * n + 7]),
+            "unaligned": lambda: _sorted_keys(rng, n, passes, 5000, 3, 5),
+            }[case]()
+    k = torch.from_numpy(keys).to(cuda_device)
+    if case == "unaligned":
+        k = torch.cat([k[:1], k])[1:]
+    before = kernels.LAUNCHES["run_length"]
+    got = kernels.run_length(k, n, passes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["run_length"] == before + 1
+    want = cooccur.run_length_plain(k, None, n, passes)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _count_range(rng, n, m, device, lo=1, hi=50):
+    pairs = np.unique(rng.integers(0, n * n, size=m))
+    put = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return (put(pairs // n), put(pairs % n),
+            put(rng.integers(lo, hi, size=pairs.shape[0])), pairs.shape[0])
+
+
+@cuda
+@pytest.mark.parametrize("case", ["disjoint", "identical", "interleaved",
+                                  "empty_a", "empty_b", "wrap", "tiles"])
+def test_k10_merge_bitwise(cuda_device, case, monkeypatch):
+    """The merge form against its plain version (a sort of the
+    concatenation and the sweep form), without a sort: disjoint ranges,
+    identical ranges, interleaved ranges, an empty a or b, counts that wrap
+    past 2^31, and ranges of many tiles whose common pairs fall on tile
+    boundaries."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    dev = cuda_device
+    a = _count_range(rng, n, 20000, dev)
+    if case == "disjoint":
+        b = _count_range(rng, n, 20000, dev)
+        b = (b[0] + n, b[1], b[2], b[3])  # rows past a's
+        n = 2 * n
+    elif case in ("identical", "wrap"):
+        b = tuple(t.clone() if torch.is_tensor(t) else t for t in a)
+        if case == "wrap":
+            a = (a[0], a[1], torch.full_like(a[2], 2**31 - 5), a[3])
+    elif case == "interleaved":
+        b = _count_range(rng, n, 30000, dev)
+    elif case == "empty_a":
+        a, b = tuple(t[:0] if torch.is_tensor(t) else 0 for t in a), a
+    elif case == "empty_b":
+        b = tuple(t[:0] if torch.is_tensor(t) else 0 for t in a)
+    else:  # every 1,023rd entry of a again in b: pairs on tile boundaries
+        a = _count_range(rng, n, 400000, dev)
+        pick = torch.arange(0, a[3], 1023, device=dev)
+        b = (a[0][pick], a[1][pick], a[2][pick] + 1, int(pick.shape[0]))
+
+    def no_sort(*args, **kw):
+        raise AssertionError("the merge form ran torch.sort")
+
+    before = kernels.LAUNCHES["run_length_merge"]
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sort", no_sort)
+        got = cooccur._merge(a, b, n)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["run_length_merge"] == before + 1
+    want = cooccur.merge_plain(a, b, n)
+    assert got[3] == want[3]
+    for x, y in zip(got[:3], want[:3]):
+        assert torch.equal(x, y)
+
+
+def _long_row_piece(n, rows, degree, hub, seed, device):
+    """A PPMI piece's shape: ``rows`` non-empty rows of ``n`` (the rest
+    empty), each with ascending random columns, one hub row of ``hub``
+    entries; left-Markov values (a row sums to 1)."""
+    rng = np.random.default_rng(seed)
+    full = np.sort(rng.choice(n, size=rows, replace=False))
+    deg = np.zeros(n, dtype=np.int64)
+    deg[full] = rng.integers(degree // 2, 2 * degree, size=rows)
+    deg[full[rows // 2]] = hub
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    cols = np.concatenate([np.sort(rng.integers(0, n, size=k))
+                           for k in deg if k])
+    vals = rng.random(cols.shape[0]).astype(np.float32)
+    sums = np.add.reduceat(vals, indptr[:-1][deg > 0])
+    vals /= np.repeat(sums, deg[deg > 0]).astype(np.float32)
+    return CsrMatrix.from_numpy(indptr, cols, vals, device)
+
+
+@cuda
+@pytest.mark.parametrize("d", [272, 256, 300, 302])
+@pytest.mark.parametrize("band_bytes", [None, 1 << 20])
+@pytest.mark.parametrize("hub", [10_000, 100_000])
+@pytest.mark.parametrize("cut", [None, 300])
+def test_k5_long_rows_match_plain(cuda_device, d, band_bytes, hub, cut,
+                                  monkeypatch):
+    """K5's long-row path (a warp a slice of a row, L2-sized bands of x; at
+    d=302 its scalar form) against its plain version: a piece of 8,000
+    rows of which 1,000 hold about 200 entries and one a hub, through the
+    row plan (acc only, the empty rows untouched), and the short-row
+    kernel over the same rows through the full call (out and acc, every
+    row).  ``band_bytes`` cuts x into many bands; ``cut`` slices of 300
+    entries cut the hub and many other rows (the slices' sums joined)."""
+    if band_bytes is not None:
+        monkeypatch.setattr(kernels, "BAND_BYTES", band_bytes)
+    if cut is not None:
+        monkeypatch.setattr(kernels, "LONG_SLICE", cut)
+    n = 8000
+    csr = _long_row_piece(n, 1000, 200, hub, d, cuda_device)
+    plan = csr.row_plan()
+    assert plan is not None and plan.rows.shape[0] == 1000
+    assert plan.split.shape[0] > (100 if cut else 0)
+    x = torch.randn((n, d), device=cuda_device)
+    acc = torch.randn((n, d), device=cuda_device)
+    want = acc.clone()
+    before = kernels.LAUNCHES["spmm_axpy"]
+    spmm_accumulate_(csr, x, acc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_axpy"] == before + 1
+    spmm_axpy_plain(csr, x, 1.0, acc=want, d=1.0)
+    torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-6)
+    empty = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    empty[plan.rows.long()] = False
+    z, acc2 = (torch.randn((n, d), device=cuda_device) for _ in range(2))
+    want2 = acc2.clone()
+    out = spmm_axpy(csr, x, -2.0, 2.0, z=z, c=-1.0, acc=acc2, d=0.05)
+    torch.cuda.synchronize()
+    ref = spmm_axpy_plain(csr, x, -2.0, 2.0, z=z, c=-1.0, acc=want2, d=0.05)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(acc2, want2, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out[empty], ref[empty])
+
+
 @cuda
 @pytest.mark.parametrize("d", [8, 256, 300])
 def test_k5_self_operand_matches_plain(cuda_device, d):
@@ -490,7 +649,7 @@ def test_k5_wrapper_checks_the_self_operand():
     with pytest.raises(ValueError, match="CUDA"):  # the table's 30 rows pass
         kernels.spmm_axpy(indptr, indices, vals, table, 1.0, b=1.0,
                           self_=own)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def _cpu_csr(n=20):
@@ -535,7 +694,7 @@ def test_k5_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="contiguous"):
         kernels.spmm_axpy(indptr, indices, vals, x, 1.0,
                           acc=torch.zeros((20, 16))[:, ::2])
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_k6_wrapper_rejects_bad_operands():
@@ -551,7 +710,7 @@ def test_k6_wrapper_rejects_bad_operands():
         kernels.dense_markov(indptr, indices, vals[:-1])
     with pytest.raises(ValueError, match="contiguous"):
         kernels.dense_markov(indptr, indices, torch.ones(40)[::2])
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_k7_wrapper_rejects_bad_operands():
@@ -573,7 +732,7 @@ def test_k7_wrapper_rejects_bad_operands():
         kernels.log_clip_(torch.ones((8, 6)).T, None, None, 1.0, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.log_clip_(x, torch.ones(12)[::2], None, 1.0, 0.0)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_walk_and_count_wrappers_reject_bad_operands():
@@ -600,13 +759,11 @@ def test_walk_and_count_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="2\\^63"):
         kernels.pair_enum(walks, 4, 1 << 31, 5, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.run_length(keys, None, 4, 1)
+        kernels.run_length(keys, 4, 1)
     with pytest.raises(ValueError, match="int64"):
-        kernels.run_length(keys.int(), None, 4, 1)
-    with pytest.raises(ValueError, match="one entry per key"):
-        kernels.run_length(keys, i32[:5], 4, 1)
+        kernels.run_length(keys.int(), 4, 1)
     with pytest.raises(ValueError, match="passes"):
-        kernels.run_length(keys, None, 4, 0)
+        kernels.run_length(keys, 4, 0)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.ppmi_colsum_(i32, i32, torch.zeros(4, dtype=torch.int64),
                              torch.zeros(1, dtype=torch.int64))
@@ -615,7 +772,7 @@ def test_walk_and_count_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="one 1-D shape"):
         kernels.ppmi(i32, i32, i32[:3], torch.zeros(4, dtype=torch.int64),
                      torch.zeros(1, dtype=torch.int64), 4)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_k12_and_k13_wrappers_reject_bad_operands():
@@ -649,7 +806,7 @@ def test_k12_and_k13_wrappers_reject_bad_operands():
         kernels.pq_adc(tables, codes[:, :3].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.pq_adc(tables, codes.T.contiguous().T)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_walk_tables2_reject_unsorted_rows_and_bad_weights():
@@ -765,7 +922,7 @@ def test_k14_and_k15_wrappers_reject_bad_operands():
         kernels.relu_dropout(z.double(), 0.5, 0, 0, 0)
     with pytest.raises(ValueError, match="one shape"):
         kernels.relu_dropout_backward(z, z[:2], 0.5, 0, 0, 0)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 @pytest.mark.parametrize("d", [7, 64, 256])
@@ -917,7 +1074,7 @@ def test_k19_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="indptr int64"):
         kernels.spmm_acc_(acc, arrays[0], arrays[1].int(), *arrays[2:],
                           table)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_k16_wrapper_rejects_bad_operands():
@@ -930,7 +1087,7 @@ def test_k16_wrapper_rejects_bad_operands():
         kernels.halo_pack(x.double(), idx)
     with pytest.raises(ValueError, match="int32"):
         kernels.halo_pack(x, idx.long())
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 @cuda
@@ -1014,4 +1171,4 @@ def test_k17_and_k18_wrappers_reject_bad_operands():
                              torch.zeros((2, 2), dtype=torch.int32),
                              torch.zeros(2, dtype=torch.int32), cur, 0, 0, 4,
                              0, 0, n, 1.0, torch.empty_like(cur))
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)

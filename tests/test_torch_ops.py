@@ -94,7 +94,7 @@ def test_spmm_dispatches_to_plain_on_cpu():
         np.random.default_rng(0).standard_normal((n, 8)).astype(np.float32))
     kernels.reset_launches()
     assert torch.equal(spmm(csr, x, 0.25), spmm_plain(csr, x, 0.25))
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_csr_validation():
@@ -214,7 +214,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.hash_init(torch.zeros(50, dtype=torch.int64), 8)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.edge_attention(csr.indptr, csr.indices, csr.vals, x, 1.0)
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

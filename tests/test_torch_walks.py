@@ -39,7 +39,6 @@ import cleora_tpu_torch.algorithms as talg
 from cleora_tpu.ops import cooccur as jco
 from cleora_tpu_torch import kernels
 from cleora_tpu_torch.convert import from_jax_state, ranges_from_jax
-from cleora_tpu_torch.kernels import build
 from cleora_tpu_torch.ops import cooccur as tco
 from cleora_tpu_torch.ops import walk as twalk
 
@@ -251,7 +250,7 @@ def test_run_length_and_pair_keys_on_an_empty_or_dead_batch():
     w = torch.full((3, 4), n, dtype=torch.int32)
     keys = tco.pair_keys(w, 3, n, 2, 2)
     assert keys.shape == (2 * 3 * (3 + 2),) and torch.all(keys == tco._DEAD)
-    cen, ctx, cnt, m_per = tco.run_length(torch.sort(keys).values, None, n, 2)
+    cen, ctx, cnt, m_per = tco.run_length(torch.sort(keys).values, n, 2)
     assert cen.shape == (0,) and m_per.tolist() == [0, 0]
     assert tco.pair_keys(w[:, :1], 3, n, 2, 2).shape == (0,)
     with pytest.raises(ValueError, match="passes \\* n\\^2 < 2\\^63"):
@@ -261,7 +260,7 @@ def test_run_length_and_pair_keys_on_an_empty_or_dead_batch():
 def test_counts_wrap_modulo_2_32_and_overflow_raises():
     keys = torch.tensor([7, 7, 9], dtype=torch.int64)  # (1, 3), (2, 1)
     counts = torch.tensor([2**31 - 1, 1, 5], dtype=torch.int32)
-    cen, ctx, cnt, m_per = tco.run_length(keys, counts, 4, 1)
+    cen, ctx, cnt, m_per = tco.run_length_plain(keys, counts, 4, 1)
     assert cen.tolist() == [1, 2] and ctx.tolist() == [3, 1]
     assert cnt.tolist() == [-2**31, 5] and m_per.tolist() == [2]
     with pytest.raises(ValueError, match="count overflow"):
@@ -477,7 +476,7 @@ def test_wrappers_run_plain_versions_on_cpu_and_launch_nothing(graphs):
     talg.embed_deepwalk(g, feature_dim=8, num_walks=1, walk_length=6,
                         backend="device", cooccurrence="device",
                         device="cpu")
-    assert kernels.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 # ---------------------------------------------------------------- lifecycle
