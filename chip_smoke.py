@@ -17,15 +17,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (kernels/walk2_owned.cu) and K19 (kernels/spmm_acc.cu) are compiled
    from the checkout's sources, one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: K1 on a random
-   Markov CSR with zero-degree rows and one row of degree 50,000, D in
-   {8, 256, 300, 4096} (the last loops over column tiles, as the blocked
-   paths do), float32 and bfloat16 x, residual weight 0 and 0.3
-   (float32 rtol=1e-5, atol=1e-6; bfloat16 atol=1e-2); K2 in l2 and l1
-   modes on rows that include an all-zero row (atol=1e-6); K3 bitwise
+   Markov CSR with zero-degree rows, a row whose values are all 0 and one
+   row of degree 50,000 (cut into slices; at D=256 also walked by one
+   warp), D in {8, 256, 300, 1028, 4096} (past 1,024 columns K1 loops over
+   column tiles, as the blocked paths do, and K2 normalises after it),
+   float32 and bfloat16 x, residual weight 0 and 0.3, normalisation none,
+   l2 and l1 (float32 rtol=1e-5, atol=1e-6, the hub row against a float64
+   reference at the same tolerance; bfloat16 atol=1e-2), and K2 after K1
+   bitwise K1's fused output up to 1,024 columns; the fused attention pass
+   on that CSR, D in {8, 256, 300, 1024}, T in {0.7, 1.0}, the three
+   normalisations (rtol=1e-5, atol=1e-6, the hub against float64); K2 in
+   l2 and l1 modes, D in {8, 256, 300, 1028, 4096}, on rows that include
+   an all-zero row (atol=1e-6); K3 bitwise
    against its plain version and the host init on 20,000 random uint64
    hashes (0, 2**64-1 and top-bit values among them), D in {1, 7, 256, 300},
    seed in {0, 7, -3, 2**40+5}; K4 on the same CSR plus a row whose values
-   are all 0, D in {8, 256, 300}, T in {0.7, 1.0} (rtol=1e-5, atol=1e-6);
+   are all 0, D in {8, 256, 300, 1028}, T in {0.7, 1.0} (rtol=1e-5,
+   atol=1e-6);
    K5 on the first CSR, D in {8, 136, 256, 300, 4096}, with RandNE's,
    Chebyshev's (z and acc) and Katz's coefficients, and with a separate
    self_ operand (a 3,000-row gather table under a 2,000-row CSR,
@@ -64,13 +72,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    5,533,214 undirected edges, seed 7) ingested through
    SparseMatrix.from_edge_arrays, then the two main paths, each with the
    kernels' launch counts zeroed just before and read just after:
-   embed(feature_dim=256, num_iterations=40, whiten=True) and
-   embed_with_attention(feature_dim=256, num_iterations=40, whiten=True).
-   Prints ingest, host and card init, loop seconds, edge-ops/s,
-   per-iteration K1/K2/whiten times, peak device memory, torch.sparse.mm's
-   time on the same product, and checks each output (finite, covariance
-   close to the identity), K3's full-size output bitwise against the host
-   init and one full-size K1, K2 and K4 call against their plain versions;
+   embed(feature_dim=256, num_iterations=40, whiten=True) (K1 with the
+   normalisation fused, no K2) and embed_with_attention(feature_dim=256,
+   num_iterations=40, whiten=True) (the fused attention pass), and on
+   phase 4's graph embed_with_attention(feature_dim=1028, 3 iterations,
+   unwhitened) (K1 then K2, and K2, K4, K1, K2 an iteration), whose output
+   is held to the plain chain from the same init and one of whose
+   attention steps is held to attention_spmm_plain on the same state
+   (rtol=1e-5, atol=1e-6), with K2 and K4 timed at that shape (the
+   kernels line's K2 and K4 rows).  Prints each graph's rows over
+   LONG_SLICE entries, ingest, host and card init, loop seconds,
+   edge-ops/s, per-iteration K1/K2/whiten times and the fused pass against
+   the five passes it replaced, peak device memory, torch.sparse.mm's time
+   on the same product, and checks each output (finite, covariance close
+   to the identity), K3's full-size output bitwise against the host init
+   and one full-size K1, K2, K4 and fused-pass call against their plain
+   versions; then a power-law Markov CSR of the same size (Chung-Lu,
+   exponent 0.9, drawn on the card from seed 7): K1 with its hub slices
+   and every row a warp, torch.sparse.mm and the fused pass, timed, the
+   rows up to LONG_SLICE entries against the plain versions and the hubs
+   against float64 (rtol=1e-5, atol=1e-6; every row a warp to the float32
+   bound of a sum in one sequence);
 6. the spectral siblings at full width, each through its public entry point
    with backend="device" and the launch counts zeroed before and read
    after: embed_randne (40 iterations) and embed_hope at feature_dim=256
@@ -249,11 +271,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    at that main path's shape (round 0 over every edge) against plain and
    timed; (c) K16 over shard 0's send_intra and send_cross of
    plan_halo_hier(shard_graph(graph, 4), 2, 2), bitwise against plain
-   and timed; (d) tracing.trace() around one embed() iteration on phase
-   4's graph, in this process (logged: late in this process a session
-   records the library's kernels but none of the port's, ROADMAP §C1)
-   and in a fresh one, whose Chrome trace must name the annotate() span
-   and K1's kernel;
+   and timed; (d) tracing.trace() around one embed() iteration and a
+   two-iteration embed_with_attention() on phase 4's graph, in this
+   process, whose Chrome trace must name the annotate() span and hold
+   exactly the port's launches (K1 2, K3 2, the fused pass 1), each from
+   the profiler's records or, where the profiler lost it (ROADMAP §C1),
+   from its CUDA event pair;
    device_memory_stats()'s bytes_limit equal to mem_get_info()'s total;
    (e) plan_report on phase 5's graph ("fits" at P=1) and on phase 7's
    corpus with walks=True (the walk-table mode phase 7 chose), printed;
@@ -295,6 +318,9 @@ FULL_NODES = 1_965_206
 FULL_UND_EDGES = 5_533_214
 DIM = 256
 ITERATIONS = 40
+WIDE_DIM = 1_028  # past one column tile: K1 then K2, and K4 for attention
+WIDE_ITERATIONS = 3
+POWER_LAW_EXPONENT = 0.9  # Chung-Lu endpoint weight (i + 1)^-0.9
 SMALL_PARITY_NODES = 2_000
 SMALL_PARITY_EDGES = 6_000
 DENSE_NODES = 32_768
@@ -427,33 +453,52 @@ PROFILER_SESSIONS = [0]  # device_busy's sessions in this process
 
 
 def device_busy(what: str, call, per: int, unit: str) -> None:
-    """Device busy share of ``call``, and the kernels that take the time
-    (per ``unit``, ``per`` of them in the call), from a torch.profiler
-    trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device busy share of ``call`` (the union of the kernels'
+    intervals, over the wall time), and the kernels that take the time
+    (per ``unit``, ``per`` of them in the call), from a tracing.trace()
+    trace: every kernel the profiler recorded, and the port's launches
+    it lost from their CUDA event pairs (counted in the log line)."""
+    import tempfile
+
+    from cleora_tpu_torch.tracing import (
+        busy_us,
+        kernel_events,
+        pair_offsets,
+        port_launches,
+        trace,
+    )
 
     PROFILER_SESSIONS[0] += 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: a CPU op's row repeats its kernels' time
-    kernels_us = [(e.key, e.self_device_time_total)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-    busy_us = sum(us for _, us in kernels_us)
-    if not busy_us:
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    busy = busy_us(events)
+    if not busy:
         log(f"device busy share over {what}: not measured (the trace holds "
             "no device time)")
         return
-    log(f"device busy share over {what}: {busy_us / wall_us:.3f} "
-        f"({busy_us / 1e3:.3f} of {wall_us / 1e3:.3f} ms)")
-    for key, us in sorted(kernels_us, key=lambda t: -t[1])[:8]:
+    by_name = {}
+    for e in kernel_events(events):
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    launches = port_launches(events)
+    lost = sum(source == "events" for _, source in launches)
+    offsets = pair_offsets(events)
+    pairs = ("" if not offsets else
+             f"; where the profiler has a launch too, its event pair starts "
+             f"{offsets['start_us']:.1f} µs before the first kernel and "
+             f"adds {offsets['extra_us']:.1f} µs to the kernel time "
+             f"(medians of {offsets['launches']})")
+    log(f"device busy share over {what}: {busy / wall_us:.3f} "
+        f"({busy / 1e3:.3f} of {wall_us / 1e3:.3f} ms; {lost} of the port's "
+        f"{len(launches)} launches lost by the profiler, from event pairs"
+        f"{pairs})")
+    for key, us in sorted(by_name.items(), key=lambda t: -t[1])[:8]:
         log(f"  {us / 1e3 / per:9.3f} ms/{unit}  {key[:90]}")
 
 
@@ -514,29 +559,176 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def k1_check_csr(dev: torch.device, seed: int = 1):
+    """Phase 3's CSR: left-Markov rows (a sliced hub sums in another order
+    than the plain version, and left-Markov values keep both within
+    rtol=1e-5), every fifth row empty, row 1 a hub of HUB_DEGREE entries
+    (cut into slices) and the first other non-empty row with every value
+    0.  Returns (csr, that row)."""
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
+
+    indptr, cols, vals = markov_csr(K1_CHECK_ROWS, seed, HUB_DEGREE)
+    deg = np.diff(indptr)
+    zero_row = int(np.flatnonzero(deg[2:] > 0)[0]) + 2
+    vals[indptr[zero_row]:indptr[zero_row + 1]] = 0.0
+    return CsrMatrix.from_numpy(indptr, cols, vals, dev), zero_row
+
+
+def check_k1(dev: torch.device, csr, zero_row: int) -> None:
+    """K1 against spmm_plain + the plain normalisation: D 8, 256, 300,
+    1028 and 4096 (K1 then K2 past 1,024 columns), float32 and bf16 x, w 0
+    and 0.3, l2, l1 and none; the hub in slices and (D 256) walked by its
+    own warp, held in float32 to its float64 reference."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.normalize import normalize, normalize_plain
+    from cleora_tpu_torch.ops.spmm import spmm, spmm_plain
+
+    assert csr.hub_plan().split.shape[0] == 1  # the hub, in slices
+    hub = (csr.indptr[1:] - csr.indptr[:-1]) > kernels.LONG_SLICE
+    hub_ids = torch.nonzero(hub).flatten()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for d in (8, 256, 300, WIDE_DIM, 4096):
+        x32 = torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for w in (0.0, 0.3):
+                for norm in ("none", "l2", "l1"):
+                    got = spmm(csr, x, w, normalization=norm)
+                    want = normalize_plain(spmm_plain(csr, x, w), norm)
+                    torch.cuda.synchronize()
+                    if dtype == torch.float32:
+                        ref, _ = hub_rows_float64(csr, x, hub_ids, w=w,
+                                                  norm=norm)
+                        errs = assert_rows_close(got, want, hub, ref)
+                    else:
+                        torch.testing.assert_close(got, want, rtol=0.0,
+                                                   atol=1e-2)
+                        errs = f"max |err| {max_err(got, want):.3e}"
+                    if w == 0.0:
+                        assert torch.all(got[zero_row] == 0.0)
+                    if norm != "none" and d <= 1024:
+                        # K2 after K1 repeats K1's epilogue bit for bit
+                        # (halo="overlap" normalises K19's sums with K2)
+                        assert torch.equal(
+                            normalize(spmm(csr, x, w), norm), got)
+                    log(f"K1 d={d} {str(dtype)[6:]} w={w} {norm}: {errs}")
+        if d == 256:  # every row its own warp, the hub too
+            for norm in ("none", "l2"):
+                got = kernels.spmm_csr(csr.indptr, csr.indices, csr.vals,
+                                       x32, 0.0, None, norm, None)
+                want = normalize_plain(spmm_plain(csr, x32), norm)
+                torch.cuda.synchronize()
+                ref, _ = hub_rows_float64(csr, x32, hub_ids, norm=norm)
+                errs = assert_rows_close(got, want, hub, ref)
+                log(f"K1 d={d} no slices {norm}: {errs}")
+
+
+def hub_rows_float64(csr, x, rows, temperature=None, w: float = 0.0,
+                     norm: str = "none") -> tuple:
+    """A float64 reference on a few (hub) ``rows``, one row at a time:
+    K1's ``(1-w) A x + w x`` (``temperature`` None) or the fused attention
+    pass's propagate (JAX's masked softmax, reweighting and
+    renormalisation, then the weighted sum), then the row normalisation
+    ``norm``.  Returns (reference, sum of |term| of each unnormalised
+    element), the second for the float32 summation bound."""
+    xd = x.double()
+    out, mag = [], []
+    for r in rows.tolist():
+        lo, hi = int(csr.indptr[r]), int(csr.indptr[r + 1])
+        cols = csr.indices[lo:hi].long()
+        v = csr.vals[lo:hi].double()
+        xc = xd.index_select(0, cols)
+        if temperature is not None:
+            xr = xd[r] / xd[r].norm().clamp_min(1e-10)
+            s = (xc @ xr) / xc.norm(dim=1).clamp_min(1e-10) / temperature
+            valid = v != 0
+            top = s[valid].max() if bool(valid.any()) else 0.0
+            p = torch.where(valid, torch.exp(s - top), 0.0)
+            v = p / p.sum().clamp_min(1e-10) * v
+            v = v / v.sum().clamp_min(1e-10)
+        y = v @ xc
+        if w > 0.0:
+            y = (1.0 - w) * y + w * xd[r]
+        if norm == "l2":
+            y = y / y.norm().clamp_min(1e-10)
+        elif norm == "l1":
+            y = y / y.abs().sum().clamp_min(1e-10)
+        out.append(y)
+        mag.append(v.abs() @ xc.abs())
+        del xc
+    return torch.stack(out), torch.stack(mag)
+
+
+def assert_rows_close(got, want, hub, ref) -> str:
+    """A kernel against its plain version at rtol=1e-5, atol=1e-6 on
+    every row but the hubs (boolean ``hub``: more than LONG_SLICE
+    entries), and on the hubs against the float64 reference ``ref`` of
+    those rows (hub_rows_float64) at the same tolerance: the plain
+    version's float32 atomics add a hub's tens or hundreds of thousands
+    of terms in an order of their own, which parts from the exact sum by
+    more than the kernel's slices do (on an H100, the power-law graph's
+    hubs: K1 5.4e-8 from float64, the plain version 1.4e-6).  Returns the
+    errors for the log, the plain version's on the hubs included."""
+    hub_ids = torch.nonzero(hub).flatten()
+    torch.testing.assert_close(got[~hub], want[~hub], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[hub_ids].double(), ref, rtol=1e-5,
+                               atol=1e-6)
+    return (f"max |err| {max_err(got[~hub], want[~hub]):.3e}, hub rows "
+            f"against float64 {max_err(got[hub_ids].double(), ref):.3e} "
+            f"(the plain version {max_err(want[hub_ids].double(), ref):.3e})")
+
+
+def check_attention(dev: torch.device, csr, zero_row: int) -> None:
+    """The fused attention pass against attention_spmm_plain (K4's plain
+    weights, spmm_plain, the plain normalisation), the hub against its
+    float64 reference: D 8, 256, 300 and 1024, T 0.7 and 1.0, l2, l1 and
+    none; the hub in slices and (D 256) by its own warp; the row whose
+    values are all 0 gives 0."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.attention import (
+        attention_spmm,
+        attention_spmm_plain,
+    )
+
+    hub = (csr.indptr[1:] - csr.indptr[:-1]) > kernels.LONG_SLICE
+    hub_ids = torch.nonzero(hub).flatten()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for d in (8, 256, 300, 1024):
+        x = torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen)
+        for temperature in (0.7, 1.0):
+            for norm in ("none", "l2", "l1"):
+                got = attention_spmm(csr, x, temperature, norm)
+                want = attention_spmm_plain(csr, x, temperature, norm)
+                torch.cuda.synchronize()
+                ref, _ = hub_rows_float64(csr, x, hub_ids, temperature,
+                                          norm=norm)
+                errs = assert_rows_close(got, want, hub, ref)
+                assert torch.all(got[zero_row] == 0.0)
+                log(f"attention d={d} T={temperature} {norm}: {errs}")
+        if d == 256:
+            got = kernels.attention_spmm(csr.indptr, csr.indices, csr.vals,
+                                         x, 1.0, "l2", None)
+            want = attention_spmm_plain(csr, x, 1.0, "l2")
+            torch.cuda.synchronize()
+            ref, _ = hub_rows_float64(csr, x, hub_ids, 1.0, norm="l2")
+            errs = assert_rows_close(got, want, hub, ref)
+            log(f"attention d={d} no slices l2: {errs}")
+
+
 def check_kernels(dev: torch.device) -> None:
     from cleora_tpu_torch.ops.normalize import (
         l1_normalize_plain,
         l2_normalize_plain,
         normalize,
     )
-    from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
 
-    csr = CsrMatrix.from_numpy(*markov_csr(K1_CHECK_ROWS, 1, HUB_DEGREE), dev)
+    csr, zero_row = k1_check_csr(dev)
+    check_k1(dev, csr, zero_row)
+    check_attention(dev, csr, zero_row)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for d in (8, 256, 300, 4096):
+    for d in (8, 256, 300, WIDE_DIM, 4096):
         x32 = torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            for w in (0.0, 0.3):
-                got = spmm(csr, x, w)
-                want = spmm_plain(csr, x, w)
-                torch.cuda.synchronize()
-                tol = ({"rtol": 1e-5, "atol": 1e-6} if dtype == torch.float32
-                       else {"rtol": 0.0, "atol": 1e-2})
-                torch.testing.assert_close(got, want, **tol)
-                log(f"K1 d={d} {str(dtype)[6:]} w={w}: max |err| "
-                    f"{max_err(got, want):.3e}")
         x32[7] = 0.0
         for method, plain in (("l2", l2_normalize_plain),
                               ("l1", l1_normalize_plain)):
@@ -546,6 +738,7 @@ def check_kernels(dev: torch.device) -> None:
             torch.testing.assert_close(got, want, rtol=0.0, atol=1e-6)
             assert torch.all(got[7] == 0.0)
             log(f"K2 d={d} {method}: max |err| {max_err(got, want):.3e}")
+    csr = CsrMatrix.from_numpy(*markov_csr(K1_CHECK_ROWS, 1, HUB_DEGREE), dev)
     check_k3(dev)
     check_k4(dev)
     check_k5(dev, csr)
@@ -695,7 +888,7 @@ def check_k4(dev: torch.device) -> None:
     vals[indptr[zero_row]:indptr[zero_row + 1]] = 0.0
     csr = CsrMatrix.from_numpy(indptr, cols, vals, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    for d in (8, 256, 300):
+    for d in (8, 256, 300, WIDE_DIM):
         xn = l2_normalize_plain(
             torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen))
         for temperature in (0.7, 1.0):
@@ -1157,6 +1350,8 @@ def full_width(dev: torch.device, card: str) -> tuple:
 
     import cleora_tpu_torch as ctt
     from cleora_tpu_torch.ops.attention import (
+        attention_spmm,
+        attention_spmm_plain,
         edge_attention_weights,
         edge_attention_weights_plain,
     )
@@ -1175,25 +1370,43 @@ def full_width(dev: torch.device, card: str) -> tuple:
     init_s = time.perf_counter() - t0
     log(f"full width: {n} entities, {nnz} nnz; ingest {ingest_s:.3f} s, "
         f"host init {init_s:.3f} s")
+    hub_census("phase 5's graph", g)
 
     # ---- the main path, through the user's entry point
     out, launches = run_main_path("embed()", lambda: ctt.embed(
         g, feature_dim=DIM, num_iterations=ITERATIONS, whiten=True))
     none = dict.fromkeys(launches, 0)
-    assert launches == none | {
-        "spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
-        "hash_init": 1}, launches
+    assert launches == none | {  # K2 is fused into K1: no K2 launch
+        "spmm_csr": ITERATIONS, "hash_init": 1}, launches
     check_covariance(out, dev)
 
     # ---- the attention path, through the user's entry point
     att_out, att_launches = run_main_path(
         "embed_with_attention()", lambda: ctt.embed_with_attention(
             g, feature_dim=DIM, num_iterations=ITERATIONS, whiten=True))
+    # the first iteration is a propagate step (K1), each later one the
+    # fused pass alone (then whitening)
     assert att_launches == none | {
-        "spmm_csr": ITERATIONS, "row_normalize": 2 * ITERATIONS - 1,
-        "hash_init": 1, "edge_attention": ITERATIONS - 1}, att_launches
+        "spmm_csr": 1, "hash_init": 1,
+        "attention_spmm": ITERATIONS - 1}, att_launches
     check_covariance(att_out, dev)
     del att_out
+
+    # ---- rows wider than one tile keep K1 then K2, and K2 + K4 + K1 + K2
+    # for attention (on phase 4's graph: the entry point a user with
+    # D > 1024 calls)
+    wide = random_graph(PARITY_NODES, PARITY_EDGES, seed=3)
+    wide_out, wide_launches = run_main_path(
+        f"embed_with_attention(D={WIDE_DIM}, {WIDE_ITERATIONS} iterations, "
+        "phase 4's graph)", lambda: ctt.embed_with_attention(
+            wide, feature_dim=WIDE_DIM, num_iterations=WIDE_ITERATIONS,
+            whiten=False))
+    assert wide_launches == none | {
+        "spmm_csr": WIDE_ITERATIONS, "hash_init": 1,
+        "row_normalize": 2 * WIDE_ITERATIONS - 1,
+        "edge_attention": WIDE_ITERATIONS - 1}, wide_launches
+    wide_rows, _ = wide_path(wide, wide_out, dev, card)
+    del wide, wide_out
 
     # ---- K3 at full width: bitwise against the host init, and its time
     hashes = g._device_hashes(dev)
@@ -1220,23 +1433,28 @@ def full_width(dev: torch.device, card: str) -> tuple:
     log(f"loop: {loop_s:.3f} s for {ITERATIONS} iterations, "
         f"{nnz * ITERATIONS / loop_s:.4e} edge-ops/s")
 
-    # ---- per-iteration split by CUDA events over a few iterations
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    # ---- per-iteration split by CUDA events over a few iterations: K1
+    # with the l2 normalisation fused (the loop's step), against the
+    # two-pass design (K1 without it, then K2) in the same run
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
           for _ in range(3)]
     x = x0
     for e in ev:
         e[0].record()
-        y = spmm(csr, x)
+        y2 = normalize(spmm(csr, x), "l2")
         e[1].record()
-        y = normalize(y, "l2")
+        del y2
         e[2].record()
-        x = whiten(y)
+        y = spmm(csr, x, normalization="l2")
         e[3].record()
+        x = whiten(y)
+        e[4].record()
     torch.cuda.synchronize()
     split = [np.mean([e[k].elapsed_time(e[k + 1]) for e in ev])
-             for k in range(3)]
-    log(f"per iteration: K1 {split[0]:.3f} ms, K2 {split[1]:.3f} ms, "
-        f"whiten {split[2]:.3f} ms")
+             for k in range(4)]
+    log(f"per iteration: K1 with the l2 normalisation fused "
+        f"{split[2]:.3f} ms against K1 then K2 {split[0]:.3f} ms; whiten "
+        f"{split[3]:.3f} ms; [{card}]")
     # whitening's bound: its two N x D x D float32 GEMMs (covariance and
     # projection) against reading its input and writing its output once
     wh_ops_ms = 2 * 2 * n * DIM * DIM / FP32_FLOP_PER_S * 1e3
@@ -1245,9 +1463,10 @@ def full_width(dev: torch.device, card: str) -> tuple:
         f"{wh_ops_ms:.3f} ms, bytes {wh_bytes_ms:.3f} ms)")
     device_share(csr, x0)
 
-    # ---- the same split of an attention iteration (ops/attention.py's
-    # attention_step, stage by stage)
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    # ---- an attention iteration: the fused pass (then whitening) against
+    # the five passes it replaces (a float32 copy of x, K2 on it, K4, K1
+    # with K4's weights, K2), in the same run
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(8)]
           for _ in range(3)]
     for e in ev:
         e[0].record()
@@ -1255,38 +1474,52 @@ def full_width(dev: torch.device, card: str) -> tuple:
         e[1].record()
         weights = edge_attention_weights(csr, xn, 1.0)
         e[2].record()
-        y = spmm(csr.with_vals(weights), x)
+        y5 = spmm(csr.with_vals(weights), x)
         e[3].record()
-        y = normalize(y, "l2")
+        y5 = normalize(y5, "l2")
         e[4].record()
-        x = whiten(y)
+        del xn, weights, y5
         e[5].record()
+        y = attention_spmm(csr, x, 1.0, "l2")
+        e[6].record()
+        x = whiten(y)
+        e[7].record()
     torch.cuda.synchronize()
     split = [np.mean([e[k].elapsed_time(e[k + 1]) for e in ev])
-             for k in range(5)]
-    log(f"per attention iteration: copy + K2 {split[0]:.3f} ms, K4 "
-        f"{split[1]:.3f} ms, K1 {split[2]:.3f} ms, K2 {split[3]:.3f} ms, "
-        f"whiten {split[4]:.3f} ms")
-    del x, xn, y, weights
+             for k in range(7)]
+    log(f"per attention iteration: the fused pass {split[5]:.3f} ms against "
+        f"the five passes {sum(split[:4]):.3f} ms (copy + K2 "
+        f"{split[0]:.3f}, K4 {split[1]:.3f}, K1 {split[2]:.3f}, K2 "
+        f"{split[3]:.3f}); whiten {split[6]:.3f} ms; [{card}]")
+    del x, y
 
-    # ---- each kernel at the main path's shape: error, times, bounds
-    k1_out = spmm(csr, x0)
-    k1_plain = spmm_plain(csr, x0)
+    # ---- each kernel at the main path's shape: error, times, bounds.  K1
+    # as the loop runs it (the l2 normalisation fused), against spmm_plain
+    # + the plain normalisation; no single library call also normalises
+    k1_out = spmm(csr, x0, normalization="l2")
+    k1_plain = l2_normalize_plain(spmm_plain(csr, x0))
     torch.cuda.synchronize()
     k1_err = max_err(k1_out, k1_plain)
     torch.testing.assert_close(k1_out, k1_plain, rtol=1e-5, atol=1e-6)
-    k1_ms = time_ms(lambda: spmm(csr, x0))
-    k1_plain_ms = time_ms(lambda: spmm_plain(csr, x0), reps=3, warmup=1)
-    with warnings.catch_warnings():  # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        a = torch.sparse_csr_tensor(csr.indptr.int(), csr.indices, csr.vals,
-                                    size=(n, n), check_invariants=False)
-        lib = torch.sparse.mm(a, x0)
-    torch.testing.assert_close(lib, k1_plain, rtol=1e-5, atol=1e-6)
+    del k1_out, k1_plain
+    k1_ms = time_ms(lambda: spmm(csr, x0, normalization="l2"))
+    k1_plain_ms = time_ms(lambda: l2_normalize_plain(spmm_plain(csr, x0)),
+                          reps=3, warmup=1)
+    # K1 without the normalisation, against torch.sparse.mm
+    k1n_out = spmm(csr, x0)
+    k1n_plain = spmm_plain(csr, x0)
+    torch.cuda.synchronize()
+    k1n_err = max_err(k1n_out, k1n_plain)
+    torch.testing.assert_close(k1n_out, k1n_plain, rtol=1e-5, atol=1e-6)
+    k1n_ms = time_ms(lambda: spmm(csr, x0))
+    k1n_plain_ms = time_ms(lambda: spmm_plain(csr, x0), reps=3, warmup=1)
+    a = sparse_csr(csr)
+    lib = torch.sparse.mm(a, x0)
+    torch.testing.assert_close(lib, k1n_plain, rtol=1e-5, atol=1e-6)
     k1_lib_ms = time_ms(lambda: torch.sparse.mm(a, x0))
-    del a, lib, k1_plain
+    del a, lib, k1n_plain
 
-    y = k1_out
+    y = k1n_out
     k2_out = normalize(y.clone(), "l2")
     k2_plain = l2_normalize_plain(y.clone())
     torch.cuda.synchronize()
@@ -1308,56 +1541,298 @@ def full_width(dev: torch.device, card: str) -> tuple:
     k4_ms = time_ms(lambda: edge_attention_weights(csr, xn, 1.0))
     k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, xn, 1.0),
                           reps=3, warmup=1)
+    del k4_out
+
+    # the fused attention pass on the same state, l2 (the main path's)
+    att_got = attention_spmm(csr, xn, 1.0, "l2")
+    att_want = attention_spmm_plain(csr, xn, 1.0, "l2")
+    torch.cuda.synchronize()
+    att_err = max_err(att_got, att_want)
+    torch.testing.assert_close(att_got, att_want, rtol=1e-5, atol=1e-6)
+    del att_got, att_want
+    att_ms = time_ms(lambda: attention_spmm(csr, xn, 1.0, "l2"))
+    att_plain_ms = time_ms(lambda: attention_spmm_plain(csr, xn, 1.0, "l2"),
+                           reps=3, warmup=1)
 
     # bound: each input read once, each output written once, against the
     # flops at float32 — the larger of the two times
     k1_bytes = 8 * (n + 1) + 8 * nnz + 4 * n * DIM + 4 * n * DIM
-    k1_flops = 2 * nnz * DIM
-    k2_bytes = 2 * 4 * n * DIM
-    k2_flops = 3 * n * DIM
+    k1_flops = 2 * nnz * DIM + 3 * n * DIM
     # K3: the hashes in, the init out; one float division per value (its
     # integer work has no float32 peak to set it against)
     k3_bytes = 8 * n + 4 * n * DIM
     k3_flops = n * DIM
-    # K4: xn, the CSR and the weights once; the scores' dot products
-    k4_bytes = 4 * n * DIM + 8 * (n + 1) + 8 * nnz + 4 * nnz
-    k4_flops = 2 * nnz * DIM
+    # the fused pass: x, the CSR and y once; per edge a dot product, a
+    # sum of squares and the weighted add
+    att_bytes = k1_bytes
+    att_flops = 6 * nnz * DIM + 6 * n * DIM
     gather_bytes = nnz * (8 + 4 * DIM) + 4 * n * DIM
     loop_bound_ms = ITERATIONS * (
         max(k1_bytes / HBM_BYTES_PER_S, k1_flops / FP32_FLOP_PER_S)
-        + max(k2_bytes / HBM_BYTES_PER_S, k2_flops / FP32_FLOP_PER_S)
         + max(wh_ops_ms, wh_bytes_ms) * 1e-3) * 1e3
-    log(f"loop bound: {ITERATIONS} x (K1 + K2 + whiten bounds) = "
+    log(f"loop bound: {ITERATIONS} x (K1 + whiten bounds) = "
         f"{loop_bound_ms:.3f} ms against {loop_s * 1e3:.3f} ms measured")
-    log(f"K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, torch.sparse.mm "
-        f"{k1_lib_ms:.3f}); one x row per edge = {gather_bytes / 1e9:.3f} GB "
-        f"-> {gather_bytes / (k1_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
-    log(f"K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, F.normalize "
-        f"{k2_lib_ms:.3f}); [{card}]")
-    log(f"K4 {k4_ms:.3f} ms (plain {k4_plain_ms:.3f}); one xn row per edge = "
-        f"{gather_bytes / 1e9:.3f} GB -> "
-        f"{gather_bytes / (k4_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
+    log(f"K1 (l2 fused) {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}); K1 "
+        f"without it {k1n_ms:.3f} ms (plain {k1n_plain_ms:.3f}, "
+        f"torch.sparse.mm {k1_lib_ms:.3f}, max |err| {k1n_err:.3e}); bound "
+        f"{k1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; one x row per edge = "
+        f"{gather_bytes / 1e9:.3f} GB -> floor "
+        f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+        f"{gather_bytes / (k1_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
+    # K2 and K4 at D = 256 are off the main paths of this phase (the
+    # kernels line takes them from the D = 1028 path, wide_path); K2's
+    # kernel for up to 1,024 columns still runs after the spectral
+    # siblings and halo="overlap"'s rounds
+    log(f"K2 at D={DIM} {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, "
+        f"F.normalize {k2_lib_ms:.3f}, max |err| {k2_err:.3e}); [{card}]")
+    log(f"K4 at D={DIM} {k4_ms:.3f} ms (plain {k4_plain_ms:.3f}, max |err| "
+        f"{k4_err:.3e}); one xn row per edge = {gather_bytes / 1e9:.3f} GB "
+        f"-> {gather_bytes / (k4_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
+    log(f"fused attention pass (l2) {att_ms:.3f} ms (plain "
+        f"{att_plain_ms:.3f}); bound {att_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; one x row per edge floor "
+        f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; [{card}]")
+    del xn, k2_out, y, k1n_out
+
+    power_law_hubs(dev, card)
 
     return [
         kernel_row("spmm_csr", "cleora_tpu_torch/kernels/spmm_csr.cu",
                    "cleora_tpu/ops/spmm_ell.py:437", k1_ms, k1_plain_ms,
-                   k1_lib_ms, k1_err, k1_bytes, k1_flops,
-                   launches["spmm_csr"]),
+                   None, k1_err, k1_bytes, k1_flops, launches["spmm_csr"]),
         kernel_row("row_normalize",
                    "cleora_tpu_torch/kernels/row_normalize.cu",
-                   "cleora_tpu/ops/normalize.py:15", k2_ms, k2_plain_ms,
-                   k2_lib_ms, k2_err, k2_bytes, k2_flops,
-                   launches["row_normalize"]),
-        # no single PyTorch call computes K3's or K4's function
+                   "cleora_tpu/ops/normalize.py:15", *wide_rows["k2"],
+                   wide_launches["row_normalize"]),
+        # no single PyTorch call computes K3's, K4's or the fused pass's
+        # function
         kernel_row("hash_init", "cleora_tpu_torch/kernels/hash_init.cu",
                    "cleora_tpu/ops/init.py:60", k3_ms, k3_plain_ms, None, 0.0,
                    k3_bytes, k3_flops, launches["hash_init"]),
         kernel_row("edge_attention",
                    "cleora_tpu_torch/kernels/edge_attention.cu",
-                   "cleora_tpu/__init__.py:502", k4_ms, k4_plain_ms, None,
-                   k4_err, k4_bytes, k4_flops,
-                   att_launches["edge_attention"]),
+                   "cleora_tpu/__init__.py:502", *wide_rows["k4"],
+                   wide_launches["edge_attention"]),
+        kernel_row("attention_spmm",
+                   "cleora_tpu_torch/kernels/edge_attention.cu",
+                   "cleora_tpu/__init__.py:502", att_ms, att_plain_ms, None,
+                   att_err, att_bytes, att_flops,
+                   att_launches["attention_spmm"]),
     ], g, out
+
+
+def wide_path(wide, wide_out: np.ndarray, dev: torch.device,
+              card: str) -> tuple:
+    """The D = 1028 attention path (rows wider than one column tile: K1
+    then K2, and K2 + K4 + K1 + K2 an attention iteration) held to its
+    plain versions: the entry point's output against the plain chain
+    from the same init (normalize_plain(spmm_plain) then
+    attention_spmm_plain), and one attention step on the same state
+    against attention_spmm_plain, both at rtol=1e-5, atol=1e-6; then K2
+    and K4 at that shape against their plain versions and timed.
+    Returns ({"k2": ..., "k4": ...} kernel_row arguments before the
+    launches, the step's max |err|)."""
+    import torch.nn.functional as F
+
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.attention import (
+        attention_spmm_plain,
+        attention_step,
+        edge_attention_weights,
+        edge_attention_weights_plain,
+    )
+    from cleora_tpu_torch.ops.init import device_init_plain
+    from cleora_tpu_torch.ops.normalize import (
+        l2_normalize_plain,
+        normalize,
+        normalize_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import spmm_plain
+
+    csr = wide._device_csr("left", dev)
+    n, nnz, d = csr.n_rows, csr.nnz, WIDE_DIM
+    x = normalize_plain(spmm_plain(
+        csr, device_init_plain(wide._device_hashes(dev), d)), "l2")
+    state = x
+    for _ in range(WIDE_ITERATIONS - 1):
+        x = attention_spmm_plain(csr, x, 1.0, "l2")
+    got = torch.from_numpy(wide_out).to(dev)
+    run_err = max_err(got, x)
+    torch.testing.assert_close(got, x, rtol=1e-5, atol=1e-6)
+    del got, x
+    kernels.reset_launches()
+    y = attention_step(csr, state, 1.0, "l2")
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert launches == {"row_normalize": 2, "edge_attention": 1,
+                        "spmm_csr": 1}, launches
+    want = attention_spmm_plain(csr, state, 1.0, "l2")
+    torch.cuda.synchronize()
+    step_err = max_err(y, want)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
+    del y, want
+
+    # K2 on the wide state (one block a row), K4 on its l2-normalised copy
+    raw = spmm_plain(csr, state)
+    k2_out = normalize(raw.clone(), "l2")
+    k2_plain = l2_normalize_plain(raw.clone())
+    torch.cuda.synchronize()
+    k2_err = max_err(k2_out, k2_plain)
+    torch.testing.assert_close(k2_out, k2_plain, rtol=0.0, atol=1e-6)
+    k2_ms = time_ms(lambda: normalize(k2_out, "l2"))
+    k2_plain_ms = time_ms(lambda: l2_normalize_plain(k2_plain))
+    k2_lib_ms = time_ms(lambda: F.normalize(raw, p=2.0, dim=1, eps=1e-10))
+    del k2_plain, raw
+    xn = k2_out
+    k4_out = edge_attention_weights(csr, xn, 1.0)
+    k4_plain = edge_attention_weights_plain(csr, xn, 1.0)
+    torch.cuda.synchronize()
+    k4_err = max_err(k4_out, k4_plain)
+    torch.testing.assert_close(k4_out, k4_plain, rtol=1e-5, atol=1e-6)
+    del k4_out, k4_plain
+    k4_ms = time_ms(lambda: edge_attention_weights(csr, xn, 1.0))
+    k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, xn, 1.0))
+    # K2: x read and written once; K4: xn, the CSR and the weights once,
+    # the scores' dot products
+    k2_bytes, k2_flops = 2 * 4 * n * d, 3 * n * d
+    k4_bytes = 4 * n * d + 8 * (n + 1) + 8 * nnz + 4 * nnz
+    k4_flops = 2 * nnz * d
+    log(f"  D={d} path on phase 4's graph ({n} rows, {nnz} entries): the "
+        f"entry point's output against the plain chain max |err| "
+        f"{run_err:.3e}; one attention step (K2, K4, K1, K2) against "
+        f"attention_spmm_plain {step_err:.3e}; K2 {k2_ms:.4f} ms (plain "
+        f"{k2_plain_ms:.4f}, F.normalize {k2_lib_ms:.4f}, max |err| "
+        f"{k2_err:.3e}, bound {k2_bytes / HBM_BYTES_PER_S * 1e3:.4f}); K4 "
+        f"{k4_ms:.4f} ms (plain {k4_plain_ms:.4f}, max |err| {k4_err:.3e}, "
+        f"bound {k4_bytes / HBM_BYTES_PER_S * 1e3:.4f}); [{card}]")
+    # no single PyTorch call computes K4's function
+    return {"k2": (k2_ms, k2_plain_ms, k2_lib_ms, k2_err, k2_bytes,
+                   k2_flops),
+            "k4": (k4_ms, k4_plain_ms, None, k4_err, k4_bytes,
+                   k4_flops)}, step_err
+
+
+def hub_census(name: str, g) -> None:
+    """The rows of a graph's CSR over kernels.LONG_SLICE entries (the rows
+    that K1, the fused attention pass and K5 cut into slices) and the
+    share of the entries they hold."""
+    from cleora_tpu_torch import kernels
+
+    deg = np.diff(g.data.indptr)
+    over = deg > kernels.LONG_SLICE
+    log(f"  hub census, {name}: largest row {int(deg.max())} entries; "
+        f"{int(over.sum())} rows over {kernels.LONG_SLICE} entries, holding "
+        f"{int(deg[over].sum())} of {int(deg.sum())} entries")
+
+
+def sparse_csr(csr):
+    """The library's CSR tensor of a CsrMatrix (torch.sparse.mm's operand)."""
+    n = csr.n_rows
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(csr.indptr.int(), csr.indices,
+                                       csr.vals, size=(n, n),
+                                       check_invariants=False)
+
+
+def chung_lu_csr(n: int, pairs: int, seed: int, dev: torch.device):
+    """A left-Markov CSR drawn on the card by the Chung-Lu rule: ``pairs``
+    pairs, each endpoint drawn with probability proportional to
+    (i + 1)^-POWER_LAW_EXPONENT, both directions kept, duplicates kept
+    (the SpMM sums them), values 1 / degree."""
+    from cleora_tpu_torch.ops.spmm import CsrMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    weight = torch.arange(1, n + 1, device=dev,
+                          dtype=torch.float64) ** -POWER_LAW_EXPONENT
+    cdf = torch.cumsum(weight, 0)
+    cdf /= cdf[-1].clone()
+    ends = torch.searchsorted(cdf, torch.rand(
+        (2, pairs), device=dev, generator=gen, dtype=torch.float64))
+    ends.clamp_(max=n - 1)
+    src = torch.cat([ends[0], ends[1]])
+    dst = torch.cat([ends[1], ends[0]])
+    del ends
+    order = torch.argsort(src * n + dst)
+    src, dst = src[order], dst[order]
+    deg = torch.bincount(src, minlength=n)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(deg, 0, out=indptr[1:])
+    vals = (1.0 / deg.clamp_min(1).float())[src]
+    return CsrMatrix(indptr, dst.to(torch.int32), vals), deg
+
+
+def power_law_hubs(dev: torch.device, card: str) -> None:
+    """K1 and the fused attention pass on a power-law graph of phase 5's
+    size (Chung-Lu, drawn on the card from seed 7): K1 with its hub
+    slices, K1 with every row walked by its own warp (for comparison
+    only), torch.sparse.mm, and the fused pass, each with its bound and
+    its one-row-per-edge floor."""
+    from cleora_tpu_torch import kernels
+    from cleora_tpu_torch.ops.attention import (
+        attention_spmm,
+        attention_spmm_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import spmm, spmm_plain
+
+    t0 = time.perf_counter()
+    csr, deg = chung_lu_csr(FULL_NODES, FULL_UND_EDGES, 7, dev)
+    hubs = csr.hub_plan()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, nnz = csr.n_rows, csr.nnz
+    long_rows = deg > kernels.LONG_SLICE
+    log(f"power-law graph (Chung-Lu, exponent {POWER_LAW_EXPONENT}, seed 7, "
+        f"drawn on the card in {build_s:.3f} s): {n} rows, {nnz} entries; "
+        f"largest degree {int(deg.max())}; {int(long_rows.sum())} rows over "
+        f"{kernels.LONG_SLICE} entries holding {int(deg[long_rows].sum())} "
+        f"entries, cut into {hubs.item_rows.shape[0]} slices")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((n, DIM), device=dev, generator=gen)
+    x = x / torch.linalg.norm(x, dim=1, keepdim=True)
+    # rows up to LONG_SLICE entries against the plain version, the hubs
+    # (up to 333,156 entries) against their float64 reference
+    # (assert_rows_close); K1 with every row a warp, timed for comparison
+    # only, sums a hub in one sequence and is held on the hubs to the
+    # float32 bound of such a sum, (n - 1) 2^-24 sum |term| (Higham)
+    hub_ids = torch.nonzero(long_rows).flatten()
+    ref, mag = hub_rows_float64(csr, x, hub_ids)
+    got = spmm(csr, x)
+    want = spmm_plain(csr, x)
+    unsliced = kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x)
+    torch.cuda.synchronize()
+    err = assert_rows_close(got, want, long_rows, ref)
+    torch.testing.assert_close(unsliced[~long_rows], want[~long_rows],
+                               rtol=1e-5, atol=1e-6)
+    bound = (deg[hub_ids] - 1).double()[:, None] * 2.0**-24 * mag
+    whole_err = (unsliced[hub_ids].double() - ref).abs()
+    assert bool((whole_err <= bound).all()), float(whole_err.max())
+    err += f"; every row a warp: hub rows {float(whole_err.max()):.3e}"
+    del got, want, unsliced, ref, mag, bound, whole_err
+    sliced_ms = time_ms(lambda: spmm(csr, x))
+    whole_ms = time_ms(lambda: kernels.spmm_csr(
+        csr.indptr, csr.indices, csr.vals, x))
+    a = sparse_csr(csr)
+    lib_ms = time_ms(lambda: torch.sparse.mm(a, x))
+    del a
+    att = attention_spmm(csr, x, 1.0, "none")
+    att_want = attention_spmm_plain(csr, x, 1.0, "none")
+    ref, _ = hub_rows_float64(csr, x, hub_ids, temperature=1.0)
+    torch.cuda.synchronize()
+    att_err = assert_rows_close(att, att_want, long_rows, ref)
+    del att, att_want, ref
+    att_ms = time_ms(lambda: attention_spmm(csr, x, 1.0, "l2"))
+    att_whole_ms = time_ms(lambda: kernels.attention_spmm(
+        csr.indptr, csr.indices, csr.vals, x, 1.0, "l2"))
+    once = 8 * (n + 1) + 8 * nnz + 2 * 4 * n * DIM
+    floor = nnz * (8 + 4 * DIM) + 4 * n * DIM
+    log(f"  K1 on it: {sliced_ms:.3f} ms with its hub slices, {whole_ms:.3f} "
+        f"ms with every row a warp, torch.sparse.mm {lib_ms:.3f} ms; the "
+        f"fused attention pass (l2) {att_ms:.3f} ms with slices, "
+        f"{att_whole_ms:.3f} ms without; bound "
+        f"{once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), floor "
+        f"{floor / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row per entry); "
+        f"against plain: K1 {err}, the pass {att_err}; "
+        f"[{card}]")
 
 
 @contextlib.contextmanager
@@ -1503,11 +1978,14 @@ def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
     # acc read and acc, out written once; or one gathered x row an entry
     acc_t = acc.clone()
     k5_ms = time_ms(lambda: spmm_axpy(csr_pt, y, 1.0, acc=acc_t, d=1.0))
-    del acc_t
+    lib_op = sparse_csr(csr_pt)
+    k5_lib_ms = time_ms(lambda: acc_t.add_(torch.sparse.mm(lib_op, y)))
+    del acc_t, lib_op
     panel = 4 * n * b
     once = 8 * (n + 1) + 8 * csr_pt.nnz + 4 * panel
     gathered = once - panel + 4 * csr_pt.nnz * b
-    log(f"  K5 at the blocked panel ({n}, {b}): {k5_ms:.3f} ms; bounds "
+    log(f"  K5 at the blocked panel ({n}, {b}): {k5_ms:.3f} ms "
+        f"(torch.sparse.mm + add_ {k5_lib_ms:.3f}); bounds "
         f"{once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
         f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an entry); "
         f"[{card}]")
@@ -1526,6 +2004,22 @@ def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
         del want, got
         errs["log_clip"] = max(errs["log_clip"],
                                check_log_clip(y, None, None, *grarep_mode()))
+    # K1 at this panel's shape (a GraRep power), against torch.sparse.mm;
+    # bounds as K5's above
+    k1_plain_ms = timed_once(lambda: spmm_plain(csr_pt, y))[1]
+    k1_ms = time_ms(lambda: spmm(csr_pt, y))
+    lib_op = sparse_csr(csr_pt)
+    k1_lib_ms = time_ms(lambda: torch.sparse.mm(lib_op, y))
+    del lib_op
+    k1_once = 8 * (n + 1) + 8 * csr_pt.nnz + 2 * panel
+    k1_gathered = k1_once - panel + 4 * csr_pt.nnz * b
+    log(f"  K1 at the blocked panel ({n}, {b}): {k1_ms:.3f} ms (plain "
+        f"{k1_plain_ms:.3f}, torch.sparse.mm {k1_lib_ms:.3f}); bounds "
+        f"{k1_once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
+        f"{k1_gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an "
+        f"entry); [{card}]")
+    errs["k1_panel"] = (k1_ms, k1_plain_ms, k1_lib_ms, errs["spmm_csr"],
+                        k1_once, 2 * csr_pt.nnz * b)
     log(f"  one row block of the blocked paths, ({n}, {b}) on the "
         f"{csr_pt.nnz}-entry transposed transition CSR, each step against "
         f"its plain version: K5 ({window} NetMF walk steps) max |err| "
@@ -1670,6 +2164,7 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     log(f"phase 6, dense siblings on {nd} entities, {nnzd} nnz (ingest "
         f"{time.perf_counter() - t0:.3f} s); six (n, n) float32 buffers = "
         f"{6 * 4 * nd * nd / 1e9:.1f} GB")
+    hub_census("phase 6's dense graph", gd)
     limit = memory.device_memory_limit(dev)
     gate_rows = int(np.sqrt(0.9 * limit / (6 * 4)))
     assert alg._dense_fits(gate_rows, device=dev)
@@ -1753,6 +2248,7 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     log(f"phase 6, blocked paths on {nb} entities, {gb.num_edges} nnz "
         f"(ingest {time.perf_counter() - t0:.3f} s): block_rows={BLOCK_ROWS},"
         f" {blocks} blocks, {sweeps} sweeps")
+    hub_census("phase 6's blocked graph", gb)
     blocked_targets = ((alg, "spmm_axpy"), (alg, "spmm"), (alg, "log_clip"),
                        (torch, "matmul"), (torch.linalg, "qr"),
                        (torch.linalg, "svd"), (alg, "_fetch_f64"))
@@ -1785,9 +2281,10 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
                  {"spmm_axpy": blocks * sweeps * 5,
                   "log_clip": blocks * sweeps})
     stage_split("embed_netmf() blocked", netmf_blocked, *blocked_targets)
-    run_spectral("embed_grarep() blocked", grarep_blocked,
-                 {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
-                  "log_clip": blocks * sweeps * GRAREP_STEPS})
+    grarep_launches = run_spectral(
+        "embed_grarep() blocked", grarep_blocked,
+        {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
+         "log_clip": blocks * sweeps * GRAREP_STEPS})
     stage_split("embed_grarep() blocked", grarep_blocked, *blocked_targets)
     refs["blocked"] = gb
     refs["blocked_rows"] = sample_rows(nb)
@@ -1808,6 +2305,9 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         kernel_row("log_clip", src + "log_clip.cu",
                    "cleora_tpu/algorithms.py:429", k7_ms, k7_plain_ms,
                    k7_lib_ms, k7_err, k7_bytes, k7_flops, netmf["log_clip"]),
+        kernel_row("spmm_csr_blocked", src + "spmm_csr.cu",
+                   "cleora_tpu/algorithms.py:640", *blocked_errs["k1_panel"],
+                   grarep_launches["spmm_csr"]),
     ], refs
 
 
@@ -2054,6 +2554,7 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     log(f"phase 7, DeepWalk on {n} entities, {g.num_edges} nnz (ingest "
         f"{ingest_s:.3f} s): {n_walks} walks of {WALK_LENGTH} in {batches} "
         f"batches, window {WINDOW}, {passes} hash partitions, D={DIM}")
+    hub_census("phase 7's graph", g)
 
     def deepwalk():
         return alg.embed_deepwalk(
@@ -3015,13 +3516,13 @@ def node_classification(dev: torch.device, card: str, big) -> list:
         f"{gen_s:.3f} s ({ARXIV_NODES} nodes, {ARXIV_EDGES} edges, "
         f"{ARXIV_CLASSES} classes), ingested in {ingest_s:.3f} s: "
         f"{g.num_entities} entities, {g.num_edges} nnz")
+    hub_census("BASELINE config 3 (ogbn-arxiv's shape)", g)
     emb, launches = run_main_path("  embed(D=256, 40 iterations)",
                                   lambda: ctt.embed(
                                       g, feature_dim=DIM,
                                       num_iterations=ITERATIONS, whiten=True))
     none = dict.fromkeys(launches, 0)
     assert launches == none | {"spmm_csr": ITERATIONS,
-                               "row_normalize": ITERATIONS,
                                "hash_init": 1}, launches
     check_covariance(emb, dev)
     t0 = time.perf_counter()
@@ -3199,25 +3700,28 @@ def node_classification(dev: torch.device, card: str, big) -> list:
 
     a_hat, a_hat_t = cl._gcn_operators(big, dev)
     dout = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
-    got = spmm(a_hat_t, dout)
-    want, kt_plain_ms = timed_once(lambda: spmm_plain(a_hat_t, dout))
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    kt_err = max_err(got, want)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        t_lib = torch.sparse_csr_tensor(a_hat_t.indptr.int(), a_hat_t.indices,
-                                        a_hat_t.vals, size=(n, n),
-                                        check_invariants=False)
-    kt_ms = time_ms(lambda: spmm(a_hat_t, dout))
-    kt_lib_ms = time_ms(lambda: torch.sparse.mm(t_lib, dout))
-    kt_bytes = (8 * (n + 1) + 8 * a_hat_t.nnz + 2 * 4 * n * GCN_HIDDEN)
-    kt_flops = 2 * a_hat_t.nnz * GCN_HIDDEN
-    log(f"K1 over the transpose of the GCN operator ({a_hat_t.nnz} nnz) "
-        f"d={GCN_HIDDEN}: {kt_ms:.3f} ms (plain {kt_plain_ms:.3f}, "
-        f"torch.sparse.mm {kt_lib_ms:.3f}); bound "
-        f"{kt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; [{card}]")
-    del a_hat, a_hat_t, dout, got, want, t_lib
+    gcn_k1 = {}  # K1 over the GCN operator (forward) and its transpose
+    for label, op in (("A_hat", a_hat), ("A_hat^T", a_hat_t)):
+        got = spmm(op, dout)
+        want, plain_ms = timed_once(lambda: spmm_plain(op, dout))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        err = max_err(got, want)
+        lib_op = sparse_csr(op)
+        ms = time_ms(lambda: spmm(op, dout))
+        lib_ms = time_ms(lambda: torch.sparse.mm(lib_op, dout))
+        nbytes = 8 * (n + 1) + 8 * op.nnz + 2 * 4 * n * GCN_HIDDEN
+        flops = 2 * op.nnz * GCN_HIDDEN
+        floor = op.nnz * (8 + 4 * GCN_HIDDEN) + 4 * n * GCN_HIDDEN
+        gcn_k1[label] = (ms, plain_ms, lib_ms, err, nbytes, flops)
+        log(f"K1 over the GCN operator {label} ({op.nnz} nnz) "
+            f"d={GCN_HIDDEN}: {ms:.3f} ms (plain {plain_ms:.3f}, "
+            f"torch.sparse.mm {lib_ms:.3f}); bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, one row per entry "
+            f"{floor / HBM_BYTES_PER_S * 1e3:.3f} ms; launches in the GCN "
+            f"(both operators) {gcn_launches['spmm_csr']}; [{card}]")
+        del got, want, lib_op
+    del a_hat, a_hat_t, dout
     torch.cuda.empty_cache()
 
     # ---- (c) BASELINE config 4: card against CPU
@@ -3238,10 +3742,12 @@ def node_classification(dev: torch.device, card: str, big) -> list:
                    "cleora_tpu/classify.py:131", k15_ms, k15_plain_ms,
                    k15_lib_ms, 0.0, k15_bytes, 0,
                    gcn_launches["relu_dropout"]),
+        kernel_row("spmm_csr_gcn", "cleora_tpu_torch/kernels/spmm_csr.cu",
+                   "cleora_tpu/classify.py:125", *gcn_k1["A_hat"],
+                   gcn_launches["spmm_csr"]),
         kernel_row("spmm_csr_transposed",
                    "cleora_tpu_torch/kernels/spmm_csr.cu",
-                   "cleora_tpu/classify.py:149", kt_ms, kt_plain_ms,
-                   kt_lib_ms, kt_err, kt_bytes, kt_flops,
+                   "cleora_tpu/classify.py:149", *gcn_k1["A_hat^T"],
                    gcn_launches["spmm_csr"]),
     ]
 
@@ -3316,8 +3822,7 @@ def streamed_sharded(dev: torch.device, card: str, big, table: np.ndarray,
         out_b, launches = run_main_path("  embed(DiskGraph)",
                                         lambda: ctt.embed(dg, **kw))
         none = dict.fromkeys(launches, 0)
-        loop = {"spmm_csr": ITERATIONS, "row_normalize": ITERATIONS,
-                "hash_init": 1}
+        loop = {"spmm_csr": ITERATIONS, "hash_init": 1}
         assert launches == none | loop, launches
         check_covariance(out_b, dev)
         err, top = gram_err(out_b, table, rows)
@@ -4043,42 +4548,37 @@ def round_library(rc, n_rows: int, n_table: int, dev: torch.device):
         torch.from_numpy(rc.vals).to(dev), size=(n_rows, n_table))
 
 
-def trace_kernels(events: list) -> list:
-    """The names of the device kernels in a Chrome trace's events."""
-    return [e["name"] for e in events if e.get("cat") == "kernel"]
-
-
 TRACE_SPAN = "phase14_embed_iteration"
 
 
-def traced_embed_iteration(fresh_process: bool = False) -> tuple:
-    """tracing.trace() around one embed() iteration on phase 4's graph,
-    with an annotate() span: (span found, kernel names, event count).
-    ``fresh_process`` runs it in a new interpreter over this checkout: in
-    this long process a session once recorded the library's kernels but
-    none of the port's (PERF.md §7)."""
-    if fresh_process:
-        here = os.path.dirname(os.path.abspath(__file__))
-        proc = subprocess.run(
-            [sys.executable, "-c", "import json, chip_smoke as cs; "
-             "print(json.dumps(cs.traced_embed_iteration()))"],
-            capture_output=True, text=True, timeout=600, cwd=here)
-        assert proc.returncode == 0, proc.stdout + proc.stderr
-        return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
+def traced_embed_iteration() -> tuple:
+    """tracing.trace() around one embed() iteration and a two-iteration
+    embed_with_attention() on phase 4's graph, with an annotate() span:
+    (span found, the port's launches as tracing.port_launches gives them,
+    the device kernels, event count).  The profiler's own records can
+    lose the port's kernels late in a long process (PERF.md §7); trace()
+    writes those launches from their CUDA event pairs."""
     import tempfile
 
     import cleora_tpu_torch as ctt
-    from cleora_tpu_torch.tracing import annotate, trace
+    from cleora_tpu_torch.tracing import (
+        annotate,
+        kernel_events,
+        port_launches,
+        trace,
+    )
 
     g = random_graph(PARITY_NODES, PARITY_EDGES, seed=3)
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
             with annotate(TRACE_SPAN):
                 ctt.embed(g, feature_dim=DIM, num_iterations=1)
+                ctt.embed_with_attention(g, feature_dim=DIM,
+                                         num_iterations=2)
         with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
     return (any(e.get("name") == TRACE_SPAN for e in events),
-            trace_kernels(events), len(events))
+            port_launches(events), len(kernel_events(events)), len(events))
 
 
 def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
@@ -4276,7 +4776,6 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
             "one-rank NCCL group",
             lambda: embed_sharded(big, halo="hier", mesh=mesh, **kw))
         assert h_launches == none | {"spmm_csr": ITERATIONS,
-                                     "row_normalize": ITERATIONS,
                                      "hash_init": 1,
                                      "halo_pack": 2 * ITERATIONS}, h_launches
         assert out_h.tobytes() == out_b.tobytes()
@@ -4316,23 +4815,25 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
     # ---- (d) tracing: one embed() iteration on phase 4's graph
     import tempfile
 
-    span, kernels, n_events = traced_embed_iteration()
-    in_process = sum("spmm_csr" in k for k in kernels)
-    here = (f"{len(kernels)} kernel launches, K1 {in_process} of them"
-            if in_process else f"{len(kernels)} kernel launches, K1 NOT "
-            "among them (ROADMAP §C1; a fresh process below is held to it)")
-    span_f, kernels_f, n_events_f = traced_embed_iteration(fresh_process=True)
-    for s_, k_ in ((span, kernels), (span_f, kernels_f)):
-        assert s_, "the trace lacks the annotate() span"
-    assert any("spmm_csr" in k for k in kernels_f), \
-        f"the trace names no K1 kernel: {sorted(set(kernels_f))[:8]}"
+    span, launches, n_kernels, n_events = traced_embed_iteration()
+    assert span, "the trace lacks the annotate() span"
+    names = [name for name, _ in launches]
+    counts = {name: names.count(name) for name in set(names)}
+    # embed(): K3 and K1; embed_with_attention(): K3, K1, the fused pass
+    assert counts == {"spmm_csr": 2, "attention_spmm": 1, "hash_init": 2}, \
+        launches
+    lost = [name for name, source in launches if source == "events"]
+    here = ", ".join(f"{name} {counts[name]}"
+                     for name in ("spmm_csr", "attention_spmm", "hash_init"))
     stats = device_memory_stats()
     assert stats[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
-    log(f"  (d) trace() of one embed() iteration after {PROFILER_SESSIONS[0]}"
-        f" earlier profiler sessions in this process: {n_events} events, "
-        f"{here}; in a fresh process {n_events_f} events, {len(kernels_f)} "
-        "kernel launches, naming the annotate() span and K1's kernel; "
-        f"device_memory_stats(): {stats[0]}")
+    log(f"  (d) trace() of one embed() iteration and a two-iteration "
+        f"embed_with_attention() after {PROFILER_SESSIONS[0]} earlier "
+        f"profiler sessions in this process: {n_events} events, "
+        f"{n_kernels} device kernels; the port's launches {here}, of them "
+        f"{len(lost)} lost by the profiler and written from event pairs "
+        f"{lost} (the annotate() span named); device_memory_stats(): "
+        f"{stats[0]}")
 
     # ---- (e) the capacity plan
     rep = plan_report(big, feature_dim=DIM)

@@ -9,22 +9,27 @@ K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``spmm_acc.cu`` are built at first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
-:data:`LAUNCHES`.  The wrappers take CUDA tensors
-only; the plain PyTorch versions live beside their callers in ``ops/``.
+:data:`LAUNCHES`; while :func:`recording` is open (``tracing.trace``) each
+launch is bracketed by a pair of CUDA events.  K4's library also holds
+the fused attention pass (:func:`attention_spmm`).  The wrappers take CUDA
+tensors only; the plain PyTorch versions live beside their callers in
+``ops/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import build
 
-# the launch counters: one a kernel library, and one for K10's merge form
-COUNTERS = (*build.KERNELS, "run_length_merge")
+# the launch counters: one a kernel library, one for K10's merge form and
+# one for the fused attention pass in K4's library
+COUNTERS = (*build.KERNELS, "run_length_merge", "attention_spmm")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
@@ -33,13 +38,66 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class LaunchLog:
+    """The launches made while :func:`recording` is open: ``(entry,
+    library, start, end)`` in launch order, where ``entry`` names the
+    launch function (``spmm_csr``, ``attention_spmm``, ``spmm_axpy_long``,
+    ...), ``library`` its kernel source (``spmm_csr``, ``edge_attention``,
+    ...) and ``start``/``end`` are timing CUDA events recorded on the
+    launch's stream just before and just after it."""
+
+    def __init__(self) -> None:
+        self.launches: List[Tuple[str, str, torch.cuda.Event,
+                                  torch.cuda.Event]] = []
+
+
+_RECORDING: List[LaunchLog] = []  # the open logs
+
+
+@contextlib.contextmanager
+def recording():
+    """Record a CUDA event pair around every launch of the port's kernels
+    in the block (``tracing.trace`` names the port's kernels in its trace
+    from these).  Outside such a block a launch records nothing."""
+    log = LaunchLog()
+    _RECORDING.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDING.remove(log)
+
+
+def _recorded(library: str, entry: str, fn):
+    """``fn`` (the launch function ``entry`` of the kernel library
+    ``library``, whose last argument is the stream) with an event pair
+    around each call while a :func:`recording` is open."""
+    def launch(*args):
+        if not _RECORDING:
+            return fn(*args)
+        stream = torch.cuda.current_stream()
+        if stream.cuda_stream != args[-1]:
+            stream = torch.cuda.ExternalStream(args[-1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        rc = fn(*args)
+        end.record(stream)
+        for log in _RECORDING:
+            log.launches.append((entry, library, start, end))
+        return rc
+    return launch
+
+
 _c = ctypes
 _ARGTYPES = {
-    # indptr, indices, vals, x, x_bf16, res, out, n_rows, d, keep, w, vec4,
-    # stream
+    # indptr, indices, vals, x, x_bf16, res, out, n_rows, d, keep, w, norm,
+    # vec4, long_slice, item_rows, item_starts, item_cuts, n_items, split,
+    # n_split, part, stream
     "spmm_csr": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                  _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
-                 _c.c_float, _c.c_int, _c.c_void_p],
+                 _c.c_float, _c.c_int, _c.c_int, _c.c_int64, _c.c_void_p,
+                 _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                 _c.c_int64, _c.c_void_p, _c.c_void_p],
     # x, n_rows, d, mode, vec4, stream
     "row_normalize": [_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int, _c.c_int,
                       _c.c_void_p],
@@ -50,6 +108,14 @@ _ARGTYPES = {
     "edge_attention": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
                        _c.c_int, _c.c_void_p],
+    # indptr, indices, vals, x, out, n_rows, d, temperature, norm, vec4,
+    # long_slice, item_rows, item_starts, item_cuts, n_items, split, n_split,
+    # part, stats, stream
+    "attention_spmm": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
+                       _c.c_int, _c.c_int, _c.c_int64, _c.c_void_p,
+                       _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                       _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_void_p],
     # indptr, rows, indices, vals, x, self, z, acc, out, n_rows, d, a, b, c,
     # dd, vec4, stream
     "spmm_axpy": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
@@ -173,10 +239,10 @@ def _bound(name: str, entry: Optional[str] = None):
     entry = entry or name
     fn = _BOUND.get(entry)
     if fn is None:
-        fn = getattr(build.load(name), f"{entry}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[entry]
-        _BOUND[entry] = fn
+        raw = getattr(build.load(name), f"{entry}_launch")
+        raw.restype = ctypes.c_int
+        raw.argtypes = _ARGTYPES[entry]
+        fn = _BOUND[entry] = _recorded(name, entry, raw)
     return fn
 
 
@@ -195,13 +261,44 @@ def _check_launch(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
+# the widest row that K1 and the fused attention pass normalise in their
+# epilogue (one column tile: a warp, 8 float4 slots a lane)
+FUSED_NORM_MAX_WIDTH = 1024
+_NORMS = {"none": 0, "l2": 1, "l1": 2}
+_NO_SLICES = (1 << 63) - 1  # long_slice for "walk every row with its team"
+
+
+def _hub_args(hubs: Optional["HubPlan"], device, name: str):
+    """K1's and the fused pass's hub arguments: (long_slice, item_rows,
+    item_starts, item_cuts, n_items, split, n_split) for ctypes."""
+    if hubs is None:
+        return _NO_SLICES, None, None, None, 0, None, 0
+    _require(hubs.item_starts.dtype == torch.int64
+             and all(t.dtype == torch.int32 for t in
+                     (hubs.item_rows, hubs.item_cuts, hubs.split))
+             and hubs.item_rows.shape == hubs.item_starts.shape
+             == hubs.item_cuts.shape,
+             f"{name}: hubs must be a HubPlan of 1-D int32/int64 tensors")
+    _require_cuda_contiguous(name, device, *hubs[:4])
+    return (hubs.long_slice, hubs.item_rows.data_ptr(),
+            hubs.item_starts.data_ptr(),
+            hubs.item_cuts.data_ptr(), hubs.item_rows.shape[0],
+            hubs.split.data_ptr(), hubs.split.shape[0])
+
+
 def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor, residual_weight: float = 0.0,
-             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+             residual: Optional[torch.Tensor] = None,
+             normalization: str = "none",
+             hubs: Optional["HubPlan"] = None) -> torch.Tensor:
     """K1: ``out = A @ x`` (A in CSR), then ``(1-w)·out + w·r`` for w > 0,
     where ``r`` is ``residual`` (default ``x``): the sharded loop gathers
-    from a table that is not the shard's own state.  Returns a new float32
-    (N, D) tensor."""
+    from a table that is not the shard's own state; then each row divided
+    by max(its ``"l2"`` or ``"l1"`` norm, 1e-10) for those
+    ``normalization`` modes (D <= :data:`FUSED_NORM_MAX_WIDTH`).  ``hubs``
+    (A's :class:`HubPlan`, :func:`hub_plan`) cuts the rows of more than
+    :data:`LONG_SLICE` entries into slices; without it every row is walked
+    by its own team.  Returns a new float32 (N, D) tensor."""
     n = indptr.shape[0] - 1
     res = x if residual is None else residual
     for t in (indptr, indices, vals, x, res):
@@ -220,9 +317,18 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     _require(res.shape[0] >= n, "spmm_csr: x has fewer rows than A"
              if residual is None else
              "spmm_csr: residual has fewer rows than A")
+    _require(normalization in _NORMS,
+             f"spmm_csr: unknown normalization {normalization}")
     d = x.shape[1]
+    _require(normalization == "none" or d <= FUSED_NORM_MAX_WIDTH,
+             f"spmm_csr: rows wider than {FUSED_NORM_MAX_WIDTH} are not "
+             "normalised in the epilogue")
     w = float(residual_weight)
+    hub = _hub_args(hubs, x.device, "spmm_csr")
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    part = None
+    if hub[4]:
+        part = torch.empty((hub[4], d), dtype=torch.float32, device=x.device)
     bf16 = x.dtype == torch.bfloat16
     align = 8 if bf16 else 16
     vec4 = (d % 4 == 0 and x.data_ptr() % align == 0
@@ -231,7 +337,8 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
                 x.data_ptr(), int(bf16), res.data_ptr(), out.data_ptr(), n, d,
-                1.0 - w, w, int(vec4),
+                1.0 - w, w, _NORMS[normalization], int(vec4), *hub,
+                None if part is None else part.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("spmm_csr", rc)
     return out
@@ -308,6 +415,51 @@ def edge_attention(indptr: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def attention_spmm(indptr: torch.Tensor, indices: torch.Tensor,
+                   vals: torch.Tensor, x: torch.Tensor, temperature: float,
+                   normalization: str = "none",
+                   hubs: Optional["HubPlan"] = None) -> torch.Tensor:
+    """The fused attention pass (K4's library): for each row of A, the
+    attention-weighted propagate of one ``embed_with_attention`` iteration
+    of the float32 state ``x`` (cosine scores over T, the row softmax over
+    the edges whose value is not 0, reweighting by the value and row
+    renormalisation, then the SpMM), and each row divided by max(its
+    ``"l2"`` or ``"l1"`` norm, 1e-10) for those ``normalization`` modes.
+    D <= :data:`FUSED_NORM_MAX_WIDTH`.  ``hubs`` as for :func:`spmm_csr`.
+    Returns a new float32 (N, D) tensor."""
+    name = "attention_spmm"
+    n = indptr.shape[0] - 1
+    _require_csr(name, indptr, indices, vals)
+    _require_cuda_contiguous(name, x.device, indptr, indices, vals, x)
+    _require(x.dtype == torch.float32 and x.dim() == 2,
+             f"{name}: x must be a 2-D float32 tensor")
+    _require(x.shape[0] >= n, f"{name}: x has fewer rows than A")
+    _require(normalization in _NORMS,
+             f"{name}: unknown normalization {normalization}")
+    d = x.shape[1]
+    _require(d <= FUSED_NORM_MAX_WIDTH,
+             f"{name}: rows wider than {FUSED_NORM_MAX_WIDTH} are not "
+             "supported")
+    hub = _hub_args(hubs, x.device, name)
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    part = stats = None
+    if hub[4]:
+        part = torch.empty((hub[4], d), dtype=torch.float32, device=x.device)
+        stats = torch.empty((hub[4], 3), dtype=torch.float32,
+                            device=x.device)
+    vec4 = d % 4 == 0 and _aligned16(x, out)
+    fn = _bound("edge_attention", name)
+    with torch.cuda.device(x.device):
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                x.data_ptr(), out.data_ptr(), n, d, float(temperature),
+                _NORMS[normalization], int(vec4), *hub,
+                None if part is None else part.data_ptr(),
+                None if stats is None else stats.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    return out
+
+
 def _require_csr(name: str, indptr: torch.Tensor, indices: torch.Tensor,
                  vals: torch.Tensor) -> None:
     _require(indptr.dtype == torch.int64 and indices.dtype == torch.int32
@@ -356,11 +508,42 @@ def _overlap(s: torch.Tensor, t: torch.Tensor) -> bool:
 # (the crossover near 9).  A row of more than LONG_SLICE entries is cut into
 # ceil(entries / LONG_SLICE) slices, a warp each, which take the row's
 # chunks of 32 entries in turn.  scripts/torch_count_probe.py measures all
-# three.
+# three.  K1 and the fused attention pass cut the same hub rows (their
+# HubPlan) on every call.
 LONG_BAND_ENTRIES = 10
 LONG_ROW_MIN_WIDTH = 128
 BAND_BYTES = 24 << 20
 LONG_SLICE = 4096
+
+
+class HubPlan(NamedTuple):
+    """The slices of a CSR's hub rows (more than :data:`LONG_SLICE`
+    entries), for K1, the fused attention pass and K5's long-row kernel."""
+    item_rows: torch.Tensor    # int32: each slice's row, a row's adjacent
+    item_starts: torch.Tensor  # int64: the first entry of each slice's
+                               # first chunk of 32
+    item_cuts: torch.Tensor    # int32: the slices of each slice's row
+    split: torch.Tensor        # int32: the first slice of each cut row
+    long_slice: int            # the row length above which a row is cut
+
+
+def hub_plan(indptr: torch.Tensor) -> HubPlan:
+    """The :class:`HubPlan` of a CSR, on its device (one host read of the
+    number of slices).  A row of L > LONG_SLICE entries becomes K =
+    ceil(L / LONG_SLICE) slices; slice j takes its chunks of 32 entries j,
+    j + K, j + 2K, ...  Each row's cut depends on its own length alone, so
+    the rows of a shard are cut as in the whole matrix."""
+    lengths = indptr[1:] - indptr[:-1]
+    cuts = (lengths + LONG_SLICE - 1) // LONG_SLICE
+    cut_rows = torch.nonzero(cuts > 1).flatten()
+    cuts = cuts[cut_rows]
+    item_rows = torch.repeat_interleave(cut_rows, cuts)
+    first = torch.cumsum(cuts, 0) - cuts  # each cut row's first slice
+    k = (torch.arange(item_rows.shape[0], device=indptr.device)
+         - torch.repeat_interleave(first, cuts))
+    return HubPlan(item_rows.to(torch.int32), indptr[item_rows] + 32 * k,
+                   torch.repeat_interleave(cuts, cuts).to(torch.int32),
+                   first.to(torch.int32), LONG_SLICE)
 
 
 class RowPlan(NamedTuple):
@@ -368,37 +551,24 @@ class RowPlan(NamedTuple):
     and the slices of its long rows for K5's long-row kernel."""
     rows: torch.Tensor         # int32 (m,): the non-empty rows, ascending
     whole: torch.Tensor        # int32: the rows not cut, ascending
-    item_rows: torch.Tensor    # int32: each slice's row, a row's adjacent
-    item_starts: torch.Tensor  # int64: the first entry of each slice's
-                               # first chunk of 32
-    item_cuts: torch.Tensor    # int32: the slices of each slice's row
-    split: torch.Tensor        # int32: the first slice of each cut row
+    item_rows: torch.Tensor    # int32: the HubPlan's fields
+    item_starts: torch.Tensor  # int64
+    item_cuts: torch.Tensor    # int32
+    split: torch.Tensor        # int32
 
 
-def row_plan(indptr: torch.Tensor,
-             indices: torch.Tensor) -> Optional[RowPlan]:
-    """The :class:`RowPlan` of a CSR, on its device (one host read of the
-    number of slices), or None when some row's columns do not ascend.  A
-    row of L > LONG_SLICE entries becomes K = ceil(L / LONG_SLICE) slices
-    (at most one a chunk of 32 entries); slice j takes chunks j, j + K,
-    j + 2K, ..."""
+def row_plan(indptr: torch.Tensor, indices: torch.Tensor,
+             hubs: Optional[HubPlan] = None) -> Optional[RowPlan]:
+    """The :class:`RowPlan` of a CSR, on its device, or None when some
+    row's columns do not ascend: its non-empty rows, those not cut, and
+    the :class:`HubPlan` (``hubs``, built here when not given)."""
     if not columns_ascend(indptr, indices):
         return None
     lengths = indptr[1:] - indptr[:-1]
     rows = torch.nonzero(lengths).flatten()
-    lens = lengths[rows]
-    cuts = torch.minimum((lens + LONG_SLICE - 1) // LONG_SLICE,
-                         (lens + 31) // 32)
-    many = cuts > 1
-    cut_rows, cuts = rows[many], cuts[many]
-    item_rows = torch.repeat_interleave(cut_rows, cuts)
-    first = torch.cumsum(cuts, 0) - cuts  # each cut row's first slice
-    k = (torch.arange(item_rows.shape[0], device=rows.device)
-         - torch.repeat_interleave(first, cuts))
-    return RowPlan(rows.to(torch.int32), rows[~many].to(torch.int32),
-                   item_rows.to(torch.int32), indptr[item_rows] + 32 * k,
-                   torch.repeat_interleave(cuts, cuts).to(torch.int32),
-                   first.to(torch.int32))
+    hubs = hub_plan(indptr) if hubs is None else hubs
+    whole = rows[lengths[rows] <= hubs.long_slice]
+    return RowPlan(rows.to(torch.int32), whole.to(torch.int32), *hubs[:4])
 
 
 def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,

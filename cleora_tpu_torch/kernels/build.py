@@ -2,9 +2,10 @@
 
 Each ``<name>.cu`` in this directory is compiled by ``nvcc`` into its own
 shared library with a plain C interface, ``_build/lib<name>.so``, and loaded
-with ctypes.  A library is rebuilt when its source is newer (the idiom of
-the native ingest loader).  Several stale sources are compiled in parallel,
-one ``nvcc`` each.  A failed build raises; nothing falls back.
+with ctypes; a source may include the shared device headers (``*.cuh``)
+beside it.  A library is rebuilt when its source or a header is newer (the
+idiom of the native ingest loader).  Several stale sources are compiled in
+parallel, one ``nvcc`` each.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -58,10 +59,15 @@ def nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any of
+    the shared device headers (``*.cuh``) that a source may include."""
     lib = lib_path(name)
-    return not os.path.exists(lib) or (
-        os.path.getmtime(source_path(name)) > os.path.getmtime(lib)
-    )
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(_DIR, f) for f in os.listdir(_DIR)
+               if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(p) for p in [source_path(name), *headers])
+    return newest > os.path.getmtime(lib)
 
 
 def build() -> Dict[str, float]:

@@ -5,12 +5,15 @@ from .normalize import (
     l2_normalize,
     l2_normalize_plain,
     normalize,
+    normalize_plain,
     spectral_normalize,
 )
 from .whiten import whiten
 from .loop import embed_loop, embed_loop_convergence, embed_step
 from .init import device_init, device_init_plain
 from .attention import (
+    attention_spmm,
+    attention_spmm_plain,
     attention_step,
     edge_attention_weights,
     edge_attention_weights_plain,
@@ -29,6 +32,7 @@ __all__ = [
     "rsvd_u_sqrt",
     "l2_normalize", "l1_normalize", "l2_normalize_plain",
     "l1_normalize_plain", "spectral_normalize", "normalize",
+    "normalize_plain", "attention_spmm", "attention_spmm_plain",
     "whiten", "embed_loop", "embed_loop_convergence", "embed_step",
     "device_init", "device_init_plain", "attention_step",
     "edge_attention_weights", "edge_attention_weights_plain",

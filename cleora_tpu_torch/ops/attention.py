@@ -2,16 +2,18 @@
 
 Reference semantics: the ``attention_step`` closure of the JAX package's
 ``embed_with_attention`` (cleora_tpu/__init__.py:501-534), itself the
-reference's pycleora/__init__.py:206-276.  Per iteration:
+reference's pycleora/__init__.py:206-276.  Per iteration: the edge
+weights (cosine score of each edge over T, a row softmax over the edges
+whose Markov value is not 0, reweighting by the Markov value and row
+renormalisation), the SpMM of ``x`` with those weights as the values,
+normalisation and optional whitening.
 
-1. ``xn = l2_normalize(x)`` (kernel K2, on a copy: the SpMM reads ``x``);
-2. the edge weights: cosine score of each edge over T, a row softmax over
-   the edges whose Markov value is not 0, reweighting by the Markov value
-   and row renormalisation (kernel K4, ``kernels/edge_attention.cu``);
-3. SpMM of ``x`` with those weights as the values (kernel K1);
-4. normalisation (K2 for l2/l1) and optional whitening.
-
-On the CPU the plain versions run.
+On CUDA, up to ``kernels.FUSED_NORM_MAX_WIDTH`` columns, one pass
+computes all of it but the whitening (:func:`attention_spmm`, the fused
+kernel in ``kernels/edge_attention.cu``, with l2/l1 normalisation in its
+epilogue).  Wider rows take the weights kernel K4 on an l2-normalised
+copy of ``x`` (K2), K1 with those weights, then K2.  On the CPU the plain
+versions run.
 """
 
 from __future__ import annotations
@@ -19,8 +21,13 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .normalize import l2_normalize, normalize
-from .spmm import CsrMatrix, spmm
+from .normalize import (
+    l2_normalize,
+    l2_normalize_plain,
+    normalize,
+    normalize_plain,
+)
+from .spmm import CsrMatrix, spmm, spmm_plain
 from .whiten import whiten
 
 EPS = 1e-10
@@ -63,14 +70,44 @@ def edge_attention_weights_plain(csr: CsrMatrix, xn: torch.Tensor,
     return weighted / torch.clamp_min(wsum, EPS)[rows]
 
 
+def attention_spmm(csr: CsrMatrix, x: torch.Tensor, temperature: float,
+                   normalization: str = "none") -> torch.Tensor:
+    """The attention-weighted propagate of one iteration, each row then
+    divided by max(its ``"l2"`` or ``"l1"`` norm, 1e-10) for those
+    ``normalization`` modes: the fused kernel on CUDA (float32 ``x`` of
+    at most ``kernels.FUSED_NORM_MAX_WIDTH`` columns),
+    :func:`attention_spmm_plain` on the CPU."""
+    if x.is_cuda:
+        return kernels.attention_spmm(csr.indptr, csr.indices, csr.vals,
+                                      x.contiguous(), temperature,
+                                      normalization, csr.hub_plan())
+    return attention_spmm_plain(csr, x, temperature, normalization)
+
+
+def attention_spmm_plain(csr: CsrMatrix, x: torch.Tensor, temperature: float,
+                         normalization: str = "none") -> torch.Tensor:
+    """Plain PyTorch version of the fused pass: the weights on an
+    l2-normalised copy of ``x`` (:func:`edge_attention_weights_plain`),
+    :func:`~.spmm.spmm_plain` with them, then the normalisation."""
+    xn = l2_normalize_plain(x.to(torch.float32, copy=True))
+    weights = edge_attention_weights_plain(csr, xn, temperature)
+    return normalize_plain(spmm_plain(csr.with_vals(weights), x),
+                           normalization)
+
+
 def attention_step(csr: CsrMatrix, x: torch.Tensor, temperature: float,
                    normalization: str = "l2",
                    do_whiten: bool = False) -> torch.Tensor:
     """One attention iteration on the float32 state ``x``."""
-    xn = l2_normalize(x.to(torch.float32, copy=True))
-    weights = edge_attention_weights(csr, xn, temperature)
-    y = spmm(csr.with_vals(weights), x)
-    y = normalize(y, normalization)
+    fused = normalization if normalization in ("l2", "l1") else "none"
+    if x.is_cuda and x.shape[1] <= kernels.FUSED_NORM_MAX_WIDTH:
+        y = attention_spmm(csr, x, temperature, fused)
+    else:
+        xn = l2_normalize(x.to(torch.float32, copy=True))
+        weights = edge_attention_weights(csr, xn, temperature)
+        y = spmm(csr.with_vals(weights), x, normalization=fused)
+    if fused == "none":
+        y = normalize(y, normalization)
     if do_whiten:
         y = whiten(y)
     return y

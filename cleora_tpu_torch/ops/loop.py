@@ -7,7 +7,8 @@ convergence variant checks RMSE(new, old) = sqrt(Σδ²/(N·D)) < threshold
 after the first iteration.
 
 PyTorch runs eagerly, so the loop is a plain Python loop over iterations;
-each step is K1 (residual fused) → K2 → whiten on CUDA.
+each step is K1 (residual and, for l2/l1 up to 1,024 columns, the row
+normalisation fused) → whiten on CUDA.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ def embed_step(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
                normalization: str = "l2", do_whiten: bool = False) -> torch.Tensor:
     """One iteration.  bf16 storage: propagate, normalize and whiten
     compute in float32, then the state is stored back at x's dtype."""
-    y = spmm(csr, x, residual_weight)
-    y = normalize(y, normalization)
+    fused = normalization if normalization in ("l2", "l1") else "none"
+    y = spmm(csr, x, residual_weight, normalization=fused)
+    if fused == "none":
+        y = normalize(y, normalization)
     if do_whiten:
         y = whiten(y)
     return y.to(x.dtype)

@@ -29,6 +29,19 @@ def l1_normalize_plain(x: torch.Tensor) -> torch.Tensor:
     return x.div_(torch.clamp_min(norms, EPS))
 
 
+def normalize_plain(x: torch.Tensor, method: str) -> torch.Tensor:
+    """The plain versions of the row normalisations that K1 and the fused
+    attention pass apply in their epilogue: ``"l2"``, ``"l1"`` (in place)
+    or ``"none"``."""
+    if method == "l2":
+        return l2_normalize_plain(x)
+    if method == "l1":
+        return l1_normalize_plain(x)
+    if method == "none":
+        return x
+    raise ValueError(f"normalize_plain: unknown normalization {method}")
+
+
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return kernels.row_normalize_(x, "l2")

@@ -4,7 +4,10 @@
 ``spmm_kernel``, src/embedding.rs:52-86).  The matrix stays in CSR in its
 original row order: kernel K1 (``kernels/spmm_csr.cu``) keeps each row's
 sum in registers, so none of the JAX package's ELL, banded or edge-cut
-layouts and none of their row relabelling is needed here.
+layouts and none of their row relabelling is needed here.  K1 also
+normalises each row in its epilogue (``normalization="l2"``/``"l1"``),
+and cuts the rows of more than ``kernels.LONG_SLICE`` entries into slices
+(the matrix's :meth:`CsrMatrix.hub_plan`).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .normalize import normalize, normalize_plain
 
 # elements of the plain version's (chunk, D) gather intermediate: 4 GiB in
 # float32, which is 1 << 22 edges per chunk at D = 256
@@ -32,6 +36,7 @@ class CsrMatrix:
         self.vals = vals
         self._plain_index: Optional[tuple] = None
         self._row_plan = None
+        self._hub_plan: Optional[kernels.HubPlan] = None
 
     @classmethod
     def from_numpy(cls, indptr: np.ndarray, indices: np.ndarray,
@@ -90,6 +95,7 @@ class CsrMatrix:
         out = CsrMatrix(self.indptr, self.indices, vals)
         out._plain_index = self._plain_index
         out._row_plan = self._row_plan
+        out._hub_plan = self._hub_plan
         return out
 
     @property
@@ -110,9 +116,18 @@ class CsrMatrix:
         some row's column indices do not ascend: K5 then touches only these
         rows (:func:`spmm_accumulate_`)."""
         if self._row_plan is None:
-            plan = kernels.row_plan(self.indptr, self.indices)
+            plan = kernels.row_plan(self.indptr, self.indices,
+                                    self.hub_plan())
             self._row_plan = False if plan is None else plan
         return self._row_plan if self._row_plan is not False else None
+
+    def hub_plan(self) -> kernels.HubPlan:
+        """The :class:`kernels.HubPlan` of this matrix (the slices of its
+        rows of more than ``kernels.LONG_SLICE`` entries), built once on
+        its device; every row's cut depends on its own length alone."""
+        if self._hub_plan is None:
+            self._hub_plan = kernels.hub_plan(self.indptr)
+        return self._hub_plan
 
     def plain_index(self):
         """(rows, cols) as int64, built once: ``index_select`` and
@@ -126,17 +141,28 @@ class CsrMatrix:
 
 
 def spmm(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
-         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+         residual: Optional[torch.Tensor] = None,
+         normalization: str = "none") -> torch.Tensor:
     """``A @ x`` as float32, then ``(1-w)·y + w·r`` when w > 0, with
     ``r = residual`` (default ``x``; the sharded loop gathers from a table
-    that is not the shard's state).  On CUDA this launches K1; on the CPU
-    it runs :func:`spmm_plain`."""
+    that is not the shard's state), then each row divided by max(its
+    ``"l2"`` or ``"l1"`` norm, 1e-10) for those ``normalization`` modes
+    (``"none"`` leaves it).  On CUDA this launches K1, with the
+    normalisation in its epilogue up to ``kernels.FUSED_NORM_MAX_WIDTH``
+    columns and by K2 after it for wider rows; on the CPU it runs
+    :func:`spmm_plain` and then the plain normalisation."""
+    if normalization not in ("none", "l2", "l1"):
+        raise ValueError(f"spmm: unknown normalization {normalization}")
     if x.is_cuda:
-        return kernels.spmm_csr(
+        fused = x.shape[1] <= kernels.FUSED_NORM_MAX_WIDTH
+        y = kernels.spmm_csr(
             csr.indptr, csr.indices, csr.vals, x.contiguous(),
             residual_weight,
-            None if residual is None else residual.contiguous())
-    return spmm_plain(csr, x, residual_weight, residual)
+            None if residual is None else residual.contiguous(),
+            normalization if fused else "none", csr.hub_plan())
+        return y if fused else normalize(y, normalization)
+    return normalize_plain(spmm_plain(csr, x, residual_weight, residual),
+                           normalization)
 
 
 def spmm_plain(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,

@@ -12,12 +12,14 @@ the only shard.  Each iteration, on every rank (:func:`_local_step`):
    a chip-axis and a host-axis ``all_to_all_single`` and a chip-axis
    ``all_gather_into_tensor``);
 2. kernel K1 over the shard's local CSR, whose column ids point into the
-   gather table, with the residual mix taken from the shard's own state.
+   gather table, with the residual mix taken from the shard's own state
+   and the l2/l1 row normalisation in its epilogue (the same kernel as
+   the single-device loop's, so one shard is bitwise ``embed()``).
    ``halo="overlap"`` fuses 1 and 2: P-1 point-to-point rounds, each
    slab packed by K16 and sent with ``batch_isend_irecv`` while kernel
    K19 adds the previous round's edges into a float32 accumulator;
-3. row normalization (kernel K2), or the spectral rescale with an
-   all-reduced Gram matrix;
+3. the row normalization of the overlap rounds' sum (kernel K2), or the
+   spectral rescale with an all-reduced Gram matrix;
 4. whitening with global statistics: the masked column sum and the D×D
    covariance are local full-float32 products, all-reduced, then one
    replicated ``torch.linalg.eigh`` and the projection product.
@@ -160,11 +162,14 @@ def gather_table(x: torch.Tensor, mesh: ShardGroup,
 
 def _propagate_local(x: torch.Tensor, csr: CsrMatrix, mesh: ShardGroup,
                      send_idx: Optional[torch.Tensor],
-                     residual_weight: float) -> torch.Tensor:
-    """Boundary-row exchange + local SpMM (K1) + residual mix, float32."""
+                     residual_weight: float,
+                     normalization: str = "none") -> torch.Tensor:
+    """Boundary-row exchange + local SpMM (K1) + residual mix + the
+    ``"l2"``/``"l1"`` row normalisation, float32."""
     table = gather_table(x, mesh, send_idx)
     return spmm(csr, table, residual_weight,
-                residual=None if table is x else x)
+                residual=None if table is x else x,
+                normalization=normalization)
 
 
 def _check_rows(name: str, a: np.ndarray, n: int) -> None:
@@ -374,11 +379,16 @@ def build_sharded_embed(
     nd = n_rows * int(feature_dim)
     state_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     w = float(residual_weight)
+    # K1 normalises l2/l1 rows in its epilogue; the overlap rounds' sum
+    # (K19) is normalised after it
+    fused = ("none" if overlap is not None and hier is None
+             or normalization not in ("l2", "l1") else normalization)
     if hier is not None:
         exchange = HierExchange(mesh, sharded, hier, feature_dim, dtype)
 
         def propagate(x):
-            return spmm(exchange.csr, exchange(x), w, residual=x)
+            return spmm(exchange.csr, exchange(x), w, residual=x,
+                        normalization=fused)
     elif overlap is not None:
         exchange = OverlapExchange(mesh, sharded, overlap, feature_dim, dtype)
 
@@ -392,12 +402,13 @@ def build_sharded_embed(
                                        dtype)
 
         def propagate(x):
-            return _propagate_local(x, csr, mesh, send_idx, w)
+            return _propagate_local(x, csr, mesh, send_idx, w, fused)
 
     def step(x):
         return _local_step(
             x, propagate, mesh, n_rows=n_rows, n_real=hi - lo,
-            normalization=normalization, do_whiten=bool(do_whiten))
+            normalization="none" if fused != "none" else normalization,
+            do_whiten=bool(do_whiten))
 
     def fn(x, iterations: int, start_iter: int = 0):
         for i in range(int(iterations)):

@@ -9,7 +9,8 @@ also runs where JAX is not installed:
 
 Tolerances: K1 float32 rtol=1e-5, atol=1e-6 (the same float32 products,
 summed in another order by the plain version's atomics); bf16 x atol=1e-2;
-K2 atol=1e-6; K3 bitwise (integer arithmetic, exact conversions); K4
+K2 atol=1e-6, and K2 after K1 bitwise K1 with the normalisation fused
+(the same layout and roundings up to 1,024 columns); K3 bitwise (integer arithmetic, exact conversions); K4
 rtol=1e-5, atol=1e-6 (dot products and row sums in another order); K5
 rtol=1e-5, atol=1e-6 (the row sum in another order; the tail is rounded
 like the plain version's); K6 P and deg atol=1e-6, vol rtol=1e-6 (float32
@@ -29,7 +30,15 @@ separate residual operand as K1; K17 and K18 bitwise (K8's and K12's
 arithmetic on each rank's rows; one nonzero term per summed lane); K19
 rtol=1e-5, atol=1e-6 in float32 and bfloat16 (exact bf16→float32 loads;
 the row sum in another order than the plain version's atomics), and
-bitwise K1 over a round that holds every edge (K1's loop, in K1's order).
+bitwise K1 over a round that holds every edge (K1's loop, in K1's order);
+K1 with the l2/l1 normalisation in its epilogue, with hub rows cut into
+slices, and the fused attention pass rtol=1e-5, atol=1e-6 against
+spmm_plain / K4's plain weights followed by the plain normalisation (the
+row sums and the online softmax in another order than the plain
+version's), the hub rows (more than LONG_SLICE entries, left-Markov
+values) at the same tolerance against a float64 reference, bf16 x
+atol=1e-2 as K1; a shard's rows bitwise the whole matrix's (each row's
+cut depends on its own degree).
 """
 
 import numpy as np
@@ -39,6 +48,9 @@ import torch
 from cleora_tpu_torch import kernels
 from cleora_tpu_torch.graph.hashing import init_embeddings
 from cleora_tpu_torch.ops.attention import (
+    attention_spmm,
+    attention_spmm_plain,
+    attention_step,
     edge_attention_weights,
     edge_attention_weights_plain,
 )
@@ -51,6 +63,7 @@ from cleora_tpu_torch.ops.normalize import (
     l1_normalize_plain,
     l2_normalize_plain,
     normalize,
+    normalize_plain,
 )
 from cleora_tpu_torch.algorithms import _GRAREP_FLOOR, _GRAREP_OFFSET
 from cleora_tpu_torch.ops import cooccur
@@ -132,6 +145,218 @@ def test_k1_matches_plain(cuda_device, d, x_dtype, w):
     tol = ({"rtol": 1e-5, "atol": 1e-6} if x_dtype == torch.float32
            else {"rtol": 0.0, "atol": 1e-2})
     torch.testing.assert_close(out, spmm_plain(csr, x, w), **tol)
+
+
+def hub_rows_float64(csr, x, rows, temperature=None, norm="none"):
+    """A float64 reference on ``rows``, one row at a time: K1's ``A @ x``
+    (``temperature`` None) or the fused pass's propagate (JAX's masked
+    softmax, reweighting and renormalisation, then the weighted sum),
+    then the row normalisation ``norm``."""
+    return hub_rows_and_magnitudes(csr, x, rows, temperature, norm)[0]
+
+
+def hub_rows_and_magnitudes(csr, x, rows, temperature=None, norm="none"):
+    """:func:`hub_rows_float64`, and each unnormalised element's sum of
+    |term| (for the float32 bound of a sum taken in one sequence)."""
+    xd = x.double()
+    out, mag = [], []
+    for r in rows.tolist():
+        lo, hi = int(csr.indptr[r]), int(csr.indptr[r + 1])
+        xc = xd.index_select(0, csr.indices[lo:hi].long())
+        v = csr.vals[lo:hi].double()
+        if temperature is not None:
+            xr = xd[r] / xd[r].norm().clamp_min(1e-10)
+            s = (xc @ xr) / xc.norm(dim=1).clamp_min(1e-10) / temperature
+            valid = v != 0
+            top = s[valid].max() if bool(valid.any()) else 0.0
+            p = torch.where(valid, torch.exp(s - top), 0.0)
+            v = p / p.sum().clamp_min(1e-10) * v
+            v = v / v.sum().clamp_min(1e-10)
+        y = v @ xc
+        if norm == "l2":
+            y = y / y.norm().clamp_min(1e-10)
+        elif norm == "l1":
+            y = y / y.abs().sum().clamp_min(1e-10)
+        out.append(y)
+        mag.append(v.abs() @ xc.abs())
+    return torch.stack(out), torch.stack(mag)
+
+
+def assert_rows_close(got, want, hub, ref):
+    """K1 or the fused pass at rtol=1e-5, atol=1e-6: every row but the hubs
+    (more than kernels.LONG_SLICE entries) against the plain version, the
+    hubs against their float64 reference ``ref`` (the plain version's
+    float32 atomics add a hub's thousands of terms in an order of their
+    own, further from the exact sum than the kernel's slices)."""
+    hub = torch.from_numpy(np.asarray(hub)).to(got.device)
+    torch.testing.assert_close(got[~hub], want[~hub], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[torch.nonzero(hub).flatten()].double(),
+                               ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [8, 64, 256, 300, 7, 1024])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [0.0, 0.3])
+@pytest.mark.parametrize("norm", ["l2", "l1"])
+@cuda
+def test_k1_fused_normalisation_matches_plain(cuda_device, d, x_dtype, w,
+                                              norm):
+    indptr, cols, vals = markov_csr(3000, d, 5000)
+    vals[indptr[2]:indptr[3]] = 0.0  # a row whose values are all 0
+    csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
+    x = torch.randn((3000, d), device=cuda_device).to(x_dtype)
+    before = dict(kernels.LAUNCHES)
+    out = spmm(csr, x, w, normalization=norm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_csr"] == before["spmm_csr"] + 1
+    assert kernels.LAUNCHES["row_normalize"] == before["row_normalize"]
+    tol = ({"rtol": 1e-5, "atol": 1e-6} if x_dtype == torch.float32
+           else {"rtol": 0.0, "atol": 1e-2})
+    torch.testing.assert_close(
+        out, normalize_plain(spmm_plain(csr, x, w), norm), **tol)
+    if w == 0.0:
+        assert torch.all(out[2] == 0.0)
+
+
+@pytest.mark.parametrize("d", [8, 64, 256, 300, 7, 1024])
+@pytest.mark.parametrize("norm", ["l2", "l1"])
+@cuda
+def test_k2_after_k1_is_k1_fused_bitwise(cuda_device, d, norm):
+    """Up to 1,024 columns K2 takes K1's epilogue layout and roundings:
+    K1 then K2 (halo="overlap": K19's sums then K2) gives K1 with the
+    normalisation fused, bit for bit."""
+    csr = CsrMatrix.from_numpy(*markov_csr(3000, d, 5000), cuda_device)
+    x = torch.randn((3000, d), device=cuda_device)
+    fused = spmm(csr, x, normalization=norm)
+    torch.cuda.synchronize()
+    assert torch.equal(normalize(spmm(csr, x), norm), fused)
+
+
+@cuda
+def test_k1_wide_rows_normalise_by_k2(cuda_device):
+    csr = CsrMatrix.from_numpy(*markov_csr(500, 3, 300), cuda_device)
+    x = torch.randn((500, 1028), device=cuda_device)
+    with pytest.raises(ValueError, match="not normalised"):
+        kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x,
+                         normalization="l2")
+    before = dict(kernels.LAUNCHES)
+    out = spmm(csr, x, normalization="l2")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_csr"] == before["spmm_csr"] + 1
+    assert kernels.LAUNCHES["row_normalize"] == before["row_normalize"] + 1
+    torch.testing.assert_close(
+        out, l2_normalize_plain(spmm_plain(csr, x)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [8, 256, 7, 4096])
+@pytest.mark.parametrize("norm", ["none", "l2"])
+@cuda
+def test_k1_hub_slices_match_plain(cuda_device, d, norm):
+    """A hub of 50,000 entries (13 slices) and one of 4,097 (2 slices),
+    with and without the hub plan.  Without it (every row its own team,
+    a comparison, never a path) a hub is one float32 sum taken in one
+    sequence: it is held to that sum's bound, (n - 1) 2^-24 sum |term|
+    (Higham), and the epilogue to the plain normalisation of that sum."""
+    if d > kernels.FUSED_NORM_MAX_WIDTH and norm != "none":
+        pytest.skip("K1 normalises rows of at most 1,024 columns")
+    indptr, cols, vals = markov_csr(6000, 11, 50_000)
+    deg = np.diff(indptr)
+    deg[5] = 4097
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    rng = np.random.default_rng(d)
+    cols = rng.integers(0, 6000, size=int(indptr[-1]))
+    vals = ((1.0 / np.maximum(deg, 1))[np.repeat(np.arange(6000), deg)]
+            .astype(np.float32))
+    csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
+    hubs = csr.hub_plan()
+    assert hubs.item_rows.tolist() == [1] * 13 + [5] * 2
+    x = torch.randn((6000, d), device=cuda_device)
+    want = normalize_plain(spmm_plain(csr, x), norm)
+    hub = deg > kernels.LONG_SLICE
+    ids = torch.from_numpy(np.flatnonzero(hub))
+    ref = hub_rows_float64(csr, x, ids, norm=norm)
+    out = kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x, 0.0, None,
+                           norm, hubs)
+    torch.cuda.synchronize()
+    assert_rows_close(out, want, hub, ref)
+    whole = kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x, 0.0,
+                             None, norm, None)
+    raw = kernels.spmm_csr(csr.indptr, csr.indices, csr.vals, x, 0.0, None,
+                           "none", None)
+    torch.cuda.synchronize()
+    rest = torch.from_numpy(~hub).to(cuda_device)
+    torch.testing.assert_close(whole[rest], want[rest], rtol=1e-5, atol=1e-6)
+    raw_ref, mag = hub_rows_and_magnitudes(csr, x, ids)
+    bound = torch.from_numpy(deg[hub] - 1).to(mag)[:, None] * 2.0**-24 * mag
+    assert bool(((raw[ids.to(cuda_device)].double() - raw_ref).abs()
+                 <= bound).all())
+    torch.testing.assert_close(whole, normalize_plain(raw, norm), rtol=1e-5,
+                               atol=1e-6)
+
+
+@cuda
+def test_k1_shard_rows_are_bitwise_the_whole(cuda_device):
+    """Rows [1, 4000) as a CSR of their own (the hub among them) give the
+    whole matrix's rows bitwise: each row is cut by its own degree."""
+    indptr, cols, vals = markov_csr(6000, 12, 20_000)
+    csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
+    lo, hi = 1, 4000
+    part = CsrMatrix(  # its columns index the whole matrix's rows
+        torch.from_numpy(indptr[lo:hi + 1] - indptr[lo]).to(cuda_device),
+        csr.indices[indptr[lo]:indptr[hi]], csr.vals[indptr[lo]:indptr[hi]])
+    x = torch.randn((6000, 256), device=cuda_device)
+    for norm in ("none", "l2"):
+        whole = spmm(csr, x, normalization=norm)
+        mine = kernels.spmm_csr(part.indptr, part.indices, part.vals, x, 0.0,
+                                None, norm, part.hub_plan())
+        torch.cuda.synchronize()
+        assert torch.equal(mine, whole[lo:hi])
+
+
+@pytest.mark.parametrize("d", [8, 256, 300, 7, 1024])
+@pytest.mark.parametrize("temperature", [0.7, 1.0])
+@pytest.mark.parametrize("norm", ["none", "l2", "l1"])
+@cuda
+def test_attention_spmm_matches_plain(cuda_device, d, temperature, norm):
+    indptr, cols, vals = markov_csr(3000, d, 5000)  # the hub: 2 slices
+    vals[indptr[2]:indptr[3]] = 0.0  # a row whose values are all 0
+    vals[::13] = 0.0
+    csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
+    x = torch.randn((3000, d), device=cuda_device)
+    before = kernels.LAUNCHES["attention_spmm"]
+    out = attention_spmm(csr, x, temperature, norm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_spmm"] == before + 1
+    want = attention_spmm_plain(csr, x, temperature, norm)
+    hub = np.diff(indptr) > kernels.LONG_SLICE
+    ref = hub_rows_float64(csr, x, torch.from_numpy(np.flatnonzero(hub)),
+                           temperature, norm)
+    assert_rows_close(out, want, hub, ref)
+    assert torch.all(out[2] == 0.0) and torch.all(out[0] == 0.0)
+    whole = kernels.attention_spmm(csr.indptr, csr.indices, csr.vals, x,
+                                   temperature, norm, None)
+    torch.cuda.synchronize()
+    assert_rows_close(whole, want, hub, ref)
+
+
+@cuda
+def test_attention_step_launches_only_the_fused_pass(cuda_device):
+    csr = CsrMatrix.from_numpy(*markov_csr(3000, 5, 500), cuda_device)
+    x = torch.randn((3000, 64), device=cuda_device)
+    kernels.reset_launches()
+    y = attention_step(csr, x, 0.7, "l2", False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0) | {
+        "attention_spmm": 1}
+    torch.testing.assert_close(y, attention_spmm_plain(csr, x, 0.7, "l2"),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_attention_spmm_wrapper_rejects_bad_operands():
+    csr = CsrMatrix.from_numpy(*markov_csr(50, 1, 10), torch.device("cpu"))
+    x = torch.randn((50, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.attention_spmm(csr.indptr, csr.indices, csr.vals, x, 1.0)
 
 
 @pytest.mark.parametrize("method", ["l2", "l1"])
