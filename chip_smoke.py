@@ -53,8 +53,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (clamped rows bitwise, the rest rtol=1e-5, atol=1e-6: the row sum in
    another order than the plain version's atomics; also whether it equals
    the plain version on the CPU, which adds in edge order); K15's forward
-   and backward bitwise at p in {0, 0.5} on odd shapes, and against the
-   CPU's masks; the GCN SpMM's backward (K1 over the transpose, through
+   (h and its packed bits) and backward bitwise at p in {0, 0.5} on odd
+   shapes, and against the CPU's; the GCN SpMM's backward (K1 over the transpose, through
    ops/gcn.py's CsrSpmm) against the plain SpMM (rtol=1e-5, atol=1e-6);
 4. slice parity: a 20,000-node random graph through the card and through
    device="cpu": embed() unwhitened allclose, whitened Gram matrices of
@@ -171,7 +171,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    sampled rows (a cut: the host k-means of every row would take minutes,
    and of 100,000 rows took 52.6 s) and every row encoded on the card,
    search_batch(backend="device") of the 1,024 queries as a main path (K13
-   launched once) against backend="host" on 64; K13 at (Q, N) = (1,024,
+   launched once) against backend="host" on 16 (a cut from 64); K13 at (Q, N) = (1,024,
    1,958,363) bitwise against its plain version and timed; detect_communities_kmeans(k=50) on phase
    8's planted-partition embedding, the card against device="cpu" (labels
    equal on >= 99.9 % of rows);
@@ -183,15 +183,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    package recorded 0.998), then as main paths with launch counts, wall
    seconds and peak memory: mlp_classify(hidden_dim=0) (the linear probe,
    library calls only; 10 epochs, a cut from 200), label_propagation_predict (K14 30 times) and
-   gcn_classify (K1 3 times an epoch and twice an evaluation, K15 twice an
-   epoch and once an evaluation); card against CPU on the same embedding:
+   gcn_classify (K1 3 times an epoch and twice an evaluation, K15's
+   forward once an epoch and once an evaluation, its backward once an
+   epoch); card against CPU on the same embedding:
    label propagation's predictions equal but for near-ties (top two within
    1e-6), 2 GCN steps at dropout 0.5 (a cut from 5) and one epoch of the
    linear probe
    with parameters within 1e-4 relative; K14 at C = 47 and 40, K15 at
    width 64 and K1 over the GCN operator's transpose at width 64 on phase
    5's 1,958,363-row graph against their plain versions, timed beside
-   torch.sparse.mm + tail + where, F.dropout(F.relu) and torch.sparse.mm;
+   torch.sparse.mm + tail + where, F.dropout(F.relu) and its autograd
+   backward, and torch.sparse.mm;
    BASELINE config 4 (scripts/e2e_configs.py:75-120) card against CPU,
    link-prediction AUC within 0.01;
 11. the streamed build and the sharded loop on phase 5's graph: (a) the
@@ -234,9 +236,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K17 (kernels/walk_owned.cu) and K18 (kernels/walk2_owned.cu) on phase
    3's weighted 100,000-node graph, the row-sharded tables cut for one
    rank and for two ranks launched in turn and summed in this process,
-   4,096 walks of 10: the walks bitwise equal to K8's and K12's and to
-   the plain versions of K17 and K18 run on the card, (p, q) in {(0.5,
-   2), (2, 0.5)}; (b) embed_deepwalk on phase 7's corpus in phase 7's
+   4,096 walks of 10 (K18 also over four ranks' slices): the walks
+   bitwise equal to K8's and K12's and to the plain versions of K17 and
+   K18 run on the card, (p, q) in {(0.5, 2), (2, 0.5)}, K18 at one slice
+   one local stage a hop; (b) embed_deepwalk on phase 7's corpus in phase 7's
    configuration with n_devices=1, walk_tables="sharded",
    factorization="sharded" as a main path (K17 79 times a batch): its
    first walk batch bitwise equal to phase 7's (K17 against K8), every
@@ -247,12 +250,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    all-reduce timed (its second run, under the stage stopwatch, was cut
    to make room for phase 14); (c) embed_node2vec in
    phase 8's configuration
-   with walk_tables="sharded" (K18's stages) under the stage stopwatch:
-   its first batch bitwise equal to phase 8's K12 walks, exactly phase
-   8's pair count; (d) K17 over phase 7's first batch (131,072 walks of
-   80) and K18 over phase 8's (131,072 walks of 10) timed against their
-   plain versions on the card and K8's and K12's time on the same walks,
-   with their bounds in 32-byte sectors; (e) ShardedDeviceIndex(mesh=)
+   with walk_tables="sharded" (K18, one local stage a hop) under the
+   stage stopwatch: its first batch bitwise equal to phase 8's K12 walks,
+   exactly phase 8's pair count, its K18 launches; (d) K17 over phase 7's
+   first batch (131,072 walks of 80) and K18 over phase 8's (131,072
+   walks of 10) at one slice and at four slices summed in this process,
+   timed against their plain versions on the card (K18 at one slice) and
+   K8's and K12's time on the same walks, with their bounds in 32-byte
+   sectors and K18's launches a hop; (e) ShardedDeviceIndex(mesh=)
    over phase 5's output, 1,024 queries at top_k=10, equal to the
    unsharded index's scores and, but for exact ties, indices;
 14. the overlapped and hierarchical halo exchanges on phase 5's graph and
@@ -386,6 +391,9 @@ TOP_K = 10
 # the codebooks' sample, cut from 100,000 rows, whose host k-means took
 # 52.6 s of the script's time limit
 HELD_QUERIES = 64
+# the PQ host search's queries, a cut from 64 (21.9-25.9 s of host time for
+# 64 on the card's machines)
+PQ_HOST_QUERIES = 16
 PQ_SAMPLE = 25_000
 PQ_SUBSPACES = 8
 PQ_CENTROIDS = 256
@@ -796,8 +804,8 @@ def check_k14(dev: torch.device, csr) -> None:
 
 
 def check_k15(dev: torch.device) -> None:
-    """K15's forward and backward bitwise against their plain versions, on
-    the card and against the CPU's masks."""
+    """K15's forward (h and the packed bits) and backward bitwise against
+    their plain versions, on the card and against the CPU's."""
     from cleora_tpu_torch.ops.gcn import (
         relu_dropout,
         relu_dropout_backward,
@@ -813,17 +821,21 @@ def check_k15(dev: torch.device) -> None:
         for p in (0.0, 0.5):
             for epoch, layer, seed in ((0, 0, 42), (199, 1, 2**40 + 3)):
                 args = (p, seed, epoch, layer)
-                h = relu_dropout(z, *args)
-                dz = relu_dropout_backward(z, dh, *args)
+                h, mask = relu_dropout(z, *args)
+                dz = relu_dropout_backward(mask, dh, p)
                 torch.cuda.synchronize()
-                assert torch.equal(h, relu_dropout_plain(z, *args)), shape
+                h_plain, mask_plain = relu_dropout_plain(z, *args)
+                assert torch.equal(h, h_plain), shape
+                assert torch.equal(mask, mask_plain), shape
                 assert torch.equal(
-                    dz, relu_dropout_backward_plain(z, dh, *args)), shape
-                assert torch.equal(h.cpu(), relu_dropout_plain(z.cpu(), *args))
+                    dz, relu_dropout_backward_plain(mask, dh, p)), shape
+                h_cpu, mask_cpu = relu_dropout_plain(z.cpu(), *args)
+                assert torch.equal(h.cpu(), h_cpu)
+                assert torch.equal(mask.cpu(), mask_cpu)
             kept = float(((h != 0).sum() / (z > 0).sum().clamp_min(1)))
-            log(f"K15 {shape} p={p}: forward and backward bitwise equal to "
-                f"plain (and to the CPU's masks); kept {kept:.4f} of the "
-                "positive entries")
+            log(f"K15 {shape} p={p}: forward (h and the packed bits) and "
+                "backward bitwise equal to plain (and to the CPU's); kept "
+                f"{kept:.4f} of the positive entries")
 
 
 def check_gcn_backward(dev: torch.device, csr) -> None:
@@ -3327,25 +3339,26 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
         lambda: pq.search_batch(queries, TOP_K, backend="device"))
     assert launches == dict.fromkeys(launches, 0) | {"pq_adc": 1}, launches
     t0 = time.perf_counter()
-    host = pq.search_batch(queries[:HELD_QUERIES], TOP_K, backend="host")
-    log(f"  PQIndex.search_batch(backend='host'), {HELD_QUERIES} queries: "
-        f"{time.perf_counter() - t0:.3f} s")
-    qn = queries[:HELD_QUERIES] / np.linalg.norm(
-        queries[:HELD_QUERIES], axis=1, keepdims=True)
+    host = pq.search_batch(queries[:PQ_HOST_QUERIES], TOP_K,
+                           backend="host")
+    log(f"  PQIndex.search_batch(backend='host'), {PQ_HOST_QUERIES} "
+        f"queries: {time.perf_counter() - t0:.3f} s")
+    qn = queries[:PQ_HOST_QUERIES] / np.linalg.norm(
+        queries[:PQ_HOST_QUERIES], axis=1, keepdims=True)
     tabs = np.einsum("qmd,mcd->qmc",
-                     qn.reshape(HELD_QUERIES, PQ_SUBSPACES, -1),
+                     qn.reshape(PQ_HOST_QUERIES, PQ_SUBSPACES, -1),
                      pq._normalized_codebooks()).astype(np.float32)
 
     def host_scores(qi, rows):
         return sum(tabs[qi, m, codes[rows, m]] for m in range(PQ_SUBSPACES))
 
-    np.testing.assert_allclose(res["scores"][:HELD_QUERIES], host["scores"],
-                               rtol=0, atol=1e-5)
-    for qi in range(HELD_QUERIES):
+    np.testing.assert_allclose(res["scores"][:PQ_HOST_QUERIES],
+                               host["scores"], rtol=0, atol=1e-5)
+    for qi in range(PQ_HOST_QUERIES):
         got_idx, want_idx = res["indices"][qi], host["indices"][qi]
         diff = np.abs(host_scores(qi, got_idx) - host_scores(qi, want_idx))
         assert np.all((got_idx == want_idx) | (diff <= 1e-6)), qi
-    log(f"  PQ device search against the host on {HELD_QUERIES} queries: "
+    log(f"  PQ device search against the host on {PQ_HOST_QUERIES} queries: "
         "scores atol=1e-5, the same indices but for ties")
     sub = d // PQ_SUBSPACES
     tab_ops_ms = 2 * QUERIES * PQ_SUBSPACES * PQ_CENTROIDS * sub \
@@ -3562,7 +3575,8 @@ def node_classification(dev: torch.device, card: str, big) -> list:
                 if e % 10 == 0 or e == GCN_EPOCHS - 1) + 1
     assert launches == none | {
         "spmm_csr": 3 * GCN_EPOCHS + 2 * evals,
-        "relu_dropout": 2 * GCN_EPOCHS + evals}, launches
+        "relu_dropout": GCN_EPOCHS + evals,
+        "relu_dropout_backward": GCN_EPOCHS}, launches
     gcn_launches = launches
     log(f"  GCN: accuracy {gcn['accuracy']:.4f}, macro-F1 "
         f"{gcn['macro_f1']:.4f} ({evals} forward passes to evaluate)")
@@ -3679,24 +3693,40 @@ def node_classification(dev: torch.device, card: str, big) -> list:
     z = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
     dh = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
     args = (0.5, 42, 7, 0)
-    h = relu_dropout(z, *args)
-    h_plain, k15_plain_ms = timed_once(lambda: relu_dropout_plain(z, *args))
-    dz = relu_dropout_backward(z, dh, *args)
+    h, mask = relu_dropout(z, *args)
+    (h_plain, mask_plain), k15_plain_ms = timed_once(
+        lambda: relu_dropout_plain(z, *args))
+    dz = relu_dropout_backward(mask, dh, 0.5)
     dz_plain, bwd_plain_ms = timed_once(
-        lambda: relu_dropout_backward_plain(z, dh, *args))
-    assert torch.equal(h, h_plain) and torch.equal(dz, dz_plain)
-    del h_plain, dz_plain
+        lambda: relu_dropout_backward_plain(mask, dh, 0.5))
+    assert torch.equal(h, h_plain) and torch.equal(mask, mask_plain)
+    assert torch.equal(dz, dz_plain)
+    del h_plain, mask_plain, dz_plain
     k15_ms = time_ms(lambda: relu_dropout(z, *args))
-    bwd_ms = time_ms(lambda: relu_dropout_backward(z, dh, *args))
+    bwd_ms = time_ms(lambda: relu_dropout_backward(mask, dh, 0.5))
+    # the library: one F.dropout(F.relu) and its autograd backward
     k15_lib_ms = time_ms(lambda: F.dropout(F.relu(z), 0.5))
-    k15_bytes = 8 * n * GCN_HIDDEN
+    z_leaf = z.detach().requires_grad_()
+    y_lib = F.dropout(F.relu(z_leaf), 0.5)
+    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(y_lib, z_leaf, dh,
+                                                     retain_graph=True))
+    del z_leaf, y_lib
+    elems = n * GCN_HIDDEN
+    # read z, write h and the bits; read the bits and dh, write dz
+    k15_bytes = 8 * elems + 4 * (elems + 31) // 32
     log(f"K15 ({n}, {GCN_HIDDEN}) p=0.5: forward {k15_ms:.3f} ms (plain "
         f"{k15_plain_ms:.3f}, F.dropout(F.relu) {k15_lib_ms:.3f}; bound "
-        f"{k15_bytes / HBM_BYTES_PER_S * 1e3:.3f}), backward {bwd_ms:.3f} ms "
-        f"(plain {bwd_plain_ms:.3f}; bound "
-        f"{12 * n * GCN_HIDDEN / HBM_BYTES_PER_S * 1e3:.3f}); both bitwise "
-        f"equal to plain; [{card}]")
-    del z, dh, h, dz
+        f"{k15_bytes / HBM_BYTES_PER_S * 1e3:.3f} for 8.125 B an element, "
+        f"{8 * elems / HBM_BYTES_PER_S * 1e3:.3f} for the 8 B of the "
+        f"design that drew the mask again), backward {bwd_ms:.3f} ms "
+        f"(plain {bwd_plain_ms:.3f}, autograd backward of F.dropout(F.relu) "
+        f"{bwd_lib_ms:.3f}; bound {k15_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"for 8.125 B an element, {12 * elems / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"for the 12 B of the design that read z again); all bitwise equal "
+        f"to plain; a hidden layer keeps {mask.numel() * 4 / 2**20:.1f} MiB "
+        f"of bits for its backward, not {elems * 4 / 2**20:.1f} MiB of z; "
+        f"[{card}]")
+    del z, dh, h, dz, mask
 
     a_hat, a_hat_t = cl._gcn_operators(big, dev)
     dout = torch.randn((n, GCN_HIDDEN), device=dev, generator=gen)
@@ -3742,6 +3772,11 @@ def node_classification(dev: torch.device, card: str, big) -> list:
                    "cleora_tpu/classify.py:131", k15_ms, k15_plain_ms,
                    k15_lib_ms, 0.0, k15_bytes, 0,
                    gcn_launches["relu_dropout"]),
+        kernel_row("relu_dropout_backward",
+                   "cleora_tpu_torch/kernels/relu_dropout.cu",
+                   "cleora_tpu/classify.py:149", bwd_ms, bwd_plain_ms,
+                   bwd_lib_ms, 0.0, k15_bytes, 0,
+                   gcn_launches["relu_dropout_backward"]),
         kernel_row("spmm_csr_gcn", "cleora_tpu_torch/kernels/spmm_csr.cu",
                    "cleora_tpu/classify.py:125", *gcn_k1["A_hat"],
                    gcn_launches["spmm_csr"]),
@@ -4205,9 +4240,13 @@ def plain_walk_kernels():
     def into_out(plain):
         return lambda *args: args[-1].copy_(plain(*args[:-1]))
 
+    def local(*args):
+        out = args[-1]
+        return out.copy_(walk.walk2_local_plain(*args[:-1],
+                                                shared=out.dim() == 2))
+
     swaps = {"walk_owned": into_out(walk.walk_owned_hop_plain),
-             "walk2_stats": into_out(walk.walk2_stats_plain),
-             "walk2_pending": walk.walk2_pending_plain,
+             "walk2_local": local,
              "walk2_propose": into_out(walk.walk2_propose_plain),
              "walk2_member": into_out(walk.walk2_member_plain),
              "walk2_decide": walk.walk2_decide_plain}
@@ -4232,9 +4271,10 @@ def rank_slices(arrays, n: int, world: int, dev: torch.device) -> list:
 
 
 def check_k17_k18(dev: torch.device) -> None:
-    """K17 and K18 with one rank's slice and with two ranks' slices summed
-    in this process, bitwise against K8 and K12 and against their own plain
-    versions on the card."""
+    """K17 and K18 with one rank's slice and with two (K17, K18) and four
+    (K18) ranks' slices summed in this process, bitwise against K8 and K12
+    and against their own plain versions on the card; K18 at one slice
+    launches its local stage once a hop and nothing else."""
     from cleora_tpu_torch import kernels
     from cleora_tpu_torch.ops import walk
 
@@ -4249,15 +4289,18 @@ def check_k17_k18(dev: torch.device) -> None:
     length, seed, base = K17_CHECK_LENGTH, 21, 5
     k8 = walk.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
                            base, n)
-    for world in (1, 2):
-        first = rank_slices(arrays[:3], n, world, dev)
-        before = kernels.LAUNCHES["walk_owned"]
-        got = walk.walk_uniform_sharded(first, starts, length, seed, base)
-        assert kernels.LAUNCHES["walk_owned"] == before + world * (length - 1)
-        with plain_walk_kernels():
-            plain = walk.walk_uniform_sharded(first, starts, length, seed,
-                                              base)
-        assert torch.equal(got, k8) and torch.equal(plain, k8), world
+    for world in (1, 2, 4):
+        if world < 4:
+            first = rank_slices(arrays[:3], n, world, dev)
+            before = kernels.LAUNCHES["walk_owned"]
+            got = walk.walk_uniform_sharded(first, starts, length, seed,
+                                            base)
+            assert kernels.LAUNCHES["walk_owned"] == before + world * (
+                length - 1)
+            with plain_walk_kernels():
+                plain = walk.walk_uniform_sharded(first, starts, length,
+                                                  seed, base)
+            assert torch.equal(got, k8) and torch.equal(plain, k8), world
         second = rank_slices(arrays, n, world, dev)
         for p, q in K18_PQ:
             inv_p = float(np.float32(1.0 / p))
@@ -4267,17 +4310,20 @@ def check_k17_k18(dev: torch.device) -> None:
                                 t.wsum, starts, *args, n)
             before = kernels.LAUNCHES["walk2_owned"]
             got = walk.walk_p_q_sharded(second, starts, *args)
-            assert kernels.LAUNCHES["walk2_owned"] > before
+            launches = kernels.LAUNCHES["walk2_owned"] - before
+            assert (launches == length - 1 if world == 1
+                    else launches > world * (length - 1)), launches
             with plain_walk_kernels():
                 plain = walk.walk_p_q_sharded(second, starts, *args)
             assert torch.equal(got, k12) and torch.equal(plain, k12), (
                 world, p, q)
     torch.cuda.synchronize()
-    log(f"K17 and K18 over 1 and 2 rank slices ({K17_CHECK_WALKS} walks of "
-        f"{K17_CHECK_LENGTH} on a {n}-node graph with a hub of degree "
-        f"{int(t.deg[1])}, a dead row, an isolated node and pad lanes; K18 "
-        f"at (p, q) in {K18_PQ}): bitwise equal to K8, K12 and their plain "
-        "versions on the card")
+    log(f"K17 over 1 and 2 rank slices, K18 over 1, 2 and 4 "
+        f"({K17_CHECK_WALKS} walks of {K17_CHECK_LENGTH} on a {n}-node "
+        f"graph with a hub of degree {int(t.deg[1])}, a dead row, an "
+        f"isolated node and pad lanes; K18 at (p, q) in {K18_PQ}, one "
+        "local stage a hop at one slice): bitwise equal to K8, K12 and "
+        "their plain versions on the card")
 
 
 def k17_sector_bytes(walks: torch.Tensor, deg: torch.Tensor, n: int) -> int:
@@ -4432,14 +4478,14 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
         finally:
             alg.device_pair_counts = real_counts
         assert counted["pairs"] == N2V_PAIRS, counted["pairs"]
-        assert n2v_launches["walk2_owned"] > 0
-        rest = {k: v for k, v in n2v_launches.items() if v and k !=
-                "walk2_owned"}
+        # one slice: K18's local stage once a hop, nothing else
+        want["walk2_owned"] = n2v_batches * (WALK_LENGTH - 1)
+        rest = {k: v for k, v in n2v_launches.items() if v}
         assert rest == want, (rest, want)
         log(f"  {counted['pairs']} Node2Vec pairs (phase 8's count), "
             f"{counted['m_total']} unique; K18 launches "
-            f"{n2v_launches['walk2_owned']} (5 stages: 2 a hop, 3 a "
-            "rejection round)")
+            f"{n2v_launches['walk2_owned']} ({n2v_batches} batches of "
+            f"{WALK_LENGTH - 1} hops, one local stage a hop)")
         torch.cuda.empty_cache()
 
         # ---- (d) K17 and K18 at the main path's shapes, timed
@@ -4461,31 +4507,40 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
             f"32-byte sectors); [{card}]")
         del walks, t1, starts
         arrays = alg._walk_csr(g, with_vals=True)
-        t2 = rank_slices(arrays[:3] + arrays[4:], n, 1, dev)
         starts = n2v_walks[:, 0].contiguous().to(dev)
         tries = walk.walk2_tries(N2V_Q)
         k18_args = (K18_TIMED_LENGTH, float(np.float32(1.0 / N2V_P)),
                     float(np.float32(1.0 / N2V_Q)), tries, 0, 0)
-        k18 = lambda: walk.walk_p_q_sharded(t2, starts, *k18_args)
-        walks = k18()
-        assert torch.equal(walks.cpu(), n2v_walks[:, :K18_TIMED_LENGTH])
-        before = kernels.LAUNCHES["walk2_owned"]
-        k18_ms = time_ms(k18)
-        stage_launches = (kernels.LAUNCHES["walk2_owned"] - before) // 12
-        with plain_walk_kernels():
-            k18_plain, k18_plain_ms = timed_once(k18)
-        assert torch.equal(k18_plain, walks)
+        k18_ms, k18_hop_launches = {}, {}
+        for world in (1, 4):
+            tw = rank_slices(arrays[:3] + arrays[4:], n, world, dev)
+            k18 = lambda: walk.walk_p_q_sharded(tw, starts, *k18_args)
+            walks = k18()
+            assert torch.equal(walks.cpu(), n2v_walks[:, :K18_TIMED_LENGTH])
+            before = kernels.LAUNCHES["walk2_owned"]
+            k18_ms[world] = time_ms(k18)
+            k18_hop_launches[world] = (kernels.LAUNCHES["walk2_owned"]
+                                       - before) / (12 * (K18_TIMED_LENGTH
+                                                          - 1))
+            if world == 1:
+                with plain_walk_kernels():
+                    k18_plain, k18_plain_ms = timed_once(k18)
+                assert torch.equal(k18_plain, walks)
+                del k18_plain
+            del tw
         t12 = walk.WalkTables2(*arrays[:3], n, *arrays[4:], dev)
         k12_ms = time_ms(lambda: walk.walk_p_q(
             t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax, t12.wsum,
             starts, *k18_args[:4], 0, 0, n))
         k18_bytes = k12_sector_bytes(walks, t12)
-        log(f"K18 ({walks.shape[0]} walks of {K18_TIMED_LENGTH}, "
-            f"{stage_launches} stage launches) {k18_ms:.3f} ms (plain "
-            f"{k18_plain_ms:.3f}; K12 on the same walks {k12_ms:.3f}); bound "
-            f"{k18_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, 32-byte "
-            f"sectors); [{card}]")
-        del walks, t2, t12, starts, k18_plain
+        log(f"K18 ({walks.shape[0]} walks of {K18_TIMED_LENGTH}): one slice "
+            f"{k18_ms[1]:.3f} ms ({k18_hop_launches[1]:.2f} launches a hop; "
+            f"plain {k18_plain_ms:.3f}), four slices summed in this process "
+            f"{k18_ms[4]:.3f} ms ({k18_hop_launches[4]:.2f} launches a hop, "
+            f"chunks of {walk.WALK2_CHUNK} rounds); K12 on the same walks "
+            f"{k12_ms:.3f}; bound {k18_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+            f"(bytes, 32-byte sectors); [{card}]")
+        del walks, t12, starts
 
         # ---- (e) the row-sharded retrieval index against the unsharded
         qrows = np.random.default_rng(5).choice(table.shape[0], QUERIES,
@@ -4514,7 +4569,7 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                    "cleora_tpu/algorithms.py:1380", k17_ms, k17_plain_ms,
                    None, 0.0, k17_bytes, 0, launches["walk_owned"]),
         kernel_row("walk2_owned", src + "walk2_owned.cu",
-                   "cleora_tpu/algorithms.py:1574", k18_ms, k18_plain_ms,
+                   "cleora_tpu/algorithms.py:1574", k18_ms[1], k18_plain_ms,
                    None, 0.0, k18_bytes, 0, n2v_launches["walk2_owned"]),
     ]
 

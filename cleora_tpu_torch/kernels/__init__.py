@@ -27,9 +27,10 @@ import torch
 
 from . import build
 
-# the launch counters: one a kernel library, one for K10's merge form and
-# one for the fused attention pass in K4's library
-COUNTERS = (*build.KERNELS, "run_length_merge", "attention_spmm")
+# the launch counters: one a kernel library, one for K10's merge form, one
+# for the fused attention pass in K4's library and one for K15's backward
+COUNTERS = (*build.KERNELS, "run_length_merge", "attention_spmm",
+            "relu_dropout_backward")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
@@ -173,15 +174,13 @@ _ARGTYPES = {
     "label_prop": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                    _c.c_int64, _c.c_float, _c.c_float, _c.c_void_p],
-    # z, h, numel, p, q, k0, k1, epoch, layer, stream
-    "relu_dropout": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
-                     _c.c_float, _c.c_uint32, _c.c_uint32, _c.c_uint32,
-                     _c.c_uint32, _c.c_void_p],
-    # z, dh, dz, numel, p, q, k0, k1, epoch, layer, stream
+    # z, h, mask, numel, p, q, k0, k1, epoch, layer, stream
+    "relu_dropout": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                     _c.c_float, _c.c_float, _c.c_uint32, _c.c_uint32,
+                     _c.c_uint32, _c.c_uint32, _c.c_void_p],
+    # mask, dh, dz, numel, q, stream
     "relu_dropout_backward": [_c.c_void_p, _c.c_void_p, _c.c_void_p,
-                              _c.c_int64, _c.c_float, _c.c_float, _c.c_uint32,
-                              _c.c_uint32, _c.c_uint32, _c.c_uint32,
-                              _c.c_void_p],
+                              _c.c_int64, _c.c_float, _c.c_void_p],
     # row_ids, indptr, cols, vals, table, table_bf16, acc, n_rows, d, vec4,
     # stream
     "spmm_acc": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
@@ -196,34 +195,35 @@ _ARGTYPES = {
                    _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
                    _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
                    _c.c_int64, _c.c_int, _c.c_void_p],
-    # indptr, cols, vals, deg, wmax, wsum, cur, prev, out, batch, n, row_lo,
-    # rps, inv_p, stream
-    "walk2_stats": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+    # indptr, cols, vals, deg, wmax, wsum, cur, prev, out, shared, batch, hop,
+    # base, k0, k1, n, row_lo, rps, inv_p, inv_q, tries, stream
+    "walk2_local": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                     _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                    _c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int64,
-                    _c.c_int64, _c.c_float, _c.c_void_p],
-    # stats, mask, batch, inv_q, stream
-    "walk2_pending": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_float,
-                      _c.c_void_p],
-    # indptr, cols, vals, stats, batch, lanes, count, cur, prev, hop, rnd,
-    # base, k0, k1, n, row_lo, rps, inv_q, out, stream
+                    _c.c_void_p, _c.c_int, _c.c_int64, _c.c_int, _c.c_int64,
+                    _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
+                    _c.c_int64, _c.c_float, _c.c_float, _c.c_int,
+                    _c.c_void_p],
+    # indptr, cols, vals, stats, batch, lanes, count, cur, prev, hop, r0,
+    # log_r, tries, base, k0, k1, n, row_lo, rps, inv_q, out, stream
     "walk2_propose": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                       _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_void_p,
-                      _c.c_void_p, _c.c_int, _c.c_int, _c.c_int64,
-                      _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
-                      _c.c_int64, _c.c_float, _c.c_void_p, _c.c_void_p],
-    # indptr, cols, deg, stats, batch, lanes, count, prop, prev, hop, rnd,
-    # tries, base, k0, k1, n, row_lo, rps, inv_q, out, stream
+                      _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                      _c.c_int64, _c.c_uint32, _c.c_uint32, _c.c_int32,
+                      _c.c_int64, _c.c_int64, _c.c_float, _c.c_void_p,
+                      _c.c_void_p],
+    # indptr, cols, deg, stats, batch, lanes, count, prop, prev, hop, r0,
+    # log_r, tries, base, k0, k1, n, row_lo, rps, inv_q, out, stream
     "walk2_member": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                      _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_void_p,
-                     _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int64,
-                     _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
-                     _c.c_int64, _c.c_float, _c.c_void_p, _c.c_void_p],
-    # stats, batch, lanes, count, prop, member, prev, hop, rnd, tries, base,
-    # k0, k1, n, inv_q, nxt, still, stream
+                     _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                     _c.c_int64, _c.c_uint32, _c.c_uint32, _c.c_int32,
+                     _c.c_int64, _c.c_int64, _c.c_float, _c.c_void_p,
+                     _c.c_void_p],
+    # stats, batch, lanes, count, prop, member, prev, hop, r0, log_r, tries,
+    # base, k0, k1, n, inv_q, nxt, still, stream
     "walk2_decide": [_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64,
                      _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int,
-                     _c.c_int, _c.c_int64, _c.c_uint32, _c.c_uint32,
+                     _c.c_int, _c.c_int, _c.c_int64, _c.c_uint32, _c.c_uint32,
                      _c.c_int32, _c.c_float, _c.c_void_p, _c.c_void_p,
                      _c.c_void_p],
 }
@@ -1042,49 +1042,68 @@ def label_prop(indptr: torch.Tensor, indices: torch.Tensor,
     return out
 
 
-def _dropout_args(name: str, p: float, seed: int, epoch: int, layer: int):
+def _keep_scale(name: str, p: float) -> Tuple[float, float]:
+    """``(p, 1 − p)`` rounded to float32."""
     _require(0.0 <= float(p) <= 1.0, f"{name}: p must lie in [0, 1]")
-    _require(0 <= int(epoch) < 1 << 32 and 0 <= int(layer) < 1 << 32,
-             f"{name}: epoch and layer must fit 32 bits")
-    key = int(seed) & ((1 << 64) - 1)
-    return (float(np.float32(p)), float(np.float32(1.0 - float(p))),
-            key & _U32, key >> 32, int(epoch), int(layer))
+    return float(np.float32(p)), float(np.float32(1.0 - float(p)))
+
+
+def _require_aligned16(name: str, *tensors) -> None:
+    _require(all(t.data_ptr() % 16 == 0 for t in tensors),
+             f"{name}: operands must start on a 16-byte boundary")
+
+
+def dropout_mask_words(numel: int) -> int:
+    """The int32 words of K15's packed mask for ``numel`` elements."""
+    return (int(numel) + 31) // 32
 
 
 def relu_dropout(z: torch.Tensor, p: float, seed: int, epoch: int,
-                 layer: int) -> torch.Tensor:
-    """K15, forward: ``keep ? relu(z)/(1−p) : 0`` on float32 ``z`` with the
-    Philox mask of (seed, epoch, layer) (``ops/gcn.py``).  Returns a new
-    tensor."""
+                 layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15, forward: ``h = bit ? z/(1−p) : 0`` on float32 ``z``, where bit
+    is ``keep and z > 0`` with the Philox keep mask of (seed, epoch, layer)
+    (``ops/gcn.py``).  Returns new tensors ``h`` and the packed bits: int32
+    (:func:`dropout_mask_words`,), bit e % 32 of word e // 32 for flat
+    element e."""
     name = "relu_dropout"
-    args = _dropout_args(name, p, seed, epoch, layer)
+    p, q = _keep_scale(name, p)
+    _require(0 <= int(epoch) < 1 << 32 and 0 <= int(layer) < 1 << 32,
+             f"{name}: epoch and layer must fit 32 bits")
     _require(z.dtype == torch.float32, f"{name}: z must be float32")
     _require_cuda_contiguous(name, z.device, z)
+    _require_aligned16(name, z)
     h = torch.empty_like(z)
-    fn = _bound(name)
+    mask = torch.empty((dropout_mask_words(z.numel()),), dtype=torch.int32,
+                       device=z.device)
+    k0, k1 = _seed_words(seed)
     with torch.cuda.device(z.device):
-        rc = fn(z.data_ptr(), h.data_ptr(), z.numel(), *args,
-                torch.cuda.current_stream(z.device).cuda_stream)
+        rc = _bound(name)(z.data_ptr(), h.data_ptr(), mask.data_ptr(),
+                          z.numel(), p, q, k0, k1, int(epoch), int(layer),
+                          _stream(z))
     _check_launch(name, rc)
-    return h
+    return h, mask
 
 
-def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
-                          seed: int, epoch: int, layer: int) -> torch.Tensor:
-    """K15, backward: ``(keep and z > 0) ? dh/(1−p) : 0`` with the mask of
-    the forward, drawn again.  Returns a new tensor."""
+def relu_dropout_backward(mask: torch.Tensor, dh: torch.Tensor,
+                          p: float) -> torch.Tensor:
+    """K15, backward: ``dz = bit ? dh/(1−p) : 0`` with the forward's packed
+    bits ``mask``; draws nothing.  Returns a new tensor.  Counted under
+    ``LAUNCHES["relu_dropout_backward"]``."""
     name = "relu_dropout"
-    args = _dropout_args(name, p, seed, epoch, layer)
-    _require(z.dtype == torch.float32 and dh.dtype == torch.float32
-             and z.shape == dh.shape,
-             f"{name}: z and dh must be float32 of one shape")
-    _require_cuda_contiguous(name, z.device, z, dh)
-    dz = torch.empty_like(z)
-    fn = _bound(name, "relu_dropout_backward")
-    with torch.cuda.device(z.device):
-        rc = fn(z.data_ptr(), dh.data_ptr(), dz.data_ptr(), z.numel(), *args,
-                torch.cuda.current_stream(z.device).cuda_stream)
-    _check_launch(name, rc)
+    _, q = _keep_scale(name, p)
+    _require(dh.dtype == torch.float32, f"{name}: dh must be float32")
+    _require(mask.dtype == torch.int32 and mask.dim() == 1
+             and mask.shape[0] == dropout_mask_words(dh.numel()),
+             f"{name}: mask must be the forward's int32 words for dh's "
+             "elements")
+    _require_cuda_contiguous(name, dh.device, mask, dh)
+    _require_aligned16(name, dh)
+    dz = torch.empty_like(dh)
+    with torch.cuda.device(dh.device):
+        rc = _bound(name, "relu_dropout_backward")(
+            mask.data_ptr(), dh.data_ptr(), dz.data_ptr(), dh.numel(), q,
+            _stream(dh))
+    _check_launch("relu_dropout_backward", rc)
     return dz
 
 
@@ -1214,152 +1233,183 @@ def walk_owned(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
 
 
 _WALK2 = "walk2_owned"
+# the most rounds of a chunk: a lane's membership bits are one int32
+WALK2_MAX_CHUNK = 32
 
 
-def _require_lanes(name: str, lanes: torch.Tensor, device) -> None:
-    _require(lanes.dtype == torch.int64 and lanes.dim() == 1,
-             f"{name}: lanes must be a 1-D int64 tensor")
-    _require_cuda_contiguous(name, device, lanes)
-
-
-def walk2_stats(indptr, cols, vals, deg, wmax, wsum, cur: torch.Tensor,
-                prev: torch.Tensor, n: int, row_lo: int, inv_p: float,
-                out: torch.Tensor) -> torch.Tensor:
-    """K18, stage one: for the lanes at ``cur`` (int32 (B,); ``prev`` the
-    node before, the sentinel ``n`` on the first hop) whose current row
-    this rank's slice holds, the degree, ``wmax``, ``wsum`` and the
-    backtrack weight ``vals[pos(prev)]·inv_p``, into ``out`` ((4, B)
-    int32, the floats by their bits), 0 for the other lanes.  Returns
-    ``out``.  The slice must be valid (``ShardedWalkTables``)."""
-    name = _WALK2
-    for t in (indptr, cols, deg, cur, prev):
+def _require_weighted_slice(name: str, indptr, cols, vals, deg, wmax,
+                            wsum) -> None:
+    for t in (indptr, cols, deg):
         _require(t.dtype == torch.int32 and t.dim() == 1,
-                 f"{name}: int32 1-D tables, cur and prev expected")
+                 f"{name}: int32 1-D indptr, cols and deg expected")
     for t in (vals, wmax, wsum):
         _require(t.dtype == torch.float32 and t.dim() == 1,
                  f"{name}: float32 1-D vals, wmax and wsum expected")
     _require(indptr.shape == deg.shape == wmax.shape == wsum.shape
-             and vals.shape == cols.shape and cur.shape == prev.shape,
-             f"{name}: table or lane shapes disagree")
+             and vals.shape == cols.shape, f"{name}: table shapes disagree")
+
+
+def _require_chunk(name: str, lanes: torch.Tensor, stats: torch.Tensor,
+                   prev: torch.Tensor, r0: int, chunk: int,
+                   tries: int) -> int:
+    """Checks a chunk's lanes, summed stats and rounds; returns log2 of the
+    chunk's round count."""
+    b = prev.shape[0]
+    _require(prev.dtype == torch.int32 and prev.dim() == 1,
+             f"{name}: prev must be a 1-D int32 tensor")
+    _require(lanes.dtype == torch.int32 and lanes.dim() == 1
+             and lanes.shape[0] <= b,
+             f"{name}: lanes must be a 1-D int32 tensor of at most {b} "
+             "lane ids")
+    _require_int32_rows(name, stats, 3, b)
+    _require(0 < chunk <= WALK2_MAX_CHUNK and chunk & (chunk - 1) == 0,
+             f"{name}: the chunk must be a power of two of at most "
+             f"{WALK2_MAX_CHUNK} rounds")
+    _require(0 <= r0 < tries, f"{name}: the chunk must start below tries")
+    return chunk.bit_length() - 1
+
+
+def walk2_local(indptr, cols, vals, deg, wmax, wsum, cur: torch.Tensor,
+                prev: torch.Tensor, hop: int, seed: int, base: int, n: int,
+                row_lo: int, inv_p: float, inv_q: float, tries: int,
+                out: torch.Tensor) -> torch.Tensor:
+    """K18, the local stage of hop ``hop`` over this rank's slice, for the
+    lanes at ``cur`` (int32 (B,); ``prev`` the node before, the sentinel
+    ``n`` on the first hop; lane b is walk ``base + b``).  With ``out``
+    (4, B) int32, for the lanes whose current row the slice owns: row 0
+    holds next + 1 for a lane the slice resolves (the first hop, ``prev``
+    also in the slice, a row of degree 0 or a dead row: K12's whole hop)
+    and 0 for a cross lane, whose degree, ``wmax`` and backtrack weight
+    rows 1-3 hold (floats by their bits); 0 for the other lanes.  With
+    ``out`` (B,) the slice must hold every row, and the next nodes (the
+    sentinel for a pad lane) are written there.  Returns ``out``.  The
+    slice must be valid (``ShardedWalkTables``)."""
+    name = _WALK2
+    _require_weighted_slice(name, indptr, cols, vals, deg, wmax, wsum)
+    _require(cur.dtype == prev.dtype == torch.int32 and cur.dim() == 1
+             and cur.shape == prev.shape,
+             f"{name}: int32 1-D cur and prev of one shape expected")
     b = cur.shape[0]
-    _require_int32_rows(name, out, 4, b)
+    shared = out.dim() == 2
+    if shared:
+        _require_int32_rows(name, out, 4, b)
+    else:
+        _require_int32_rows(name, out, 1, b)
+        _require(row_lo == 0 and indptr.shape[0] >= n,
+                 f"{name}: a (B,) out needs a slice that holds every row")
+    _require(hop >= 0 and base >= 0 and row_lo >= 0 and tries >= 1,
+             f"{name}: hop, base and row_lo must be >= 0, tries >= 1")
     _require_cuda_contiguous(name, cur.device, indptr, cols, vals, deg, wmax,
                              wsum, cur, prev, out)
+    _require(not _overlap(out, cur) and not _overlap(out, prev),
+             f"{name}: out must not share memory with cur or prev")
+    k0, k1 = _seed_words(seed)
     with torch.cuda.device(cur.device):
-        rc = _bound(_WALK2, "walk2_stats")(
+        rc = _bound(_WALK2, "walk2_local")(
             indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
             deg.data_ptr(), wmax.data_ptr(), wsum.data_ptr(), cur.data_ptr(),
-            prev.data_ptr(), out.data_ptr(), b, int(n), int(row_lo),
-            indptr.shape[0], float(np.float32(inv_p)), _stream(cur))
+            prev.data_ptr(), out.data_ptr(), int(shared), b, int(hop),
+            int(base), k0, k1, int(n), int(row_lo), indptr.shape[0],
+            float(np.float32(inv_p)), float(np.float32(inv_q)), int(tries),
+            _stream(cur))
     _check_launch(name, rc)
     return out
 
 
-def walk2_pending(stats: torch.Tensor, inv_q: float) -> torch.Tensor:
-    """K18, the pending test on the summed stats ((4, B) int32): a bool
-    (B,) mask of the lanes with degree > 0 whose row is not dead."""
-    name = _WALK2
-    _require(stats.dim() == 2 and stats.shape[0] == 4,
-             f"{name}: stats must be (4, B)")
-    b = stats.shape[1]
-    _require_int32_rows(name, stats, 4, b)
-    _require_cuda_contiguous(name, stats.device, stats)
-    mask = torch.empty((b,), dtype=torch.bool, device=stats.device)
-    with torch.cuda.device(stats.device):
-        rc = _bound(_WALK2, "walk2_pending")(
-            stats.data_ptr(), mask.data_ptr(), b, float(np.float32(inv_q)),
-            _stream(stats))
-    _check_launch(name, rc)
-    return mask
-
-
 def walk2_propose(indptr, cols, vals, stats: torch.Tensor,
                   lanes: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor,
-                  hop: int, rnd: int, seed: int, base: int, n: int,
-                  row_lo: int, inv_q: float,
+                  hop: int, r0: int, chunk: int, tries: int, seed: int,
+                  base: int, n: int, row_lo: int, inv_q: float,
                   out: torch.Tensor) -> torch.Tensor:
-    """K18, the proposal of round ``rnd``: for each pending lane of
-    ``lanes`` (sorted int64) that does not take the backtrack edge and
-    whose current row this rank holds, the uniform proposal and its weight
-    into ``out`` ((2, len(lanes)) int32), 0 elsewhere.  Returns ``out``."""
+    """K18, the proposals of rounds ``r0 .. r0 + chunk - 1`` (those below
+    ``tries``) of the cross lanes ``lanes`` (int32, ascending) from the
+    summed ``stats`` ((3, B): degree, wmax, backtrack weight): for each
+    lane whose current row this slice holds and each round that does not
+    take the backtrack edge, the proposal and its weight (by its bits) into
+    ``out`` ((2, len(lanes)·chunk) int32, lane-major), 0 elsewhere.
+    Returns ``out``."""
     name = _WALK2
-    _require(indptr.dtype == cols.dtype == cur.dtype == prev.dtype
-             == torch.int32 and vals.dtype == torch.float32
-             and vals.shape == cols.shape and cur.shape == prev.shape,
-             f"{name}: int32 tables, cur and prev, float32 vals expected")
-    b, count = cur.shape[0], lanes.shape[0]
-    _require_int32_rows(name, stats, 4, b)
-    _require_int32_rows(name, out, 2, count)
-    _require_lanes(name, lanes, cur.device)
-    _require_cuda_contiguous(name, cur.device, indptr, cols, vals, stats, cur,
-                             prev, out)
+    log_r = _require_chunk(name, lanes, stats, prev, r0, chunk, tries)
+    _require(indptr.dtype == cols.dtype == cur.dtype == torch.int32
+             and vals.dtype == torch.float32 and vals.shape == cols.shape
+             and cur.shape == prev.shape,
+             f"{name}: int32 tables and cur, float32 vals expected")
+    count = lanes.shape[0]
+    _require_int32_rows(name, out, 2, count * chunk)
+    _require_cuda_contiguous(name, cur.device, indptr, cols, vals, stats,
+                             lanes, cur, prev, out)
     k0, k1 = _seed_words(seed)
     with torch.cuda.device(cur.device):
         rc = _bound(_WALK2, "walk2_propose")(
             indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-            stats.data_ptr(), b, lanes.data_ptr(), count, cur.data_ptr(),
-            prev.data_ptr(), int(hop), int(rnd), int(base), k0, k1, int(n),
-            int(row_lo), indptr.shape[0], float(np.float32(inv_q)),
-            out.data_ptr(), _stream(cur))
+            stats.data_ptr(), cur.shape[0], lanes.data_ptr(), count,
+            cur.data_ptr(), prev.data_ptr(), int(hop), int(r0), log_r,
+            int(tries), int(base), k0, k1, int(n), int(row_lo),
+            indptr.shape[0], float(np.float32(inv_q)), out.data_ptr(),
+            _stream(cur))
     _check_launch(name, rc)
     return out
 
 
 def walk2_member(indptr, cols, deg, stats: torch.Tensor, lanes: torch.Tensor,
-                 prop: torch.Tensor, prev: torch.Tensor, hop: int, rnd: int,
-                 tries: int, seed: int, base: int, n: int, row_lo: int,
-                 inv_q: float, out: torch.Tensor) -> torch.Tensor:
-    """K18, the common-neighbour test of round ``rnd``: 1 for each pending
-    lane that tests its summed proposal (``prop``) and whose previous row
-    this rank holds when the proposal is in that row, into ``out``
-    ((len(lanes),) int32), 0 elsewhere.  Returns ``out``."""
+                 prop: torch.Tensor, prev: torch.Tensor, hop: int, r0: int,
+                 chunk: int, tries: int, seed: int, base: int, n: int,
+                 row_lo: int, inv_q: float,
+                 out: torch.Tensor) -> torch.Tensor:
+    """K18, the common-neighbour tests of a chunk: for each cross lane
+    whose previous row this slice holds, bit j of ``out[i]`` ((len(lanes),)
+    int32) is 1 when round ``r0 + j`` tests its summed proposal (``prop``:
+    not the backtrack edge, not ``prev`` itself, not the last round) and
+    the proposal is in ``prev``'s row; 0 elsewhere.  Returns ``out``."""
     name = _WALK2
-    _require(indptr.dtype == cols.dtype == deg.dtype == prev.dtype
-             == torch.int32 and indptr.shape == deg.shape,
-             f"{name}: int32 tables and prev expected")
-    b, count = prev.shape[0], lanes.shape[0]
-    _require_int32_rows(name, stats, 4, b)
-    _require_int32_rows(name, prop, 2, count)
+    log_r = _require_chunk(name, lanes, stats, prev, r0, chunk, tries)
+    _require(indptr.dtype == cols.dtype == deg.dtype == torch.int32
+             and indptr.shape == deg.shape,
+             f"{name}: int32 indptr, cols and deg expected")
+    count = lanes.shape[0]
+    _require_int32_rows(name, prop, 2, count * chunk)
     _require_int32_rows(name, out, 1, count)
-    _require_lanes(name, lanes, prev.device)
     _require_cuda_contiguous(name, prev.device, indptr, cols, deg, stats,
-                             prop, prev, out)
+                             lanes, prop, prev, out)
     k0, k1 = _seed_words(seed)
     with torch.cuda.device(prev.device):
         rc = _bound(_WALK2, "walk2_member")(
             indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-            stats.data_ptr(), b, lanes.data_ptr(), count, prop.data_ptr(),
-            prev.data_ptr(), int(hop), int(rnd), int(tries), int(base), k0,
-            k1, int(n), int(row_lo), indptr.shape[0],
-            float(np.float32(inv_q)), out.data_ptr(), _stream(prev))
+            stats.data_ptr(), prev.shape[0], lanes.data_ptr(), count,
+            prop.data_ptr(), prev.data_ptr(), int(hop), int(r0), log_r,
+            int(tries), int(base), k0, k1, int(n), int(row_lo),
+            indptr.shape[0], float(np.float32(inv_q)), out.data_ptr(),
+            _stream(prev))
     _check_launch(name, rc)
     return out
 
 
 def walk2_decide(stats: torch.Tensor, lanes: torch.Tensor, prop: torch.Tensor,
-                 member: torch.Tensor, prev: torch.Tensor, hop: int, rnd: int,
-                 tries: int, seed: int, base: int, n: int, inv_q: float,
-                 nxt: torch.Tensor) -> torch.Tensor:
-    """K18, the decision of round ``rnd`` from the summed proposal and
-    membership: writes each decided lane's node into ``nxt`` (int32 (B,))
-    and returns a bool mask of the lanes of ``lanes`` still pending."""
+                 member: torch.Tensor, prev: torch.Tensor, hop: int, r0: int,
+                 chunk: int, tries: int, seed: int, base: int, n: int,
+                 inv_q: float, nxt: torch.Tensor) -> torch.Tensor:
+    """K18, the decisions of a chunk from the summed proposals and
+    membership bits, the same on every rank: each cross lane takes the
+    first of its rounds that hits, in K12's order, and writes its node
+    into ``nxt`` (int32 (B,)).  Returns a bool mask of the lanes of
+    ``lanes`` still pending."""
     name = _WALK2
-    _require(prev.dtype == nxt.dtype == torch.int32
-             and prev.shape == nxt.shape, f"{name}: int32 prev/nxt expected")
-    b, count = prev.shape[0], lanes.shape[0]
-    _require_int32_rows(name, stats, 4, b)
-    _require_int32_rows(name, prop, 2, count)
+    log_r = _require_chunk(name, lanes, stats, prev, r0, chunk, tries)
+    count = lanes.shape[0]
+    _require(nxt.dtype == torch.int32 and nxt.shape == prev.shape,
+             f"{name}: nxt must be int32 of prev's shape")
+    _require_int32_rows(name, prop, 2, count * chunk)
     _require_int32_rows(name, member, 1, count)
-    _require_lanes(name, lanes, prev.device)
-    _require_cuda_contiguous(name, prev.device, stats, prop, member, prev,
-                             nxt)
+    _require_cuda_contiguous(name, prev.device, stats, lanes, prop, member,
+                             prev, nxt)
     still = torch.empty((count,), dtype=torch.bool, device=prev.device)
     k0, k1 = _seed_words(seed)
     with torch.cuda.device(prev.device):
         rc = _bound(_WALK2, "walk2_decide")(
-            stats.data_ptr(), b, lanes.data_ptr(), count, prop.data_ptr(),
-            member.data_ptr(), prev.data_ptr(), int(hop), int(rnd),
-            int(tries), int(base), k0, k1, int(n), float(np.float32(inv_q)),
-            nxt.data_ptr(), still.data_ptr(), _stream(prev))
+            stats.data_ptr(), prev.shape[0], lanes.data_ptr(), count,
+            prop.data_ptr(), member.data_ptr(), prev.data_ptr(), int(hop),
+            int(r0), log_r, int(tries), int(base), k0, k1, int(n),
+            float(np.float32(inv_q)), nxt.data_ptr(), still.data_ptr(),
+            _stream(prev))
     _check_launch(name, rc)
     return still

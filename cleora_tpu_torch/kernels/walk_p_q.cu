@@ -48,7 +48,7 @@
 // reads are random and dependent, so the kernel is latency-bound.
 //
 // Design: one thread per walk runs the whole walk, with the rejection
-// rounds as a loop per hop.  The TPU engine compacted the rejecting lanes
+// rounds as a loop per hop (walk2_hop.cuh, shared with K18).  The TPU engine compacted the rejecting lanes
 // with three top_k stages because XLA pays the full batch width per round;
 // a thread retires on its own, so that machinery has no counterpart here.
 // A warp waits on its slowest lane's rounds each hop.
@@ -57,52 +57,9 @@
 
 #include <cuda_runtime.h>
 
+#include "walk2_hop.cuh"
+
 namespace {
-
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-
-// Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1): x[0..3].
-__device__ __forceinline__ void philox4(uint32_t c0, uint32_t c1, uint32_t c2,
-                                        uint32_t c3, uint32_t k0, uint32_t k1,
-                                        uint32_t x[4]) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
-    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c1 = lo1;
-    c3 = lo0;
-    c0 = n0;
-    c2 = n2;
-  }
-  x[0] = c0;
-  x[1] = c1;
-  x[2] = c2;
-  x[3] = c3;
-}
-
-__device__ __forceinline__ float unit_float(uint32_t w) {
-  return __uint2float_rn(w >> 8) * 5.9604644775390625e-08f;
-}
-
-// First position in [lo, hi) whose column is >= x (hi when none).
-__device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ cols,
-                                               int32_t lo, int32_t hi,
-                                               int32_t x) {
-  while (lo < hi) {
-    const int32_t mid = lo + ((hi - lo) >> 1);
-    if (__ldg(cols + mid) < x)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
 
 __global__ void walk_p_q_kernel(
     const int32_t* __restrict__ indptr, const int32_t* __restrict__ cols,
@@ -114,63 +71,19 @@ __global__ void walk_p_q_kernel(
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const uint64_t g = (uint64_t)(base + b);
-  const uint32_t g0 = (uint32_t)g, g1 = (uint32_t)(g >> 32);
-  const float m2 = fmaxf(1.0f, inv_q);
   int32_t* row = walks + b * walk_length;
   int32_t prev = n;
   int32_t cur = __ldg(starts + b);
   row[0] = cur;
   for (int h = 0; h + 1 < walk_length; ++h) {
     int32_t nxt = n;
-    const int32_t d = (cur >= 0 && cur < n) ? __ldg(deg + cur) : 0;
-    if (d > 0) {
-      const int32_t lo = __ldg(indptr + cur);
-      const float wm = __ldg(wmax + cur);
+    if (cur >= 0 && cur < n) {
       const bool first = !(prev >= 0 && prev < n);
-      float w_bt = 0.0f;
-      int32_t plo = 0, phi = 0;
-      if (!first) {
-        const int32_t pos = lower_bound(cols, lo, lo + d, prev);
-        if (pos < lo + d && __ldg(cols + pos) == prev)
-          w_bt = __fmul_rn(__ldg(vals + pos), inv_p);
-        plo = __ldg(indptr + prev);
-        phi = plo + __ldg(deg + prev);
-      }
-      const float env =
-          __fadd_rn(w_bt, __fmul_rn(__fmul_rn(__int2float_rn(d), wm), m2));
-      const float pi = __fdiv_rn(w_bt, fmaxf(env, 1e-30f));
-      const bool dead = __fadd_rn(__fmul_rn(__ldg(wsum + cur), m2), w_bt) <
-                        1e-15f;
-      const float cap = fmaxf(__fmul_rn(wm, m2), 1e-30f);
-      for (int r = 0; !dead && r < tries; ++r) {
-        uint32_t x[4];
-        philox4(g0, g1, (uint32_t)h, (uint32_t)(r + 1), k0, k1, x);
-        const float u0 = unit_float(x[0]);
-        const float u1 = unit_float(x[1]);
-        const float u2 = unit_float(x[2]);
-        if (!first && u0 < pi) {
-          nxt = prev;
-          break;
-        }
-        int32_t j = (int32_t)__fmul_rn(u1, __int2float_rn(d));
-        if (j > d - 1) j = d - 1;
-        const int32_t e = lo + j;
-        const int32_t cand = __ldg(cols + e);
-        if (first || r == tries - 1) {
-          nxt = cand;
-          break;
-        }
-        float alpha = 0.0f;
-        if (cand != prev) {
-          const int32_t pos = lower_bound(cols, plo, phi, cand);
-          alpha = (pos < phi && __ldg(cols + pos) == cand) ? 1.0f : inv_q;
-        }
-        const float p_acc = __fdiv_rn(__fmul_rn(__ldg(vals + e), alpha), cap);
-        if (u2 < p_acc) {
-          nxt = cand;
-          break;
-        }
-      }
+      const walk2::Head t = walk2::hop_head(indptr, cols, vals, deg, wmax,
+                                            wsum, cur, prev, first, inv_p,
+                                            inv_q);
+      nxt = walk2::hop(indptr, cols, vals, deg, t, prev, prev, first, g, h,
+                       k0, k1, n, inv_q, tries);
     }
     prev = cur;
     cur = nxt;

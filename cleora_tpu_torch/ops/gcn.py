@@ -23,7 +23,8 @@ counter (``e // 4`` low word, ``e // 4`` high word, epoch, layer): it is word
 (seed, epoch, layer) alone, on every device.  It is not JAX's stream
 (``jax.random.bernoulli`` under split keys), which torch cannot replay, so
 dropout runs agree with the JAX package in distribution only.  The
-backward draws the mask again from its counter instead of storing it.
+forward also writes ``keep and z > 0`` packed 32 bits a word
+(:func:`pack_bits`), which the backward reads instead of ``z``.
 """
 
 from __future__ import annotations
@@ -54,15 +55,35 @@ def _keep_scale(p: float) -> float:
     return float(np.float32(1.0 - float(p)))
 
 
-def _keep(z: torch.Tensor, p: float, seed: int, epoch: int,
+def _bits(z: torch.Tensor, p: float, seed: int, epoch: int,
           layer: int) -> torch.Tensor:
-    """The keep mask (shape of ``z``) and ReLU's positive part, together:
-    ``u ≥ p`` and ``z > 0``.  p = 0 draws nothing."""
-    positive = z > 0
+    """The flat bool bits of ``z``: the keep mask ``u ≥ p`` and ReLU's
+    positive part ``z > 0`` together.  p = 0 draws nothing."""
+    positive = z.reshape(-1) > 0
     if float(p) == 0.0:
         return positive
     u = dropout_uniforms(z.numel(), epoch, layer, seed, z.device)
-    return positive & (u.reshape(z.shape) >= float(np.float32(p)))
+    return positive & (u >= float(np.float32(p)))
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Flat bool bits as K15's mask: bit e % 32 of int32 word e // 32 (the
+    last word padded with 0 bits)."""
+    words = (bits.shape[0] + 31) // 32
+    padded = torch.zeros(words * 32, dtype=torch.int64, device=bits.device)
+    padded[:bits.shape[0]] = bits
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    word = (padded.reshape(words, 32) << shifts).sum(1)
+    # bit 31 set: the int32 of the same bits
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(
+        torch.int32)
+
+
+def unpack_bits(mask: torch.Tensor, numel: int) -> torch.Tensor:
+    """K15's mask as ``numel`` flat bool bits."""
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    bits = (mask.long()[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:numel].bool()
 
 
 def _scaled(t: torch.Tensor, p: float) -> torch.Tensor:
@@ -72,36 +93,39 @@ def _scaled(t: torch.Tensor, p: float) -> torch.Tensor:
 
 
 def relu_dropout_plain(z: torch.Tensor, p: float, seed: int, epoch: int,
-                       layer: int) -> torch.Tensor:
-    """Plain PyTorch version of K15's forward:
-    ``keep ? relu(z)/(1−p) : 0``, float32."""
-    return torch.where(_keep(z, p, seed, epoch, layer), _scaled(z, p), 0.0)
+                       layer: int):
+    """Plain PyTorch version of K15's forward: ``h = keep ? relu(z)/(1−p) :
+    0`` (float32) and the packed bits ``keep and z > 0``
+    (:func:`pack_bits`)."""
+    bits = _bits(z, p, seed, epoch, layer)
+    h = torch.where(bits.reshape(z.shape), _scaled(z, p), 0.0)
+    return h, pack_bits(bits)
 
 
-def relu_dropout_backward_plain(z: torch.Tensor, dh: torch.Tensor, p: float,
-                                seed: int, epoch: int,
-                                layer: int) -> torch.Tensor:
-    """Plain PyTorch version of K15's backward:
-    ``(keep and z > 0) ? dh/(1−p) : 0`` (ReLU's gradient at 0 is 0, as in
-    JAX)."""
-    return torch.where(_keep(z, p, seed, epoch, layer), _scaled(dh, p), 0.0)
+def relu_dropout_backward_plain(mask: torch.Tensor, dh: torch.Tensor,
+                                p: float) -> torch.Tensor:
+    """Plain PyTorch version of K15's backward: ``bit ? dh/(1−p) : 0`` with
+    the forward's packed bits (ReLU's gradient at 0 is 0, as in JAX)."""
+    bits = unpack_bits(mask, dh.numel()).reshape(dh.shape)
+    return torch.where(bits, _scaled(dh, p), 0.0)
 
 
 def relu_dropout(z: torch.Tensor, p: float, seed: int, epoch: int,
-                 layer: int) -> torch.Tensor:
-    """K15's forward on CUDA, :func:`relu_dropout_plain` on the CPU."""
+                 layer: int):
+    """K15's forward on CUDA, :func:`relu_dropout_plain` on the CPU:
+    ``(h, mask)``."""
     if z.is_cuda:
         return kernels.relu_dropout(z, p, seed, epoch, layer)
     return relu_dropout_plain(z, p, seed, epoch, layer)
 
 
-def relu_dropout_backward(z: torch.Tensor, dh: torch.Tensor, p: float,
-                          seed: int, epoch: int, layer: int) -> torch.Tensor:
+def relu_dropout_backward(mask: torch.Tensor, dh: torch.Tensor,
+                          p: float) -> torch.Tensor:
     """K15's backward on CUDA, :func:`relu_dropout_backward_plain` on the
     CPU."""
-    if z.is_cuda:
-        return kernels.relu_dropout_backward(z, dh, p, seed, epoch, layer)
-    return relu_dropout_backward_plain(z, dh, p, seed, epoch, layer)
+    if dh.is_cuda:
+        return kernels.relu_dropout_backward(mask, dh, p)
+    return relu_dropout_backward_plain(mask, dh, p)
 
 
 class CsrSpmm(torch.autograd.Function):
@@ -119,18 +143,20 @@ class CsrSpmm(torch.autograd.Function):
 
 
 class ReluDropout(torch.autograd.Function):
-    """``keep ? relu(z)/(1−p) : 0`` with the mask of (seed, epoch, layer)."""
+    """``keep ? relu(z)/(1−p) : 0`` with the mask of (seed, epoch, layer);
+    it keeps the packed bits for its backward (1 bit an element), not
+    ``z``."""
 
     @staticmethod
     def forward(ctx, z: torch.Tensor, p: float, seed: int, epoch: int,
                 layer: int) -> torch.Tensor:
-        ctx.save_for_backward(z)
-        ctx.args = (p, seed, epoch, layer)
-        return relu_dropout(z.contiguous(), p, seed, epoch, layer)
+        h, mask = relu_dropout(z.contiguous(), p, seed, epoch, layer)
+        ctx.save_for_backward(mask)
+        ctx.p = p
+        return h
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        (z,) = ctx.saved_tensors
-        dz = relu_dropout_backward(z.contiguous(), grad.contiguous(),
-                                   *ctx.args)
+        (mask,) = ctx.saved_tensors
+        dz = relu_dropout_backward(mask, grad.contiguous(), ctx.p)
         return dz, None, None, None, None

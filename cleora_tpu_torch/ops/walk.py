@@ -28,9 +28,10 @@ bit for bit: over replicated tables each rank walks a block of lanes
 (:class:`ShardedWalkTables`, the JAX package's ``_device_walk_sharded_jit``
 and ``_device_walk2_sharded_jit``, cleora_tpu/algorithms.py:1380, :1574)
 the rank that owns a lane's row computes its share of each hop (kernel K17,
-``kernels/walk_owned.cu``; for the p/q walk the five stages of kernel K18,
-``kernels/walk2_owned.cu``), every other rank writes 0, and an all-reduce
-combines the shares.
+``kernels/walk_owned.cu``; for the p/q walk kernel K18,
+``kernels/walk2_owned.cu``: a hop in one launch where one slice owns both
+rows, rejection rounds in chunks across owners), every other rank writes
+0, and an all-reduce combines the shares.
 """
 
 from __future__ import annotations
@@ -267,15 +268,16 @@ def _row_search(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
                 rows: torch.Tensor, x: torch.Tensor):
     """``(found, position)`` of each ``x`` in the sorted column slice of its
     row, ``cols[indptr[r] : indptr[r] + deg[r]]``: a lower-bound binary
-    search that stops on ``lo < hi`` (``rows`` int64, valid)."""
+    search that stops on ``lo < hi`` (``rows`` int64, valid).  A range of
+    L entries closes within ``L.bit_length()`` steps, so the longest row
+    sets the step count (one host read, not one a step)."""
     lo = indptr[rows].long()
     end = lo + deg[rows].long()
     hi = end.clone()
     last = cols.shape[0] - 1
-    while True:
+    longest = int((end - lo).max()) if end.numel() else 0
+    for _ in range(longest.bit_length()):
         active = lo < hi
-        if not bool(active.any()):
-            break
         mid = (lo + hi) // 2
         right = active & (cols[mid.clamp(0, last)] < x)
         lo = torch.where(right, mid + 1, lo)
@@ -308,61 +310,98 @@ def walk_p_q_plain(indptr: torch.Tensor, cols: torch.Tensor,
     the lanes still rejecting, with K12's float32 operations in K12's order
     and the same Philox uniforms (:func:`round_uniforms`), so the walks are
     bitwise K12's whatever the batch."""
-    f32 = torch.float32
     dev = starts.device
     index = base + torch.arange(starts.shape[0], dtype=torch.int64,
                                 device=dev)
-    # 0-d float32 operands: every product, sum and comparison stays float32
-    inv_p, inv_q, env_floor, dead_floor, zero, one = torch.tensor(
-        [inv_p, inv_q, 1e-30, 1e-15, 0.0, 1.0], dtype=f32, device=dev)
-    m2 = torch.maximum(one, inv_q)
+    tables = (indptr, cols, vals, deg, wmax, wsum)
     cur = starts.to(torch.int32)
     prev = torch.full_like(cur, n)
     steps = [cur]
     for hop in range(walk_length - 1):
         nxt = torch.full_like(cur, n)
         valid = (cur >= 0) & (cur < n)
-        if cols.shape[0] == 0 or not bool(valid.any()):
-            prev, cur = cur, nxt
-            steps.append(cur)
-            continue
-        cur_c = torch.where(valid, cur, torch.zeros_like(cur)).long()
-        d = torch.where(valid, deg[cur_c], torch.zeros_like(cur))
-        wm = wmax[cur_c]
-        first = ~((prev >= 0) & (prev < n))
-        prev_c = torch.where(first, torch.zeros_like(prev), prev).long()
-        bt_found, bt_pos = _row_search(indptr, cols, deg, cur_c, prev_c)
-        w_bt = torch.where(bt_found & ~first,
-                           vals[bt_pos.clamp(0, cols.shape[0] - 1)] * inv_p,
-                           zero)
-        env = w_bt + (d.to(f32) * wm) * m2
-        pi = w_bt / torch.maximum(env, env_floor)
-        dead = wsum[cur_c] * m2 + w_bt < dead_floor
-        cap = torch.maximum(wm * m2, env_floor)
-        pending = torch.nonzero(valid & (d > 0) & ~dead).squeeze(1)
-        for rnd in range(tries):
-            if pending.numel() == 0:
-                break
-            u0, u1, u2 = round_uniforms(index[pending], hop, rnd, seed)
-            dp = d[pending]
-            j = torch.minimum((u1 * dp.to(f32)).to(torch.int32), dp - 1)
-            e = indptr[cur_c[pending]].long() + j.long()
-            x = cols[e]
-            fp, pp = first[pending], prev_c[pending]
-            is_bt = ~fp & (u0 < pi[pending])
-            common, _ = _row_search(indptr, cols, deg, pp, x.long())
-            alpha2 = torch.where(x.long() == pp, zero,
-                                 torch.where(common, one, inv_q))
-            p_acc = torch.where(fp, one, (vals[e] * alpha2) / cap[pending])
-            hit = is_bt | (u2 < p_acc)
-            if rnd == tries - 1:
-                hit = torch.ones_like(hit)
-            take = torch.where(is_bt, pp.to(torch.int32), x)
-            nxt[pending[hit]] = take[hit]
-            pending = pending[~hit]
+        if cols.shape[0] and bool(valid.any()):
+            at = torch.where(valid, cur, torch.zeros_like(cur)).long()
+            first = ~((prev >= 0) & (prev < n))
+            prev_at = torch.where(first, torch.zeros_like(prev), prev).long()
+            head = _hop_head(tables, at, prev, first, inv_p, inv_q)
+            _hop_rounds(tables, head, valid, at, prev, prev_at, first, index,
+                        hop, inv_q, tries, seed, n, nxt)
         prev, cur = cur, nxt
         steps.append(cur)
     return torch.stack(steps, dim=1)
+
+
+def _f32(*values, device) -> torch.Tensor:
+    """0-d float32 operands, so that every product, sum and comparison with
+    them stays float32."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _hop_terms(d, wm, w_bt, inv_q: float):
+    """``(π, cap)`` of a hop from its degree, ``wmax`` and backtrack weight
+    (walk2_hop.cuh ``hop_terms``)."""
+    env_floor, one, inv_q = _f32(1e-30, 1.0, inv_q, device=d.device)
+    m2 = torch.maximum(one, inv_q)
+    env = w_bt + (d.to(torch.float32) * wm) * m2
+    return (w_bt / torch.maximum(env, env_floor),
+            torch.maximum(wm * m2, env_floor))
+
+
+def _hop_head(tables, at, prev, first, inv_p: float, inv_q: float) -> dict:
+    """The head of a hop from the rows ``at`` (int64, valid) of ``tables``
+    (walk2_hop.cuh ``hop_head``; ``cols`` not empty): degree ``d``, ``wm``,
+    the backtrack weight ``w_bt`` (0 on the first hop) and ``dead``."""
+    indptr, cols, vals, deg, wmax, wsum = tables
+    zero, inv_p_t, dead_floor, one, inv_q_t = _f32(
+        0.0, inv_p, 1e-15, 1.0, inv_q, device=at.device)
+    d = deg[at]
+    wm = wmax[at]
+    prev_c = torch.where(first, torch.zeros_like(prev), prev).long()
+    found, pos = _row_search(indptr, cols, deg, at, prev_c)
+    w_bt = torch.where(found & ~first,
+                       vals[pos.clamp(0, cols.shape[0] - 1)] * inv_p_t, zero)
+    dead = wsum[at] * torch.maximum(one, inv_q_t) + w_bt < dead_floor
+    return {"d": d, "wm": wm, "w_bt": w_bt, "dead": dead}
+
+
+def _hop_rounds(tables, head: dict, live, at, prev, prev_at, first, index,
+                hop: int, inv_q: float, tries: int, seed: int, n: int,
+                nxt: torch.Tensor) -> None:
+    """K12's rejection rounds (walk2_hop.cuh ``hop``) for the ``live``
+    lanes whose row ``at`` has degree > 0 and is not dead; writes their
+    next node into ``nxt``.  ``prev_at`` is ``prev``'s row in ``tables``
+    (read only for lanes that are not ``first``)."""
+    indptr, cols, vals, deg, _, _ = tables
+    d, wm = head["d"], head["wm"]
+    pi, cap = _hop_terms(d, wm, head["w_bt"], inv_q)
+    zero, one, inv_q_t = _f32(0.0, 1.0, inv_q, device=at.device)
+    pending = torch.nonzero(live & (d > 0) & ~head["dead"]).squeeze(1)
+    for rnd in range(tries):
+        if pending.numel() == 0:
+            break
+        u0, u1, u2 = round_uniforms(index[pending], hop, rnd, seed)
+        e = _proposal(indptr, d[pending], at[pending], u1)
+        x = cols[e]
+        fp, pp = first[pending], prev[pending]
+        is_bt = ~fp & (u0 < pi[pending])
+        common, _ = _row_search(indptr, cols, deg, prev_at[pending],
+                                x.long())
+        alpha2 = torch.where(x == pp, zero, torch.where(common, one, inv_q_t))
+        p_acc = torch.where(fp, one, (vals[e] * alpha2) / cap[pending])
+        hit = is_bt | (u2 < p_acc)
+        if rnd == tries - 1:
+            hit = torch.ones_like(hit)
+        take = torch.where(is_bt, pp, x)
+        nxt[pending[hit]] = take[hit]
+        pending = pending[~hit]
+
+
+def _proposal(indptr, d, at, u1) -> torch.Tensor:
+    """The entry of a round's proposal, ``indptr[at] + min(int(u1·d),
+    d − 1)`` (int64), clamped to 0 where ``d`` is 0."""
+    j = torch.minimum((u1 * d.to(torch.float32)).to(torch.int32), d - 1)
+    return indptr[at].long() + j.clamp_min(0).long()
 
 
 class WalkTables2(WalkTables):
@@ -567,8 +606,8 @@ def walk_uniform_sharded(slices, starts: torch.Tensor, walk_length: int,
     return walks.T.contiguous()
 
 
-# K18's stage outputs travel as int32: a float32 is carried by its bits,
-# and each sum over the ranks has exactly one nonzero term, so it is exact
+# K18's buffers travel as int32: a float32 is carried by its bits, and each
+# sum over the slices has exactly one nonzero term a lane, so it is exact
 def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
@@ -577,188 +616,227 @@ def _floats(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.float32)
 
 
-def walk2_stats(t: ShardedWalkTables, cur: torch.Tensor, prev: torch.Tensor,
-                inv_p: float, out: torch.Tensor) -> torch.Tensor:
-    """K18's first stage, this rank's share: for each lane whose current
-    row it owns, the degree, ``wmax``, ``wsum`` and the backtrack weight
-    ``w_bt`` (the weight of ``cur → prev`` times ``inv_p``, 0 when ``prev``
-    is no neighbour or the lane has no ``prev``), written into ``out``
-    ((4, B) int32, the floats by their bits); 0 for the other lanes.  On
-    CUDA this launches K18; on the CPU it runs :func:`walk2_stats_plain`."""
+# the rejection rounds a chunk of K18's cross-owner lanes runs between two
+# pairs of collectives (a power of two, at most kernels.WALK2_MAX_CHUNK):
+# one all-reduce carries a chunk's proposals, one its membership answers.
+# On an H100, four slices of chip_smoke.py's phase 8 batch (131,072 walks of
+# 10, p = 0.5, q = 2) took 55.2, 19.2, 10.4, 6.75 and 6.72 ms at 1, 4, 8,
+# 16 and 32 rounds a chunk (scripts/torch_walk2_probe.py --chunks): from 16
+# on one chunk settles a hop
+WALK2_CHUNK = 16
+
+
+def walk2_local(t: ShardedWalkTables, cur: torch.Tensor, prev: torch.Tensor,
+                hop: int, seed: int, base: int, inv_p: float, inv_q: float,
+                tries: int, out: torch.Tensor) -> torch.Tensor:
+    """K18's local stage of hop ``hop``, this rank's share, into ``out``:
+    with ``out`` (4, B) int32, next + 1 for each lane the slice resolves
+    (its current row is the slice's, and so is ``prev``'s, or it is the
+    first hop, or the row has degree 0 or is dead: K12's whole hop), 0
+    for a cross lane with its degree, ``wmax`` and backtrack weight in rows
+    1-3 (floats by their bits), 0 for the lanes of other slices; with
+    ``out`` (B,) (a slice holding every row) the next nodes themselves.
+    On CUDA this launches K18; on the CPU it runs
+    :func:`walk2_local_plain`."""
     if cur.is_cuda:
-        return kernels.walk2_stats(t.indptr, t.cols, t.vals, t.deg, t.wmax,
-                                   t.wsum, cur, prev, t.n, t.row_lo, inv_p,
-                                   out)
-    out.copy_(walk2_stats_plain(t.indptr, t.cols, t.vals, t.deg, t.wmax,
-                                t.wsum, cur, prev, t.n, t.row_lo, inv_p))
+        return kernels.walk2_local(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                   t.wsum, cur, prev, hop, seed, base, t.n,
+                                   t.row_lo, inv_p, inv_q, tries, out)
+    out.copy_(walk2_local_plain(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                t.wsum, cur, prev, hop, seed, base, t.n,
+                                t.row_lo, inv_p, inv_q, tries,
+                                shared=out.dim() == 2))
     return out
 
 
-def walk2_stats_plain(indptr, cols, vals, deg, wmax, wsum, cur, prev,
-                      n: int, row_lo: int, inv_p: float) -> torch.Tensor:
-    """Plain PyTorch version of K18's first stage (``walk_p_q_plain``'s
-    per-hop quantities, on the rank's rows)."""
-    f32 = torch.float32
+def walk2_local_plain(indptr, cols, vals, deg, wmax, wsum, cur, prev,
+                      hop: int, seed: int, base: int, n: int, row_lo: int,
+                      inv_p: float, inv_q: float, tries: int,
+                      shared: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K18's local stage: :func:`walk_p_q_plain`'s
+    hop on the slice's rows for the lanes it resolves; (4, B) int32 when
+    ``shared``, else the (B,) next nodes."""
+    tables = (indptr, cols, vals, deg, wmax, wsum)
+    index = base + torch.arange(cur.shape[0], dtype=torch.int64,
+                                device=cur.device)
     _, owned, at = _owned(cur, row_lo, indptr.shape[0], n)
-    zero = torch.zeros((), dtype=f32, device=cur.device)
-    d = torch.where(owned, deg[at], torch.zeros_like(cur))
+    _, prev_owned, prev_at = _owned(prev, row_lo, indptr.shape[0], n)
     first = ~((prev >= 0) & (prev < n))
-    prev_c = torch.where(first, torch.zeros_like(prev), prev).long()
-    found, pos = _row_search(indptr, cols, deg, at, prev_c)
-    last = max(cols.shape[0] - 1, 0)
-    w_bt = torch.where(owned & found & ~first,
-                       vals[pos.clamp(0, last)]
-                       * torch.tensor(inv_p, dtype=f32), zero)
-    return torch.stack([d, _bits(torch.where(owned, wmax[at], zero)),
-                        _bits(torch.where(owned, wsum[at], zero)),
-                        _bits(w_bt)])
+    nxt = torch.full_like(cur, n)
+    zero = torch.zeros_like(cur)
+    if not (cols.shape[0] and bool(owned.any())):
+        return torch.stack([torch.where(owned, nxt + 1, zero), zero, zero,
+                            zero]) if shared else nxt
+    head = _hop_head(tables, at, prev, first, inv_p, inv_q)
+    resolved = owned & (first | prev_owned | (head["d"] <= 0) | head["dead"])
+    _hop_rounds(tables, head, resolved, at, prev, prev_at, first, index, hop,
+                inv_q, tries, seed, n, nxt)
+    if not shared:
+        return nxt
+    cross = owned & ~resolved
+    fzero = torch.zeros((), dtype=torch.float32, device=cur.device)
+    return torch.stack([
+        torch.where(resolved, nxt + 1, zero),
+        torch.where(cross, head["d"], zero),
+        _bits(torch.where(cross, head["wm"], fzero)),
+        _bits(torch.where(cross, head["w_bt"], fzero))])
 
 
-def walk2_pending(stats: torch.Tensor, inv_q: float) -> torch.Tensor:
-    """The lanes that draw this hop, from the summed stats (the same on
-    every rank): degree > 0 and a row that is not dead (``wsum·m2 + w_bt <
-    1e-15``), as a sorted int64 index tensor.  On CUDA the mask is K18's;
-    on the CPU :func:`walk2_pending_plain`'s."""
-    if stats.is_cuda:
-        mask = kernels.walk2_pending(stats, inv_q)
-    else:
-        mask = walk2_pending_plain(stats, inv_q)
-    return torch.nonzero(mask).squeeze(1)
-
-
-def walk2_pending_plain(stats: torch.Tensor, inv_q: float) -> torch.Tensor:
-    """Plain PyTorch version of K18's pending stage (a bool mask)."""
-    f32 = torch.float32
-    m2 = torch.maximum(torch.tensor(1.0, dtype=f32),
-                       torch.tensor(inv_q, dtype=f32)).to(stats.device)
-    dead = _floats(stats[2]) * m2 + _floats(stats[3]) < torch.tensor(
-        1e-15, dtype=f32, device=stats.device)
-    return (stats[0] > 0) & ~dead
-
-
-def _round_terms(stats, lanes, prev, hop, rnd, seed, base, n, inv_q):
-    """The replicated quantities of one rejection round of ``lanes``:
-    the three uniforms, ``first``, ``is_bt`` and the acceptance cap, in
-    ``walk_p_q_plain``'s float32 operations."""
-    f32 = torch.float32
-    dev = stats.device
-    env_floor, one, inv_q_t = torch.tensor([1e-30, 1.0, inv_q], dtype=f32,
-                                           device=dev)
-    m2 = torch.maximum(one, inv_q_t)
-    u0, u1, u2 = round_uniforms(base + lanes, hop, rnd, seed)
-    s = stats[:, lanes]
-    d, wm, w_bt = s[0], _floats(s[1]), _floats(s[3])
-    env = w_bt + (d.to(f32) * wm) * m2
-    pi = w_bt / torch.maximum(env, env_floor)
-    p = prev[lanes]
+def _chunk_terms(stats, lanes, prev, hop: int, r0: int, chunk: int,
+                 tries: int, seed: int, base: int, n: int,
+                 inv_q: float) -> dict:
+    """The replicated terms of a chunk's rounds ``r0 .. r0 + chunk - 1``
+    for the cross lanes ``lanes``, each (len(lanes), chunk) or
+    (len(lanes),): the round, whether it is below ``tries``, the uniforms,
+    ``first``, the backtrack test, the acceptance cap, the degree and
+    ``prev``."""
+    at = lanes.long()
+    rnd = r0 + torch.arange(chunk, dtype=torch.int64, device=stats.device)
+    u0, u1, u2 = round_uniforms((base + at)[:, None], hop, rnd[None, :],
+                                seed)
+    s = stats[:, at]
+    d, wm, w_bt = s[0], _floats(s[1]), _floats(s[2])
+    pi, cap = _hop_terms(d, wm, w_bt, inv_q)
+    p = prev[at]
     first = ~((p >= 0) & (p < n))
-    is_bt = ~first & (u0 < pi)
-    cap = torch.maximum(wm * m2, env_floor)
-    return u1, u2, d, first, is_bt, cap, p
+    return {"rnd": rnd[None, :], "active": rnd[None, :] < tries, "u1": u1,
+            "u2": u2, "first": first,
+            "is_bt": ~first[:, None] & (u0 < pi[:, None]), "cap": cap,
+            "d": d, "p": p}
 
 
 def walk2_propose(t: ShardedWalkTables, stats, lanes, cur, prev, hop: int,
-                  rnd: int, seed: int, base: int, inv_q: float,
-                  out: torch.Tensor) -> torch.Tensor:
-    """K18's proposal stage, this rank's share: for each pending lane
-    (``lanes``, sorted int64) that does not take the backtrack edge and
-    whose current row the rank owns, the uniform proposal ``x`` and its
-    weight ``w`` of round ``rnd`` into ``out`` ((2, len(lanes)) int32);
-    0 elsewhere.  On CUDA this launches K18; on the CPU it runs
+                  r0: int, chunk: int, tries: int, seed: int, base: int,
+                  inv_q: float, out: torch.Tensor) -> torch.Tensor:
+    """K18's proposal stage of a chunk, this rank's share: for each cross
+    lane of ``lanes`` (int32, ascending) whose current row the slice owns
+    and each round of the chunk below ``tries`` that does not take the
+    backtrack edge, the uniform proposal ``x`` and its weight ``w`` into
+    ``out`` ((2, len(lanes)·chunk) int32, lane-major); 0 elsewhere.  On
+    CUDA this launches K18; on the CPU it runs
     :func:`walk2_propose_plain`."""
     if cur.is_cuda:
         return kernels.walk2_propose(t.indptr, t.cols, t.vals, stats, lanes,
-                                     cur, prev, hop, rnd, seed, base, t.n,
-                                     t.row_lo, inv_q, out)
+                                     cur, prev, hop, r0, chunk, tries, seed,
+                                     base, t.n, t.row_lo, inv_q, out)
     out.copy_(walk2_propose_plain(t.indptr, t.cols, t.vals, stats, lanes,
-                                  cur, prev, hop, rnd, seed, base, t.n,
-                                  t.row_lo, inv_q))
+                                  cur, prev, hop, r0, chunk, tries, seed,
+                                  base, t.n, t.row_lo, inv_q))
     return out
 
 
 def walk2_propose_plain(indptr, cols, vals, stats, lanes, cur, prev,
-                        hop: int, rnd: int, seed: int, base: int, n: int,
-                        row_lo: int, inv_q: float) -> torch.Tensor:
+                        hop: int, r0: int, chunk: int, tries: int, seed: int,
+                        base: int, n: int, row_lo: int,
+                        inv_q: float) -> torch.Tensor:
     """Plain PyTorch version of K18's proposal stage."""
-    u1, _, d, _, is_bt, _, _ = _round_terms(stats, lanes, prev, hop, rnd,
-                                            seed, base, n, inv_q)
-    _, owned, at = _owned(cur[lanes], row_lo, indptr.shape[0], n)
-    draw = owned & ~is_bt
-    j = torch.minimum((u1 * d.to(torch.float32)).to(torch.int32), d - 1)
-    e = (indptr[at].long() + j.clamp_min(0).long()).clamp(
+    c = _chunk_terms(stats, lanes, prev, hop, r0, chunk, tries, seed, base,
+                     n, inv_q)
+    _, owned, at = _owned(cur[lanes.long()], row_lo, indptr.shape[0], n)
+    draw = owned[:, None] & c["active"] & ~c["is_bt"]
+    e = _proposal(indptr, c["d"][:, None], at[:, None], c["u1"]).clamp(
         0, max(cols.shape[0] - 1, 0))
-    zero = torch.zeros_like(d)
-    return torch.stack([torch.where(draw, cols[e], zero),
-                        torch.where(draw, _bits(vals[e]), zero)])
+    zero = torch.zeros((), dtype=torch.int32, device=cur.device)
+    return torch.stack([torch.where(draw, cols[e], zero).reshape(-1),
+                        torch.where(draw, _bits(vals[e]), zero).reshape(-1)])
 
 
 def walk2_member(t: ShardedWalkTables, stats, lanes, prop, prev, hop: int,
-                 rnd: int, tries: int, seed: int, base: int, inv_q: float,
-                 out: torch.Tensor) -> torch.Tensor:
-    """K18's membership stage, this rank's share: for each pending lane
-    that tests its proposal (not the first hop, not the backtrack edge,
-    not the forced last round, ``x ≠ prev``) and whose previous row the
-    rank owns, 1 when the summed proposal ``x`` (``prop``) is a neighbour
-    of ``prev``, into ``out`` ((len(lanes),) int32); 0 elsewhere.  On CUDA
-    this launches K18; on the CPU it runs :func:`walk2_member_plain`."""
+                 r0: int, chunk: int, tries: int, seed: int, base: int,
+                 inv_q: float, out: torch.Tensor) -> torch.Tensor:
+    """K18's membership stage of a chunk, this rank's share: for each
+    cross lane whose previous row the slice owns, bit j of ``out[i]``
+    ((len(lanes),) int32) is 1 when round ``r0 + j`` tests its summed
+    proposal (``prop``: not the backtrack edge, not ``prev``, not the last
+    round) and finds it in ``prev``'s row; 0 elsewhere.  On CUDA this
+    launches K18; on the CPU it runs :func:`walk2_member_plain`."""
     if prop.is_cuda:
         return kernels.walk2_member(t.indptr, t.cols, t.deg, stats, lanes,
-                                    prop, prev, hop, rnd, tries, seed, base,
-                                    t.n, t.row_lo, inv_q, out)
+                                    prop, prev, hop, r0, chunk, tries, seed,
+                                    base, t.n, t.row_lo, inv_q, out)
     out.copy_(walk2_member_plain(t.indptr, t.cols, t.deg, stats, lanes, prop,
-                                 prev, hop, rnd, tries, seed, base, t.n,
-                                 t.row_lo, inv_q))
+                                 prev, hop, r0, chunk, tries, seed, base,
+                                 t.n, t.row_lo, inv_q))
     return out
 
 
-def walk2_member_plain(indptr, cols, deg, stats, lanes, prop, prev, hop: int,
-                       rnd: int, tries: int, seed: int, base: int, n: int,
-                       row_lo: int, inv_q: float) -> torch.Tensor:
+def walk2_member_plain(indptr, cols, deg, stats, lanes, prop, prev,
+                       hop: int, r0: int, chunk: int, tries: int, seed: int,
+                       base: int, n: int, row_lo: int,
+                       inv_q: float) -> torch.Tensor:
     """Plain PyTorch version of K18's membership stage."""
-    _, _, _, first, is_bt, _, p = _round_terms(stats, lanes, prev, hop, rnd,
-                                               seed, base, n, inv_q)
-    x = prop[0]
-    _, owned, at = _owned(p, row_lo, indptr.shape[0], n)
-    test = owned & ~first & ~is_bt & (x != p) & (rnd < tries - 1)
-    found, _ = _row_search(indptr, cols, deg, at, x.long())
-    return (test & found).to(torch.int32)
+    c = _chunk_terms(stats, lanes, prev, hop, r0, chunk, tries, seed, base,
+                     n, inv_q)
+    count = lanes.shape[0]
+    x = prop[0].reshape(count, chunk)
+    _, owned, at = _owned(c["p"], row_lo, indptr.shape[0], n)
+    test = (owned[:, None] & ~c["is_bt"] & (x != c["p"][:, None])
+            & (c["rnd"] < tries - 1))
+    found, _ = _row_search(indptr, cols, deg,
+                           at[:, None].expand(count, chunk).reshape(-1),
+                           x.reshape(-1).long())
+    hit = test & found.reshape(count, chunk)
+    word = (hit.long() << torch.arange(chunk, device=prop.device)).sum(1)
+    # bit 31 set: the int32 of the same bits
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(
+        torch.int32)
 
 
-def walk2_decide(stats, lanes, prop, member, prev, hop: int, rnd: int,
-                 tries: int, seed: int, base: int, n: int, inv_q: float,
-                 nxt: torch.Tensor) -> torch.Tensor:
-    """K18's decision stage, the same on every rank: each pending lane
-    takes ``prev`` (backtrack), its proposal (first hop, last round, or
-    accepted with ``(w·α) / cap``, α = 0 for ``x == prev``, 1 for a common
-    neighbour, ``inv_q`` otherwise) or rejects, in K12's order.  Writes the
-    taken nodes into ``nxt`` and returns the lanes still pending.  On CUDA
-    the decision is K18's; on the CPU :func:`walk2_decide_plain`'s."""
+def walk2_decide(stats, lanes, prop, member, prev, hop: int, r0: int,
+                 chunk: int, tries: int, seed: int, base: int, n: int,
+                 inv_q: float, nxt: torch.Tensor) -> torch.Tensor:
+    """K18's decision stage of a chunk, the same on every rank: each
+    cross lane takes the first round of the chunk that hits, in K12's
+    order (``prev`` on a backtrack, else its proposal on the last round or
+    when accepted with ``(w·α) / cap``, α = 0 for ``x == prev``, 1 for a
+    common neighbour, ``inv_q`` otherwise), written into ``nxt``.  Returns
+    the bool mask of the lanes still pending.  On CUDA the decision is
+    K18's; on the CPU :func:`walk2_decide_plain`'s."""
     if stats.is_cuda:
-        still = kernels.walk2_decide(stats, lanes, prop, member, prev, hop,
-                                     rnd, tries, seed, base, n, inv_q, nxt)
-    else:
-        still = walk2_decide_plain(stats, lanes, prop, member, prev, hop,
-                                   rnd, tries, seed, base, n, inv_q, nxt)
-    return lanes[still]
+        return kernels.walk2_decide(stats, lanes, prop, member, prev, hop,
+                                    r0, chunk, tries, seed, base, n, inv_q,
+                                    nxt)
+    return walk2_decide_plain(stats, lanes, prop, member, prev, hop, r0,
+                              chunk, tries, seed, base, n, inv_q, nxt)
 
 
-def walk2_decide_plain(stats, lanes, prop, member, prev, hop: int, rnd: int,
-                       tries: int, seed: int, base: int, n: int,
+def walk2_decide_plain(stats, lanes, prop, member, prev, hop: int, r0: int,
+                       chunk: int, tries: int, seed: int, base: int, n: int,
                        inv_q: float, nxt: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K18's decision stage: writes ``nxt`` and
     returns the bool mask of the lanes still pending."""
-    f32 = torch.float32
-    _, u2, _, first, is_bt, cap, p = _round_terms(stats, lanes, prev, hop,
-                                                  rnd, seed, base, n, inv_q)
-    x, w = prop[0], _floats(prop[1])
-    zero, one, inv_q_t = torch.tensor([0.0, 1.0, inv_q], dtype=f32,
-                                      device=stats.device)
-    alpha = torch.where(x == p, zero, torch.where(member != 0, one, inv_q_t))
-    p_acc = (w * alpha) / cap
-    take_x = first | (rnd == tries - 1) | (u2 < p_acc)
-    hit = is_bt | take_x
-    nxt[lanes[hit]] = torch.where(is_bt, p, x)[hit]
-    return ~hit
+    c = _chunk_terms(stats, lanes, prev, hop, r0, chunk, tries, seed, base,
+                     n, inv_q)
+    count = lanes.shape[0]
+    x = prop[0].reshape(count, chunk)
+    w = _floats(prop[1]).reshape(count, chunk)
+    zero, one, inv_q_t = _f32(0.0, 1.0, inv_q, device=prop.device)
+    bit = (member.long()[:, None]
+           >> torch.arange(chunk, device=prop.device)) & 1
+    p = c["p"][:, None]
+    alpha = torch.where(x == p, zero, torch.where(bit == 1, one, inv_q_t))
+    take_x = (c["first"][:, None] | (c["rnd"] == tries - 1)
+              | (c["u2"] < (w * alpha) / c["cap"][:, None]))
+    hit = c["active"] & (c["is_bt"] | take_x)
+    done = hit.any(1)
+    j = hit.to(torch.int32).argmax(1, keepdim=True)  # the first hit
+    take = torch.where(c["is_bt"].gather(1, j), p, x.gather(1, j))[:, 0]
+    nxt[lanes.long()[done]] = take[done]
+    return ~done
+
+
+def _compact(mask: torch.Tensor, lanes=None) -> torch.Tensor:
+    """The lanes where ``mask`` holds (``lanes``, else their positions), in
+    order, as int32, computed on the device; the count is the one host
+    read."""
+    m = mask.shape[0]
+    pos = torch.cumsum(mask, 0, dtype=torch.int32)
+    count = int(pos[-1]) if m else 0
+    src = lanes if lanes is not None else torch.arange(
+        m, dtype=torch.int32, device=mask.device)
+    out = torch.empty((m + 1,), dtype=torch.int32, device=mask.device)
+    out.scatter_(0, torch.where(mask, pos - 1, m).long(), src)
+    return out[:count]
 
 
 def walk_p_q_sharded(slices, starts: torch.Tensor, walk_length: int,
@@ -768,47 +846,74 @@ def walk_p_q_sharded(slices, starts: torch.Tensor, walk_length: int,
     tables, bitwise :func:`walk_p_q`'s at any batch size.  ``slices`` and
     ``group`` as for :func:`walk_uniform_sharded`.
 
-    Per hop the owner of each lane's current row supplies its degree,
-    ``wmax``, ``wsum`` and backtrack weight (one collective); per rejection
-    round the owner of ``cur`` draws the proposal and the owner of ``prev``
-    answers the common-neighbour test (two collectives), and every rank
-    takes the same decision.  Deadlock hazard: every rank must run the same
-    collectives.  The pending lanes are derived only from summed values,
-    so every rank holds the same set, and the host check that ends the
-    round loop (no lane pending, or ``tries`` rounds) takes the same
-    branch everywhere."""
+    A slice that holds every row (one rank) runs each hop in one launch of
+    K18's local stage.  Otherwise each hop's local stage resolves the lanes
+    whose current and previous rows are on one slice (and first hops, dead
+    rows and rows of degree 0) on that slice, and hands the degree,
+    ``wmax`` and backtrack weight of the others, the cross lanes, to every
+    rank in the same all-reduce.  The cross lanes then run their rejection
+    rounds in chunks of :data:`WALK2_CHUNK`: the owner of ``cur`` proposes
+    the chunk's rounds (one all-reduce), the owner of ``prev`` answers the
+    common-neighbour tests (one all-reduce), and every rank takes the same
+    decisions.  Deadlock hazard: every rank must run the same collectives.
+    The cross lanes are derived only from summed values and compacted on
+    the device in lane order, so every rank holds the same lanes, and the
+    one host read between chunks, their count, takes the same branch
+    everywhere."""
     dev = starts.device
     b = starts.shape[0]
     n = slices[0].n
+    whole = slices[0].world == 1
     walks = torch.empty((walk_length, b), dtype=torch.int32, device=dev)
     walks[0] = starts
     prev = torch.full_like(walks[0], n)
-    stats = torch.empty((4, b), dtype=torch.int32, device=dev)
+    buf = None if whole else torch.empty((4, b), dtype=torch.int32,
+                                         device=dev)
     for hop in range(walk_length - 1):
         cur, nxt = walks[hop], walks[hop + 1]
-        nxt.fill_(n)
-        _summed(slices, group,
-                lambda t, out: walk2_stats(t, cur, prev, inv_p, out), stats)
-        lanes = walk2_pending(stats, inv_q)
-        for rnd in range(tries):
-            if lanes.numel() == 0:
-                break
-            prop = _summed(
-                slices, group,
-                lambda t, out: walk2_propose(t, stats, lanes, cur, prev, hop,
-                                             rnd, seed, base, inv_q, out),
-                torch.empty((2, lanes.numel()), dtype=torch.int32,
-                            device=dev))
-            member = _summed(
-                slices, group,
-                lambda t, out: walk2_member(t, stats, lanes, prop, prev, hop,
-                                            rnd, tries, seed, base, inv_q,
-                                            out),
-                torch.empty((lanes.numel(),), dtype=torch.int32, device=dev))
-            lanes = walk2_decide(stats, lanes, prop, member, prev, hop, rnd,
-                                 tries, seed, base, n, inv_q, nxt)
+        if whole:
+            walk2_local(slices[0], cur, prev, hop, seed, base, inv_p, inv_q,
+                        tries, nxt)
+        else:
+            _summed(slices, group,
+                    lambda t, out: walk2_local(t, cur, prev, hop, seed, base,
+                                               inv_p, inv_q, tries, out),
+                    buf)
+            _cross_rounds(slices, group, buf, cur, prev, nxt, hop, inv_q,
+                          tries, seed, base)
         prev = cur
     return walks.T.contiguous()
+
+
+def _cross_rounds(slices, group, buf, cur, prev, nxt, hop: int, inv_q: float,
+                  tries: int, seed: int, base: int) -> None:
+    """The rest of a hop after the summed local stage ``buf``: the resolved
+    lanes' nodes, the sentinel for lanes at it (decided on every rank
+    alone, never summed), and the cross lanes' rounds, chunk by chunk."""
+    n, chunk = slices[0].n, WALK2_CHUNK
+    valid = (cur >= 0) & (cur < n)
+    nxt.copy_(torch.where(valid, buf[0] - 1, n))
+    stats = buf[1:]
+    lanes = _compact(valid & (buf[0] == 0))
+    for r0 in range(0, tries, chunk):
+        if lanes.numel() == 0:
+            break
+        count = lanes.shape[0]
+        prop = _summed(
+            slices, group,
+            lambda t, out: walk2_propose(t, stats, lanes, cur, prev, hop, r0,
+                                         chunk, tries, seed, base, inv_q,
+                                         out),
+            torch.empty((2, count * chunk), dtype=torch.int32,
+                        device=cur.device))
+        member = _summed(
+            slices, group,
+            lambda t, out: walk2_member(t, stats, lanes, prop, prev, hop, r0,
+                                        chunk, tries, seed, base, inv_q, out),
+            torch.empty((count,), dtype=torch.int32, device=cur.device))
+        still = walk2_decide(stats, lanes, prop, member, prev, hop, r0, chunk,
+                             tries, seed, base, n, inv_q, nxt)
+        lanes = _compact(still, lanes)
 
 
 def _lane_blocks(launch, n: int, group):

@@ -16,11 +16,14 @@ but where JAX's two largest values lie within 1e-6; one MLP or GCN step
 from the same weights atol=1e-5 (float32 products and gradients in another
 order); accuracy after 30 epochs within 2/test_size (MLP) or 0.03 (GCN at
 dropout 0) of the JAX package's, and no more than 0.05 below it at dropout
-0.5, where the masks are another stream (Philox, not jax.random).
+0.5, where the masks are another stream (Philox, not jax.random); K15's
+plain pair bitwise the JAX formula on one keep mask.
 """
 
 import importlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,7 +34,14 @@ import cleora_tpu.datasets as jds
 import cleora_tpu_torch as ctt
 import cleora_tpu_torch.classify as tcl
 import cleora_tpu_torch.datasets as tds
-from cleora_tpu_torch.ops.gcn import CsrSpmm, dropout_uniforms, relu_dropout
+from cleora_tpu_torch.ops.gcn import (
+    CsrSpmm,
+    ReluDropout,
+    dropout_uniforms,
+    relu_dropout,
+    relu_dropout_backward_plain,
+    relu_dropout_plain,
+)
 from cleora_tpu_torch.ops.label_prop import label_prop_step_plain
 from cleora_tpu_torch.ops.spmm import CsrMatrix
 
@@ -293,7 +303,7 @@ def test_gcn_accuracy_at_dropout_half_is_no_worse_than_jax(cora):
 def test_dropout_mask_keeps_half_and_depends_on_seed_epoch_layer_only():
     n, width = 2708, 64
     z = torch.ones((n, width))
-    h = relu_dropout(z, 0.5, 42, 3, 0)
+    h = relu_dropout(z, 0.5, 42, 3, 0)[0]
     keep = h != 0
     frac = float(keep.float().mean())
     assert abs(frac - 0.5) <= 4 * np.sqrt(0.25 / keep.numel())
@@ -301,17 +311,69 @@ def test_dropout_mask_keeps_half_and_depends_on_seed_epoch_layer_only():
     # the same draw for other positive values, another row count, and again
     z2 = torch.from_numpy(np.random.default_rng(0).random((n, width))
                           .astype(np.float32) + 0.5)
-    assert torch.equal(relu_dropout(z2, 0.5, 42, 3, 0) != 0, keep)
-    assert torch.equal(relu_dropout(z[:100], 0.5, 42, 3, 0) != 0, keep[:100])
+    assert torch.equal(relu_dropout(z2, 0.5, 42, 3, 0)[0] != 0, keep)
+    assert torch.equal(relu_dropout(z[:100], 0.5, 42, 3, 0)[0] != 0,
+                       keep[:100])
     u = dropout_uniforms(n * width, 3, 0, 42, CPU)
     assert torch.equal(u, dropout_uniforms(n * width, 3, 0, 42, CPU))
     for other in ((43, 3, 0), (42, 4, 0), (42, 3, 1)):
         seed, epoch, layer = other
-        assert not torch.equal(relu_dropout(z, 0.5, seed, epoch, layer) != 0,
-                               keep), other
+        assert not torch.equal(
+            relu_dropout(z, 0.5, seed, epoch, layer)[0] != 0, keep), other
     # p = 0 draws nothing: ReLU alone
     zr = torch.randn((50, 7), generator=torch.Generator().manual_seed(1))
-    assert torch.equal(relu_dropout(zr, 0.0, 42, 0, 0), torch.relu(zr))
+    assert torch.equal(relu_dropout(zr, 0.0, 42, 0, 0)[0], torch.relu(zr))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (33, 7), (517, 3), (300, 64)])
+@pytest.mark.parametrize("p", [0.0, 0.3, 0.5])
+def test_k15_plain_pair_is_the_jax_formula(shape, p):
+    """K15's plain forward and backward, bitwise the JAX package's hidden
+    tail ``where(keep, relu(z)/(1−p), 0)`` and its ``jax.vjp`` on the same
+    keep mask, and the packed bits are ``keep and z > 0`` at bit e % 32 of
+    word e // 32 (0 past the last element)."""
+    rng = np.random.default_rng(shape[0])
+    z = rng.standard_normal(shape).astype(np.float32)
+    z[0, 0] = 0.0  # ReLU's gradient at 0 is 0
+    dh = rng.standard_normal(shape).astype(np.float32)
+    seed, epoch, layer = 2**40 + 3, 7, 1
+    keep = (dropout_uniforms(z.size, epoch, layer, seed, CPU).numpy()
+            >= np.float32(p)).reshape(shape)
+    h_jax, vjp = jax.vjp(
+        lambda x: jnp.where(keep, jax.nn.relu(x) / (1 - p), 0.0),
+        jnp.asarray(z))
+    h, mask = relu_dropout_plain(torch.from_numpy(z), p, seed, epoch, layer)
+    assert np.array_equal(h.numpy(), np.asarray(h_jax))
+    dz = relu_dropout_backward_plain(mask, torch.from_numpy(dh), p)
+    assert np.array_equal(dz.numpy(), np.asarray(vjp(jnp.asarray(dh))[0]))
+    words = mask.numpy().view(np.uint32)
+    assert words.shape == ((z.size + 31) // 32,)
+    bits = (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    want = np.zeros(words.size * 32, bool)
+    want[:z.size] = (keep & (z > 0)).reshape(-1)
+    assert np.array_equal(bits.reshape(-1).astype(bool), want)
+
+
+def test_relu_dropout_saves_no_float_tensor_of_z():
+    """The GCN's hidden layer keeps only the packed bits for its backward
+    (int32, 1 bit an element), and its gradient is the plain backward's."""
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn((300, 64), generator=gen, requires_grad=True)
+    dh = torch.randn((300, 64), generator=gen)
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        h = ReluDropout.apply(z, 0.5, 42, 3, 0)
+    assert [(t.dtype, tuple(t.shape)) for t in saved] == [
+        (torch.int32, (300 * 64 // 32,))]
+    h.backward(dh)
+    h_plain, mask = relu_dropout_plain(z.detach(), 0.5, 42, 3, 0)
+    assert torch.equal(h.detach(), h_plain)
+    assert torch.equal(z.grad, relu_dropout_backward_plain(mask, dh, 0.5))
 
 
 def test_csr_spmm_backward_is_the_transpose(cora):

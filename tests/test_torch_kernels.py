@@ -23,11 +23,13 @@ words and the same round-to-nearest float32 operations in the same order);
 K13 bitwise (the same float32 adds in the same order); K14 rtol=1e-5,
 atol=1e-6 with clamped rows bitwise (the tail rounded like the plain
 version's, the row sum in another order than the plain version's atomics:
-about 7e-6 relative on a row of 5,000 edges); K15 bitwise (the same Philox
-words, comparisons and true divisions); the GCN SpMM's backward (K1 over
+about 7e-6 relative on a row of 5,000 edges); K15 bitwise, its packed
+bits too (the same Philox words, comparisons and true divisions); the GCN SpMM's backward (K1 over
 Âᵀ) rtol=1e-5, atol=1e-6, as K1; K16 bitwise (a copy); K1 with a
 separate residual operand as K1; K17 and K18 bitwise (K8's and K12's
-arithmetic on each rank's rows; one nonzero term per summed lane); K19
+arithmetic on each rank's rows, K18's hop through K12's own device code;
+one nonzero term per summed lane), K18's stages bitwise their plain
+versions; K19
 rtol=1e-5, atol=1e-6 in float32 and bfloat16 (exact bf16→float32 loads;
 the row sum in another order than the plain version's atomics), and
 bitwise K1 over a round that holds every edge (K1's loop, in K1's order);
@@ -1083,22 +1085,33 @@ def test_k14_matches_plain(cuda_device, c, alpha):
 @pytest.mark.parametrize("p", [0.0, 0.5, 0.3])
 @cuda
 def test_k15_forward_and_backward_bitwise(cuda_device, shape, p):
+    """h, the packed bits and dz bitwise the plain versions' (odd shapes
+    take the tail group's scalar path; (1001, 64) spans many tiles)."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     z = torch.randn(shape, device=cuda_device, generator=gen)
     z[0, 0] = 0.0  # ReLU's gradient at 0 is 0
     dh = torch.randn(shape, device=cuda_device, generator=gen)
     before = kernels.LAUNCHES["relu_dropout"]
+    before_bwd = kernels.LAUNCHES["relu_dropout_backward"]
     for epoch, layer, seed in ((0, 0, 42), (7, 1, 2**40 + 3), (199, 2, -1)):
-        h = relu_dropout(z, p, seed, epoch, layer)
-        dz = relu_dropout_backward(z, dh, p, seed, epoch, layer)
+        h, mask = relu_dropout(z, p, seed, epoch, layer)
+        dz = relu_dropout_backward(mask, dh, p)
         torch.cuda.synchronize()
-        assert torch.equal(h, relu_dropout_plain(z, p, seed, epoch, layer))
-        assert torch.equal(
-            dz, relu_dropout_backward_plain(z, dh, p, seed, epoch, layer))
-        # the same mask as on the CPU, whatever the device
-        assert torch.equal(
-            h.cpu(), relu_dropout_plain(z.cpu(), p, seed, epoch, layer))
-    assert kernels.LAUNCHES["relu_dropout"] == before + 6
+        h_plain, mask_plain = relu_dropout_plain(z, p, seed, epoch, layer)
+        assert torch.equal(h, h_plain) and torch.equal(mask, mask_plain)
+        assert torch.equal(dz, relu_dropout_backward_plain(mask, dh, p))
+        # the same bits as on the CPU, whatever the device
+        h_cpu, mask_cpu = relu_dropout_plain(z.cpu(), p, seed, epoch, layer)
+        assert torch.equal(h.cpu(), h_cpu)
+        assert torch.equal(mask.cpu(), mask_cpu)
+    assert kernels.LAUNCHES["relu_dropout"] == before + 3
+    assert kernels.LAUNCHES["relu_dropout_backward"] == before_bwd + 3
+    # the vector loads need 16-byte boundaries: the wrappers refuse others
+    off = torch.empty(z.numel() + 1, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.relu_dropout(off, p, 0, 0, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.relu_dropout_backward(mask, off.view(shape), p)
 
 
 @cuda
@@ -1145,8 +1158,14 @@ def test_k14_and_k15_wrappers_reject_bad_operands():
         kernels.relu_dropout(z, 0.5, 0, -1, 0)
     with pytest.raises(ValueError, match="float32"):
         kernels.relu_dropout(z.double(), 0.5, 0, 0, 0)
-    with pytest.raises(ValueError, match="one shape"):
-        kernels.relu_dropout_backward(z, z[:2], 0.5, 0, 0, 0)
+    mask = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.relu_dropout_backward(mask, z, 0.5)
+    with pytest.raises(ValueError, match="int32 words"):
+        kernels.relu_dropout_backward(torch.zeros(2, dtype=torch.int32), z,
+                                      0.5)
+    with pytest.raises(ValueError, match="int32 words"):
+        kernels.relu_dropout_backward(mask.long(), z, 0.5)
     assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
@@ -1346,9 +1365,10 @@ def test_k17_matches_k8_and_plain(cuda_device, world, seed, base):
 @pytest.mark.parametrize("world", [1, 2, 3])
 @pytest.mark.parametrize("p,q", [(0.5, 2.0), (4.0, 0.25), (1.0, 100.0)])
 def test_k18_matches_k12_and_plain(cuda_device, world, p, q):
-    """The owner-routed p/q walk (K18's five stages) over ``world`` rank
-    slices, their shares summed in this process: bitwise K12's walks and
-    the plain stages' on the CPU."""
+    """The owner-routed p/q walk (K18's local stage and, past one slice,
+    its chunked cross-owner rounds) over ``world`` rank slices, their
+    shares summed in this process: bitwise K12's walks and the plain
+    stages' on the CPU.  One slice launches one local stage a hop."""
     n = 4000
     arrays = weighted_walk_csr(n, 2)
     t = WalkTables2(*arrays[:3], n, *arrays[3:], cuda_device)
@@ -1361,7 +1381,8 @@ def test_k18_matches_k12_and_plain(cuda_device, world, p, q):
     before = kernels.LAUNCHES["walk2_owned"]
     got = walk_p_q_sharded(slices, starts.to(cuda_device), *args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["walk2_owned"] > before
+    launches = kernels.LAUNCHES["walk2_owned"] - before
+    assert launches == 9 if world == 1 else launches > 9 * world
     assert torch.equal(got, kernels.walk_p_q(
         t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
         starts.to(cuda_device), *args, n))
@@ -1370,11 +1391,78 @@ def test_k18_matches_k12_and_plain(cuda_device, world, p, q):
     assert torch.equal(got.cpu(), walk_p_q_sharded(cpu, starts, *args))
 
 
+@cuda
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+def test_k18_stages_match_plain(cuda_device, chunk):
+    """K18's four stages one by one against their plain versions on the
+    same inputs, at hop 3 of walks over 2 slices with 13 tries (the chunk
+    from round 8 holds the forced last round)."""
+    from cleora_tpu_torch.ops import walk as walk_ops
+
+    n = 4000
+    arrays = weighted_walk_csr(n, 4)
+    slices = [ShardedWalkTables(*arrays[:3], n, r, 2, cuda_device,
+                                *arrays[3:]) for r in range(2)]
+    starts = torch.randint(0, n, (3000,), dtype=torch.int32,
+                           device=cuda_device)
+    inv_p, inv_q, tries, seed, base = 2.0, 0.01, 13, 9, 11
+    walks = walk_p_q_sharded(slices, starts, 5, inv_p, inv_q, tries, seed,
+                             base)
+    prev, cur = walks[:, 2].contiguous(), walks[:, 3].contiguous()
+    buf = torch.zeros((4, starts.shape[0]), dtype=torch.int32,
+                      device=cuda_device)
+    for t in slices:
+        out = torch.empty_like(buf)
+        got = kernels.walk2_local(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                  t.wsum, cur, prev, 3, seed, base, n,
+                                  t.row_lo, inv_p, inv_q, tries, out)
+        assert torch.equal(got, walk_ops.walk2_local_plain(
+            t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, cur, prev, 3,
+            seed, base, n, t.row_lo, inv_p, inv_q, tries))
+        buf += got
+    stats = buf[1:]
+    lanes = torch.nonzero((buf[0] == 0) & (cur < n)).squeeze(1).int()
+    assert lanes.numel() > 100
+    for r0 in (0, 8):
+        r0 -= r0 % chunk
+        count = lanes.shape[0]
+        prop = torch.zeros((2, count * chunk), dtype=torch.int32,
+                           device=cuda_device)
+        member = torch.zeros((count,), dtype=torch.int32, device=cuda_device)
+        for t in slices:
+            got = kernels.walk2_propose(
+                t.indptr, t.cols, t.vals, stats, lanes, cur, prev, 3, r0,
+                chunk, tries, seed, base, n, t.row_lo, inv_q,
+                torch.empty_like(prop))
+            assert torch.equal(got, walk_ops.walk2_propose_plain(
+                t.indptr, t.cols, t.vals, stats, lanes, cur, prev, 3, r0,
+                chunk, tries, seed, base, n, t.row_lo, inv_q))
+            prop += got
+        for t in slices:
+            got = kernels.walk2_member(
+                t.indptr, t.cols, t.deg, stats, lanes, prop, prev, 3, r0,
+                chunk, tries, seed, base, n, t.row_lo, inv_q,
+                torch.empty_like(member))
+            assert torch.equal(got, walk_ops.walk2_member_plain(
+                t.indptr, t.cols, t.deg, stats, lanes, prop, prev, 3, r0,
+                chunk, tries, seed, base, n, t.row_lo, inv_q))
+            member += got
+        nxt = torch.full_like(cur, -7)
+        nxt_plain = nxt.clone()
+        still = kernels.walk2_decide(stats, lanes, prop, member, prev, 3, r0,
+                                     chunk, tries, seed, base, n, inv_q, nxt)
+        assert torch.equal(still, walk_ops.walk2_decide_plain(
+            stats, lanes, prop, member, prev, 3, r0, chunk, tries, seed,
+            base, n, inv_q, nxt_plain))
+        assert torch.equal(nxt, nxt_plain)
+
+
 def test_k17_and_k18_wrappers_reject_bad_operands():
     n = 50
     arrays = weighted_walk_csr(n, 3, hub_degree=10)
     t = ShardedWalkTables(*arrays[:3], n, 0, 2, "cpu", *arrays[3:])
     cur = torch.zeros(7, dtype=torch.int32)
+    tables = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum)
     kernels.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.walk_owned(t.indptr, t.cols, t.deg, cur, 0, 0, 0, n, 0, True,
@@ -1383,17 +1471,30 @@ def test_k17_and_k18_wrappers_reject_bad_operands():
         kernels.walk_owned(t.indptr, t.cols, t.deg, cur.long(), 0, 0, 0, n,
                            0, True, torch.empty_like(cur))
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.walk2_stats(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-                            cur, cur, n, 0, 1.0,
+        kernels.walk2_local(*tables, cur, cur, 0, 0, 0, n, 0, 1.0, 1.0, 64,
                             torch.empty((4, 7), dtype=torch.int32))
     with pytest.raises(ValueError, match="4 x 7"):
-        kernels.walk2_stats(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-                            cur, cur, n, 0, 1.0,
+        kernels.walk2_local(*tables, cur, cur, 0, 0, 0, n, 0, 1.0, 1.0, 64,
                             torch.empty((3, 7), dtype=torch.int32))
-    with pytest.raises(ValueError, match="int64"):
-        kernels.walk2_decide(torch.zeros((4, 7), dtype=torch.int32),
-                             torch.zeros(2, dtype=torch.int32),
-                             torch.zeros((2, 2), dtype=torch.int32),
-                             torch.zeros(2, dtype=torch.int32), cur, 0, 0, 4,
-                             0, 0, n, 1.0, torch.empty_like(cur))
+    # a (B,) out only for a slice that holds every row
+    with pytest.raises(ValueError, match="every row"):
+        kernels.walk2_local(*tables, cur, cur, 0, 0, 0, n, 0, 1.0, 1.0, 64,
+                            torch.empty(7, dtype=torch.int32))
+    stats = torch.zeros((3, 7), dtype=torch.int32)
+    lanes = torch.zeros(2, dtype=torch.int32)
+    prop = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.walk2_decide(stats, lanes.long(), prop, lanes, cur, 0, 0, 8,
+                             64, 0, 0, n, 1.0, torch.empty_like(cur))
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.walk2_decide(stats, lanes, prop, lanes, cur, 0, 0, 6, 64, 0,
+                             0, n, 1.0, torch.empty_like(cur))
+    with pytest.raises(ValueError, match="below tries"):
+        kernels.walk2_member(t.indptr, t.cols, t.deg, stats, lanes, prop,
+                             cur, 0, 64, 8, 64, 0, 0, n, 0, 1.0,
+                             torch.empty(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="2 x 16"):
+        kernels.walk2_propose(t.indptr, t.cols, t.vals, stats, lanes, cur,
+                              cur, 0, 0, 8, 64, 0, 0, n, 0, 1.0,
+                              torch.empty((2, 8), dtype=torch.int32))
     assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)

@@ -197,6 +197,104 @@ def test_owned_p_q_hops_above_4096_lanes():
                              starts, *args, n))
 
 
+def _stage_log(monkeypatch):
+    """Wraps K18's stages and the lane compaction (the one host read a
+    chunk) in ops/walk.py, logging their calls in order."""
+    log = []
+    for name in ("walk2_local", "walk2_propose", "walk2_member",
+                 "walk2_decide", "_compact"):
+        real = getattr(twalk, name)
+
+        def logged(*args, _real=real, _name=name, **kwargs):
+            log.append(_name)
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(twalk, name, logged)
+    return log
+
+
+def _p_q_case(n, seed, world, length, pq, tries=None):
+    arrays = _weighted(n, seed)
+    t = twalk.WalkTables2(*arrays[:3], n, *arrays[3:], CPU)
+    slices = [twalk.ShardedWalkTables(*arrays[:3], n, r, world, CPU,
+                                      *arrays[3:]) for r in range(world)]
+    starts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, n + 1, 400).astype(np.int32))
+    starts[:4] = torch.tensor([1, 2, n - 1, n], dtype=torch.int32)
+    args = (length, float(np.float32(1 / pq[0])),
+            float(np.float32(1 / pq[1])),
+            tries or twalk.walk2_tries(pq[1]), 2**40 + 9, 17)
+    want = twalk.walk_p_q_plain(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                t.wsum, starts, *args, n)
+    return slices, starts, args, want
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_owned_p_q_lane_kinds_in_one_batch(world, monkeypatch):
+    """Local, cross-owner and first-hop lanes (and a hub, a dead row, an
+    isolated node, pad lanes) in one batch: each hop's summed local stage
+    resolves some lanes and hands others to the chunks, and the walks are
+    bitwise K12's plain version."""
+    n = 301
+    slices, starts, args, want = _p_q_case(n, 5, world, 6, (0.5, 2.0))
+    kinds = []
+    real = twalk._cross_rounds
+
+    def cross_rounds(slices_, group, buf, cur, *rest):
+        valid = (cur >= 0) & (cur < n)
+        kinds.append((int(((buf[0] > 0) & valid).sum()),
+                      int(((buf[0] == 0) & valid).sum())))
+        return real(slices_, group, buf, cur, *rest)
+    monkeypatch.setattr(twalk, "_cross_rounds", cross_rounds)
+    got = twalk.walk_p_q_sharded(slices, starts, *args)
+    assert torch.equal(got, want)
+    # hop 0: every live lane is a first hop, resolved by its owner
+    assert kinds[0][0] > 0 and kinds[0][1] == 0
+    assert all(local > 0 and cross > 0 for local, cross in kinds[1:]), kinds
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+@pytest.mark.parametrize("world", [2, 3])
+def test_owned_p_q_tries_run_out_inside_a_chunk(world, chunk, monkeypatch):
+    """q = 100 with 11 tries, not a multiple of the chunk: lanes reach the
+    forced last round inside a chunk, and the walks are still bitwise K12's
+    plain version.  A chunk is propose, member, decide and one compaction
+    (its one host read), with nothing else between."""
+    n = 301
+    monkeypatch.setattr(twalk, "WALK2_CHUNK", chunk)
+    slices, starts, args, want = _p_q_case(n, 6, world, 5, (1.0, 100.0),
+                                           tries=11)
+    pending = []
+    real = twalk.walk2_decide_plain
+
+    def decide(stats, lanes, prop, member, prev, hop, r0, *rest):
+        still = real(stats, lanes, prop, member, prev, hop, r0, *rest)
+        pending.append((r0, lanes.shape[0], int(still.sum())))
+        return still
+    monkeypatch.setattr(twalk, "walk2_decide_plain", decide)
+    log = _stage_log(monkeypatch)
+    assert torch.equal(twalk.walk_p_q_sharded(slices, starts, *args), want)
+    last = 11 - 1 - (11 - 1) % chunk  # the chunk holding round 10
+    assert any(r0 == last and count > 0 for r0, count, _ in pending)
+    assert all(still == 0 for r0, _, still in pending if r0 == last)
+    # per hop: the slices' local stages and a compaction, then chunks
+    hops = "".join("L" if e == "walk2_local" else
+                   "C" if e == "_compact" else e[6] for e in log)
+    body = ("L" * world + "C") + "(?:" + "p" * world + "m" * world + "dC)*"
+    import re
+    assert re.fullmatch(f"(?:{body}){{4}}", hops), hops
+
+
+def test_one_slice_hop_is_one_local_launch(monkeypatch):
+    """A slice holding every row resolves every lane itself: each hop calls
+    the local stage once and nothing else (no round stage, no host read),
+    bitwise K12's plain version."""
+    n = 301
+    slices, starts, args, want = _p_q_case(n, 7, 1, 8, (0.5, 2.0))
+    log = _stage_log(monkeypatch)
+    assert torch.equal(twalk.walk_p_q_sharded(slices, starts, *args), want)
+    assert log == ["walk2_local"] * 7
+
+
 # ---------------------------------------------------- placement and input
 def test_walk_table_mode_is_the_jax_chain(monkeypatch):
     """With the JAX package's batch sizes (the port's own differ by
@@ -335,6 +433,15 @@ for wt in ("replicated", "sharded"):
             g, n_devices=world, walk_tables=wt, factorization=fz, **kw)
         res[f"n2v_{wt}_{fz}"] = talg.embed_node2vec(
             g, mesh=mesh, walk_tables=wt, factorization=fz, **n2v, **kw)
+# K18 straight over this rank's slice: q = 100, 11 tries, chunks of 4
+from cleora_tpu_torch.ops import walk as twalk
+a = talg._walk_csr(g, with_vals=True)
+t = twalk.ShardedWalkTables(*a[:3], n, mesh.rank, world, "cpu", *a[4:])
+chunk, twalk.WALK2_CHUNK = twalk.WALK2_CHUNK, 4
+res["w2_chunked"] = twalk.walk_p_q_sharded(
+    [t], torch.arange(n + 2, dtype=torch.int32) % (n + 1), 6, 1.0,
+    float(np.float32(0.01)), 11, 3, 5, mesh).numpy()
+twalk.WALK2_CHUNK = chunk
 passes = talg._cooc_passes(g, 2, 12, 3)
 ranges, m = tco.device_pair_counts(
     lambda: talg._device_walks(g, 2, 12, 7, batch=64, resident=True,
@@ -498,6 +605,22 @@ def test_ranks_walk_the_one_card_walks(runs, one_process, world):
         for wt in ("replicated", "sharded"):
             assert np.array_equal(res["w1_" + wt], one_process["w1"]), wt
             assert np.array_equal(res["w2_" + wt], one_process["w2"]), wt
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_chunked_p_q_rounds_are_k12(runs, graph, world):
+    """Every gloo rank's K18 walks with q = 100, 11 tries and chunks of 4
+    rounds (the forced last round inside a chunk) are bitwise K12's plain
+    version in one process."""
+    a = talg._walk_csr(graph, with_vals=True)
+    n = a[3]
+    t = twalk.WalkTables2(*a[:3], n, *a[4:], CPU)
+    starts = torch.arange(n + 2, dtype=torch.int32) % (n + 1)
+    want = twalk.walk_p_q_plain(t.indptr, t.cols, t.vals, t.deg, t.wmax,
+                                t.wsum, starts, 6, 1.0,
+                                float(np.float32(0.01)), 11, 3, 5, n)
+    for res in runs[1][world]:
+        assert np.array_equal(res["w2_chunked"], want.numpy())
 
 
 @pytest.mark.parametrize("world", WORLDS)
