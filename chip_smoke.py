@@ -139,8 +139,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the sort-based merge that K10's merge form replaced), the count
    reductions and the column signs timed alone, K8-K11 against their plain
    versions at the main path's shapes and timed beside torch.sort and
-   torch.unique_consecutive, K10's merge form bitwise against its plain
-   version on partition 0's first and last chain merge and timed beside the
+   torch.unique_consecutive (K11's launch apart from its wrapper's checks
+   and host read, and its column sums beside index_add_), K10's merge
+   form bitwise against its plain version on partition 0's first and last
+   chain merge and timed beside the
    sort path it replaced (pack, torch.sort, gather, K10's sweep form), the
    rsvd apply over the 8 PPMI pieces at width 272 by K5's long-row path
    against the short-row path that served it before (K1 + 7 K5 over every
@@ -263,25 +265,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
 14. the overlapped and hierarchical halo exchanges on phase 5's graph and
    output: (a) shard 0 of plan_overlap(shard_graph(graph, 4)) (phase
    11's ShardedCoo and plan_halo): each round's slab packed by K16 from
-   its owner's rows in this process and accumulated by K19, each round
-   against spmm_acc_plain in float32 and bfloat16 (rtol=1e-5, atol=1e-6:
-   the row sum in another order than the plain version's atomics), the
-   four rounds' sum against K1 over shard 0's halo-remapped CSR on the
-   same slabs (atol=1e-5), each round timed beside torch.sparse.mm +
-   add_, and the step (3 packs, 4 rounds) timed; (b) in a one-rank NCCL
-   group, as main paths, embed_sharded(halo="overlap") (K19 40 times, K1
-   never; bitwise phase 11 (b)'s output, else by the Gram of 4,096 rows
-   within 2e-5, the log says which) and embed_sharded(halo="hier",
-   mesh=make_hier_mesh(1, 1)) (K16 80 times, bitwise phase 11 (b)); K19
-   at that main path's shape (round 0 over every edge) against plain and
-   timed; (c) K16 over shard 0's send_intra and send_cross of
-   plan_halo_hier(shard_graph(graph, 4), 2, 2), bitwise against plain
-   and timed; (d) tracing.trace() around one embed() iteration and a
-   two-iteration embed_with_attention() on phase 4's graph, in this
-   process, whose Chrome trace must name the annotate() span and hold
-   exactly the port's launches (K1 2, K3 2, the fused pass 1), each from
-   the profiler's records or, where the profiler lost it (ROADMAP §C1),
-   from its CUDA event pair;
+   its owner's rows in this process and summed by K19 in its round's
+   mode (round 0 written over every row, the middle rounds added over
+   their compact rows, the last added over every row with a residual mix
+   and l2), each round against spmm_acc_plain in float32 and bfloat16
+   (rtol=1e-5, atol=1e-6: the row sum in another order than the plain
+   version's atomics), the four rounds with l2 in the last against K1
+   with l2 fused over shard 0's halo-remapped CSR on the same slabs
+   (atol=1e-5), each round timed beside torch.sparse.mm + add_ with its
+   bound (and the old design's byte count), and the step (3 packs, 4
+   rounds) timed; (b) in a one-rank NCCL group, as main paths,
+   embed_sharded(halo="overlap") (K19 40 times, K1 and K2 never; bitwise
+   phase 11 (b)'s output, else by the Gram of 4,096 rows within 2e-5, the
+   log says which) and embed_sharded(halo="hier", mesh=make_hier_mesh(1,
+   1)) (K16 80 times, bitwise phase 11 (b)); K19 at that main path's
+   shape (one shard's step: round 0 over every edge and every row,
+   written and l2-normalised in one launch) against plain, bitwise K1 with
+   l2 fused on the same graph, and both timed; (c) K16 over shard 0's
+   send_intra and send_cross of plan_halo_hier(shard_graph(graph, 4), 2,
+   2), bitwise against plain and timed; (d) tracing.trace() around one
+   embed() iteration and a two-iteration embed_with_attention() on phase
+   4's graph, in this process, whose Chrome trace must name the
+   annotate() span and hold exactly the port's launches (K1 2, K3 2, the
+   fused pass 1), each from the profiler's records or, where the profiler
+   lost it (ROADMAP §C1), from its CUDA event pair;
    device_memory_stats()'s bytes_limit equal to mem_get_info()'s total;
    (e) plan_report on phase 5's graph ("fits" at P=1) and on phase 7's
    corpus with walks=True (the walk-table mode phase 7 chose), printed;
@@ -2445,6 +2452,26 @@ def ppmi_vs_plain(ranges, n: int, dev: torch.device, label: str):
     return col, total, err
 
 
+def k11_launch_only(cen, ctx, cnt, col, total, n: int):
+    """K11's launch apart from its wrapper's checks and its host read of
+    the flag (kernels.ppmi_into): the two passes over one range into
+    buffers allocated once, the scratch (row sums and flag) zeroed before
+    each launch, as the kernel requires."""
+    from cleora_tpu_torch import kernels
+
+    m = cen.shape[0]
+    vals = torch.empty((m,), dtype=torch.float32, device=cen.device)
+    indptr = torch.empty((n + 1,), dtype=torch.int64, device=cen.device)
+    scratch = torch.zeros((n + 1,), dtype=torch.int64, device=cen.device)
+
+    def run():
+        scratch.zero_()
+        kernels.ppmi_into(cen, ctx, cnt, col, total, n, vals, indptr,
+                          scratch)
+
+    return run
+
+
 def ring_graph(n_nodes: int, n_und_edges: int, seed: int):
     """A ring through every node plus uniformly drawn edges, as a
     SparseMatrix: connected, so that no node sits in a small component.
@@ -2624,12 +2651,26 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         f"column signs over ({n}, {DIM}) float32 {sign_ms:.3f} ms; [{card}]")
     col, total, k11_err = ppmi_vs_plain(ranges, n, dev, "phase 7 full size")
     cen, ctx, cnt, m0 = ranges[0]
-    k11_ms = time_ms(lambda: cooccur.ppmi_values(cen, ctx, cnt, col, total,
-                                                 n))
+    k11_wrapper_ms = time_ms(lambda: cooccur.ppmi_values(cen, ctx, cnt, col,
+                                                         total, n))
+    k11_ms = time_ms(k11_launch_only(cen, ctx, cnt, col, total, n))
     k11_plain_ms = time_ms(lambda: cooccur.ppmi_values_plain(
         cen, ctx, cnt, col, total, n), reps=3, warmup=1)
     k11_bytes = 12 * m0 + 8 * n + 8 + 4 * m0 + 8 * (n + 1)
-    del cen, ctx, cnt, col, total
+    # the column sums of one range beside index_add_ (its int64 copies made
+    # outside the timed calls)
+    col2, tot2 = torch.zeros_like(col), torch.zeros_like(total)
+    ctx64, cnt64 = ctx.long(), cnt.long()
+    colsum_ms = time_ms(lambda: cooccur.ppmi_colsum_(ctx, cnt, col2, tot2))
+    colsum_lib_ms = time_ms(lambda: col2.index_add_(0, ctx64, cnt64))
+    colsum_bytes = 8 * m0 + 8 * n
+    log(f"  K11 over range 0 ({m0} entries): the launch {k11_ms:.3f} ms, "
+        f"the wrapper with its checks and one host read "
+        f"{k11_wrapper_ms:.3f} ms (plain {k11_plain_ms:.3f}); bound "
+        f"{k11_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); its column "
+        f"sums {colsum_ms:.3f} ms, index_add_ {colsum_lib_ms:.3f} ms, bound "
+        f"{colsum_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes); [{card}]")
+    del cen, ctx, cnt, col, total, col2, tot2, ctx64, cnt64
     merge_rows = [time_merge(cooccur, merges[k], n, k, card)
                   for k in ("first", "last")]
     del merges
@@ -2708,9 +2749,10 @@ def walk_full_width(dev: torch.device, card: str) -> list:
         kernel_row("run_length", src + "run_length.cu",
                    "cleora_tpu/ops/cooccur.py:46", k10_ms, k10_plain_ms,
                    k10_lib_ms, 0.0, k10_bytes, 0, launches["run_length"]),
-        kernel_row("ppmi", src + "ppmi.cu", "cleora_tpu/ops/cooccur.py:939",
-                   k11_ms, k11_plain_ms, None, k11_err, k11_bytes, 0,
-                   launches["ppmi"]),
+        dict(kernel_row("ppmi", src + "ppmi.cu",
+                        "cleora_tpu/ops/cooccur.py:939", k11_wrapper_ms,
+                        k11_plain_ms, None, k11_err, k11_bytes, 0,
+                        launches["ppmi"]), launch_ms=k11_ms),
         kernel_row("run_length_merge", src + "run_length.cu",
                    "cleora_tpu/ops/cooccur.py:339", merge_rows[-1]["ms"],
                    merge_rows[-1]["plain_ms"], None, 0.0,
@@ -4581,13 +4623,24 @@ def round_tensors(rc, dev: torch.device) -> tuple:
                  for a in (rc.row_ids, rc.indptr, rc.cols, rc.vals))
 
 
-def round_bytes(rc, itemsize: int, width: int) -> int:
-    """K19's bound: the compact CSR, each distinct table row it names and
-    each accumulator row it updates read once, those rows written once."""
+def round_bytes(rc, itemsize: int, width: int, mode: str = "old",
+                rps: int = 0) -> int:
+    """K19's bound for one round: its inputs read once, its outputs written
+    once.  ``"old"``: the compact CSR (row ids, row pointer, edges), each
+    distinct table row it names, and each accumulator row it updates read
+    and written (the design before the views; a middle round, ``"middle"``,
+    still moves that).  ``"first"``: a view of every one of the ``rps``
+    rows (row pointer only), the edges and table rows, the rows written and
+    no accumulator read.  ``"last"``: the same, with every accumulator row
+    read (the normalisation needs them all).  ``"only"``: one shard's
+    single round, as ``"first"``."""
     distinct = int(np.unique(rc.cols).shape[0])
     r = int(rc.row_ids.shape[0])
-    return (4 * r + 8 * (r + 1) + 8 * int(rc.cols.shape[0])
-            + distinct * width * itemsize + 2 * r * width * 4)
+    gather = 8 * int(rc.cols.shape[0]) + distinct * width * itemsize
+    if mode in ("old", "middle"):
+        return 4 * r + 8 * (r + 1) + gather + 2 * r * width * 4
+    rows = rps * width * 4
+    return 8 * (rps + 1) + gather + (2 * rows if mode == "last" else rows)
 
 
 def round_library(rc, n_rows: int, n_table: int, dev: torch.device):
@@ -4648,10 +4701,14 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
     from cleora_tpu_torch.ops.spmm import (
         CsrMatrix,
         spmm,
-        spmm_acc,
         spmm_acc_plain,
     )
     from cleora_tpu_torch.parallel import embed_sharded, make_hier_mesh
+    from cleora_tpu_torch.parallel.embed import (
+        overlap_modes,
+        overlap_round,
+        overlap_views,
+    )
     from cleora_tpu_torch.parallel.shard import (
         RoundCsr,
         plan_halo_hier,
@@ -4692,21 +4749,25 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
         "from phase 11's plan_halo): rounds of "
         + ", ".join(f"{rc.row_ids.shape[0]} rows / {rc.cols.shape[0]} edges"
                     for rc in rounds))
-    acc_total = torch.zeros((rps, DIM), device=dev)
+    views = overlap_views(rounds, rps, dev)
+    acc_total = torch.empty((rps, DIM), device=dev)
     k19_round_ms = []
     for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
                        (torch.bfloat16, dict(rtol=1e-5, atol=1e-6))):
         tabs = tables(dtype)
-        for r, rc in enumerate(rounds):
-            args = round_tensors(rc, dev)
-            acc0 = torch.randn((rps, DIM), device=dev)
-            got = spmm_acc(acc0.clone(), *args, tabs[r])
-            want = spmm_acc_plain(acc0.clone(), *args, tabs[r])
+        own = blocks[0].to(dtype)
+        acc = torch.randn((rps, DIM), device=dev)
+        for r in range(P):
+            # each round in its mode, with a residual mix and l2 in the
+            # last, against the plain version on the same accumulator
+            want = spmm_acc_plain(acc.clone(), *views[r][:4], tabs[r],
+                                  **overlap_modes(r, P, own, 0.3, "l2"))
+            overlap_round(acc, views, r, tabs[r], own, 0.3, "l2")
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, **tol)
+            torch.testing.assert_close(acc, want, **tol)
             if dtype == torch.float32:
-                spmm_acc(acc_total, *args, tabs[r])
-        del tabs, got, want, acc0
+                overlap_round(acc_total, views, r, tabs[r], own, 0.0, "l2")
+        del tabs, want, acc, own
     # the four rounds' sum against K1 over shard 0's halo-remapped CSR
     lr = sharded.local_rows[0]
     indptr = np.zeros(rps + 1, dtype=np.int64)
@@ -4717,34 +4778,42 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
     recv = torch.cat([halo_pack(blocks[k], torch.from_numpy(
         np.ascontiguousarray(plan.send_idx[k, 0][None])).to(dev)).view(M, DIM)
         for k in range(P)])
-    k1 = spmm(halo_csr, recv)
+    k1 = spmm(halo_csr, recv, normalization="l2")
     sum_err = max_err(acc_total, k1)
     log(f"  K19 against spmm_acc_plain in float32 and bfloat16 on every "
-        f"round (rtol=1e-5, atol=1e-6); the four rounds' sum against K1 "
-        f"over shard 0's halo-remapped CSR on the same slabs: max |diff| "
-        f"{sum_err:.3e}")
+        f"round in its mode (round 0 written over every row, rounds 1-2 "
+        f"added over their compact rows, round 3 added over every row with "
+        f"a residual mix of 0.3 and l2; rtol=1e-5, atol=1e-6); the four "
+        f"rounds (l2 in the last) against K1 with l2 fused over shard 0's "
+        f"halo-remapped CSR on the same slabs: max |diff| {sum_err:.3e}")
     assert sum_err <= 1e-5, sum_err
     del recv, k1, halo_csr
     tabs = tables(torch.float32)
     scratch = torch.zeros((rps, DIM), device=dev)
-    step_plain_ms = step_lib_ms = step_bytes = 0.0
+    step_plain_ms = step_lib_ms = step_bytes = step_old_bytes = 0.0
     for r, rc in enumerate(rounds):
-        args = round_tensors(rc, dev)
-        ms = time_ms(lambda: spmm_acc(scratch, *args, tabs[r]))
-        plain = time_ms(lambda: spmm_acc_plain(scratch, *args, tabs[r]),
+        mode = "first" if r == 0 else "last" if r == P - 1 else "middle"
+        modes = overlap_modes(r, P, blocks[0], 0.0, "l2")
+        ms = time_ms(lambda: overlap_round(scratch, views, r, tabs[r],
+                                           blocks[0], 0.0, "l2"))
+        plain = time_ms(lambda: spmm_acc_plain(scratch, *views[r][:4],
+                                               tabs[r], **modes),
                         reps=3, warmup=1)
         S = round_library(rc, rps, tabs[r].shape[0], dev)
         lib = time_ms(lambda: scratch.add_(torch.sparse.mm(S, tabs[r])))
-        nbytes = round_bytes(rc, 4, DIM)
+        nbytes = round_bytes(rc, 4, DIM, mode, rps)
+        old_bytes = round_bytes(rc, 4, DIM)
         k19_round_ms.append(ms)
         step_plain_ms += plain
         step_lib_ms += lib
         step_bytes += nbytes
-        log(f"  K19 round {r} ({rc.row_ids.shape[0]} rows, "
-            f"{rc.cols.shape[0]} edges, table {tabs[r].shape[0]} rows): "
-            f"{ms:.3f} ms (plain {plain:.3f}, torch.sparse.mm + add_ "
+        step_old_bytes += old_bytes
+        log(f"  K19 round {r} ({mode}: {rc.row_ids.shape[0]} rows with "
+            f"edges, {rc.cols.shape[0]} edges, table {tabs[r].shape[0]} "
+            f"rows): {ms:.3f} ms (plain {plain:.3f}, torch.sparse.mm + add_ "
             f"{lib:.3f}); bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
-            f"(bytes); [{card}]")
+            f"(bytes; the old design's count "
+            f"{old_bytes / HBM_BYTES_PER_S * 1e3:.3f}); [{card}]")
         del S
     pack_ms = sum(time_ms(lambda r=r: halo_pack(blocks[slab_of[r]],
                                                 sends[r]))
@@ -4758,20 +4827,22 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
                      + 4 * M * DIM + 4 * M for r in range(1, P))
 
     def overlap_step():
-        acc = torch.zeros((rps, DIM), device=dev)
-        for r, rc_args in enumerate(step_args):
+        acc = torch.empty((rps, DIM), device=dev)
+        for r in range(P):
             tab = blocks[0] if r == 0 else halo_pack(
                 blocks[slab_of[r]], sends[r]).view(M, DIM)
-            spmm_acc(acc, *rc_args, tab)
+            overlap_round(acc, views, r, tab, blocks[0], 0.0, "l2")
         return acc
 
-    step_args = [round_tensors(rc, dev) for rc in rounds]
     step_ms = time_ms(overlap_step)
     log(f"  shard 0's overlap step in one process ({P - 1} K16 packs + {P} "
-        f"K19 rounds, no transfers): {step_ms:.3f} ms; the packs alone "
-        f"{pack_ms:.3f} ms (plain {pack_plain:.3f}, index_select "
-        f"{pack_lib:.3f}); [{card}]")
-    del tabs, scratch, step_args, acc_total
+        f"K19 rounds, l2 in the last, no transfers): {step_ms:.3f} ms; the "
+        f"packs alone {pack_ms:.3f} ms (plain {pack_plain:.3f}, "
+        f"index_select {pack_lib:.3f}); the rounds' bound "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (the old design's "
+        f"count, without its zero fill and K2: "
+        f"{step_old_bytes / HBM_BYTES_PER_S * 1e3:.3f}); [{card}]")
+    del tabs, scratch, views, acc_total
 
     # ---- (c) K16 over shard 0's slabs of the 2x2 hierarchical plan
     t0 = time.perf_counter()
@@ -4812,8 +4883,8 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
         out_o, o_launches = run_main_path(
             "  (b) embed_sharded(halo=\"overlap\"), one-rank NCCL group",
             lambda: embed_sharded(big, halo="overlap", **kw))
+        # one K19 launch a step, the normalisation in its epilogue: no K2
         assert o_launches == none | {"spmm_acc": ITERATIONS,
-                                     "row_normalize": ITERATIONS,
                                      "hash_init": 1}, o_launches
         if out_o.tobytes() == out_b.tobytes():
             log("  overlap: bitwise equal to phase 11 (b)")
@@ -4837,36 +4908,43 @@ def halo_exchanges(dev: torch.device, card: str, big, table: np.ndarray,
         log("  hier: bitwise equal to phase 11 (b)")
         del out_h, mesh
 
-    # ---- K19 at the main path's shape: one shard, round 0 over every edge
+    # ---- K19 at the main path's shape: one shard's step, round 0 over
+    # every edge and every row, written and normalised in one launch
     ds = big.data
     deg = np.diff(ds.indptr)
-    nz = np.nonzero(deg)[0]
-    rc0 = RoundCsr(nz.astype(np.int32), np.concatenate(
-        [[0], np.cumsum(deg[nz])]).astype(np.int64),
-        np.asarray(ds.indices, dtype=np.int32),
-        np.asarray(ds.left_vals, dtype=np.float32))
-    args = round_tensors(rc0, dev)
+    rc0 = RoundCsr.from_edges(np.repeat(np.arange(n, dtype=np.int32), deg),
+                              ds.indices, ds.left_vals)
+    (view,) = overlap_views([rc0], n, dev)
+    csr = CsrMatrix.from_numpy(ds.indptr, ds.indices, ds.left_vals, dev)
     x = torch.from_numpy(table).to(dev)
-    acc = torch.zeros((n, DIM), device=dev)
-    got = spmm_acc(acc.clone(), *args, x)
-    want = spmm_acc_plain(acc.clone(), *args, x)
+    acc = torch.empty((n, DIM), device=dev)
+    modes = overlap_modes(0, 1, x, 0.0, "l2")
+    got = overlap_round(acc, [view], 0, x, x, 0.0, "l2").clone()
+    want = spmm_acc_plain(torch.empty_like(acc), *view[:4], x, **modes)
+    k1 = spmm(csr, x, normalization="l2")
     torch.cuda.synchronize()
     k19_err = max_err(got, want)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    del got, want
-    k19_ms = time_ms(lambda: spmm_acc(acc, *args, x))
-    k19_plain_ms = time_ms(lambda: spmm_acc_plain(acc, *args, x), reps=3,
-                           warmup=1)
+    assert torch.equal(got, k1), max_err(got, k1)
+    del got, want, k1
+    k19_ms = time_ms(lambda: overlap_round(acc, [view], 0, x, x, 0.0, "l2"))
+    k1_ms = time_ms(lambda: spmm(csr, x, normalization="l2"))
+    k19_plain_ms = time_ms(lambda: spmm_acc_plain(acc, *view[:4], x,
+                                                  **modes), reps=3, warmup=1)
     S = round_library(rc0, n, n, dev)
-    k19_lib_ms = time_ms(lambda: acc.add_(torch.sparse.mm(S, x)))
-    k19_bytes = round_bytes(rc0, 4, DIM)
-    log(f"  K19 at the main path's shape (one shard, round 0: "
-        f"{rc0.row_ids.shape[0]} rows, {rc0.cols.shape[0]} edges, D={DIM}): "
-        f"{k19_ms:.3f} ms (plain {k19_plain_ms:.3f}, torch.sparse.mm + add_ "
-        f"{k19_lib_ms:.3f}); bound {k19_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
-        f"ms (bytes); max |diff| against plain {k19_err:.3e}; [{card}]")
-    del S, args, x, acc
-
+    k19_lib_ms = time_ms(lambda: torch.sparse.mm(S, x))
+    k19_bytes = round_bytes(rc0, 4, DIM, "only", n)
+    log(f"  K19 at the main path's shape (one shard's step: round 0 over "
+        f"{n} rows, {rc0.cols.shape[0]} edges, D={DIM}, written and l2 "
+        f"normalised in one launch): {k19_ms:.3f} ms, bitwise K1 with l2 "
+        f"fused on the same graph ({k1_ms:.3f} ms; plain {k19_plain_ms:.3f}, "
+        f"torch.sparse.mm without the normalisation {k19_lib_ms:.3f}); bound "
+        f"{k19_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes; the old "
+        f"design's count for its compact round "
+        f"{round_bytes(rc0, 4, DIM) / HBM_BYTES_PER_S * 1e3:.3f}, before its "
+        f"zero fill and K2); max |diff| against plain {k19_err:.3e}; "
+        f"[{card}]")
+    del S, view, csr, x, acc
     # ---- (d) tracing: one embed() iteration on phase 4's graph
     import tempfile
 

@@ -166,10 +166,10 @@ _ARGTYPES = {
     # ctx, cnt, m, col, total, stream
     "ppmi_colsum": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p,
                     _c.c_void_p, _c.c_void_p],
-    # cen, ctx, cnt, m, n, col, total, vals, indptr, stream
+    # cen, ctx, cnt, m, n, col, total, vals, indptr, scratch, stream
     "ppmi": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64,
              _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-             _c.c_void_p],
+             _c.c_void_p, _c.c_void_p],
     # indptr, indices, vals, f, y, mask, out, n_rows, c, alpha, beta, stream
     "label_prop": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
@@ -181,11 +181,15 @@ _ARGTYPES = {
     # mask, dh, dz, numel, q, stream
     "relu_dropout_backward": [_c.c_void_p, _c.c_void_p, _c.c_void_p,
                               _c.c_int64, _c.c_float, _c.c_void_p],
-    # row_ids, indptr, cols, vals, table, table_bf16, acc, n_rows, d, vec4,
-    # stream
+    # row_ids, indptr, cols, vals, table, table_bf16, res, acc, n_rows, d,
+    # add, keep, w, norm, vec4, long_slice, item_rows, item_starts,
+    # item_cuts, n_items, split, n_split, part, stream
     "spmm_acc": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                 _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int64, _c.c_int64,
-                 _c.c_int, _c.c_void_p],
+                 _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                 _c.c_int64, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
+                 _c.c_int, _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                 _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_void_p,
+                 _c.c_void_p],
     # idx, x, out, n_slots, row_bytes, vec_bytes, stream
     "halo_pack": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p],
@@ -970,7 +974,7 @@ def ppmi_colsum_(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,
     with torch.cuda.device(ctx.device):
         rc = _bound(name, "ppmi_colsum")(
             ctx.data_ptr(), cnt.data_ptr(), ctx.shape[0], col.data_ptr(),
-            total.data_ptr(), torch.cuda.current_stream(ctx.device).cuda_stream)
+            total.data_ptr(), _stream(ctx))
     _check_rc(name, rc)
 
 
@@ -978,8 +982,9 @@ def ppmi(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
          col: torch.Tensor, total: torch.Tensor, n: int):
     """K11, second pass: the float32 positive-PMI value of every entry of
     one (cen, ctx)-sorted range, given the int64 column sums and total of
-    every range, and the range's CSR row pointer (int64 (n+1,)).  Returns
-    ``(vals, indptr)``."""
+    every range, and the range's CSR row pointer (int64 (n+1,)).  Raises
+    ValueError (one host read, after the launch) where cen decreases or a
+    cen or ctx leaves [0, n).  Returns ``(vals, indptr)``."""
     name = "ppmi"
     m = cen.shape[0]
     for t in (cen, ctx, cnt):
@@ -989,19 +994,36 @@ def ppmi(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
              and total.dtype == torch.int64 and total.shape == (1,),
              f"{name}: col (n,) and total (1,) must be int64")
     _require_cuda_contiguous(name, cen.device, cen, ctx, cnt, col, total)
-    # the kernel writes indptr[cen[i]]: the centers must be sorted, in range
-    _require(m == 0 or (int(cen[0]) >= 0 and int(cen[-1]) < n
-                        and bool(torch.all(cen[1:] >= cen[:-1]))),
-             f"{name}: cen must be non-decreasing node ids below n")
-    vals = torch.empty((m,), dtype=torch.float32, device=cen.device)
-    indptr = torch.zeros((n + 1,), dtype=torch.int64, device=cen.device)
-    with torch.cuda.device(cen.device):
-        rc = _bound(name)(cen.data_ptr(), ctx.data_ptr(), cnt.data_ptr(), m,
-                          int(n), col.data_ptr(), total.data_ptr(),
-                          vals.data_ptr(), indptr.data_ptr(),
-                          torch.cuda.current_stream(cen.device).cuda_stream)
-    _check_launch(name, rc)
+    dev = cen.device
+    vals = torch.empty((m,), dtype=torch.float32, device=dev)
+    if m == 0:
+        return vals, torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+    indptr = torch.empty((n + 1,), dtype=torch.int64, device=dev)
+    scratch = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
+    ppmi_into(cen, ctx, cnt, col, total, n, vals, indptr, scratch)
+    _require(int(scratch[n]) == 0,
+             f"{name}: cen must be non-decreasing node ids below n, and ctx "
+             "node ids below n")
     return vals, indptr
+
+
+def ppmi_into(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+              col: torch.Tensor, total: torch.Tensor, n: int,
+              vals: torch.Tensor, indptr: torch.Tensor,
+              scratch: torch.Tensor) -> None:
+    """K11's launch alone, as :func:`ppmi` makes it once its arguments are
+    checked: the values into ``vals`` (float32 (m,)) and the row pointer
+    into ``indptr`` (int64 (n+1,)) of a non-empty range.  ``scratch``
+    (int64 (n+1,)) must hold zeros; afterwards ``scratch[n]`` is nonzero
+    where cen decreases or a cen or ctx leaves [0, n).  Checks nothing
+    and reads nothing back."""
+    with torch.cuda.device(cen.device):
+        rc = _bound("ppmi")(cen.data_ptr(), ctx.data_ptr(), cnt.data_ptr(),
+                            cen.shape[0], int(n), col.data_ptr(),
+                            total.data_ptr(), vals.data_ptr(),
+                            indptr.data_ptr(), scratch.data_ptr(),
+                            _stream(cen))
+    _check_launch("ppmi", rc)
 
 
 def label_prop(indptr: torch.Tensor, indices: torch.Tensor,
@@ -1141,19 +1163,33 @@ def halo_pack(x: torch.Tensor, send_idx: torch.Tensor,
     return out
 
 
-def spmm_acc_(acc: torch.Tensor, row_ids: torch.Tensor, indptr: torch.Tensor,
-              cols: torch.Tensor, vals: torch.Tensor,
-              table: torch.Tensor) -> torch.Tensor:
-    """K19: ``acc[row_ids[i]] += Σ_e vals[e]·table[cols[e]]`` over the
-    edges ``e`` of compact row ``i`` (``indptr``), in place on float32
-    (rows, D) ``acc``; ``table`` is float32 or bfloat16 (T, D).  The row
-    ids must be distinct and lie in [0, rows of acc), the cols in [0, T):
-    the sharded loop checks its plan on the host when it is built.  A
-    round with no rows launches nothing.  Returns ``acc``."""
+def spmm_acc_(acc: torch.Tensor, row_ids: Optional[torch.Tensor],
+              indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+              table: torch.Tensor, write: bool = False,
+              residual_weight: float = 0.0,
+              residual: Optional[torch.Tensor] = None,
+              normalization: str = "none",
+              hubs: Optional["HubPlan"] = None) -> torch.Tensor:
+    """K19, one round of the overlapped halo exchange, in place on float32
+    (rows, D) ``acc``: each row's ``Σ_e vals[e]·table[cols[e]]`` over its
+    edges ``e`` (``indptr``) written into ``acc`` (``write``) or added to
+    it, then ``(1-w)·acc + w·residual`` for w > 0, then each row divided by
+    max(its ``"l2"`` or ``"l1"`` norm, 1e-10) for those ``normalization``
+    modes (D <= :data:`FUSED_NORM_MAX_WIDTH`).  The view's row ``i`` is
+    row ``row_ids[i]`` of ``acc`` (distinct ids, in [0, rows of acc)), or
+    row ``i`` when ``row_ids`` is None: a view of every row, which the
+    write, the residual and the normalisation need.  ``table`` is float32
+    or bfloat16 (T, D), its cols in [0, T): the sharded loop checks its
+    plan on the host when it is built; ``residual`` (rows, D) has
+    ``table``'s dtype.  ``hubs`` (the view's :class:`HubPlan`) cuts its
+    rows of more than :data:`LONG_SLICE` entries into slices.  A view with
+    no rows launches nothing.  Returns ``acc``."""
     name = "spmm_acc_"
     _require_csr(name, indptr, cols, vals)
-    _require(row_ids.dtype == torch.int32 and row_ids.dim() == 1
-             and row_ids.shape[0] == indptr.shape[0] - 1,
+    n = indptr.shape[0] - 1
+    _require(row_ids is None or (row_ids.dtype == torch.int32
+                                 and row_ids.dim() == 1
+                                 and row_ids.shape[0] == n),
              f"{name}: row_ids must be int32 with one id per compact row")
     _require(acc.dtype == torch.float32 and acc.dim() == 2,
              f"{name}: acc must be a 2-D float32 tensor")
@@ -1161,24 +1197,49 @@ def spmm_acc_(acc: torch.Tensor, row_ids: torch.Tensor, indptr: torch.Tensor,
              and table.dim() == 2 and table.shape[1] == acc.shape[1],
              f"{name}: table must be a 2-D float32 or bfloat16 tensor of "
              "acc's width")
-    _require_cuda_contiguous(name, acc.device, row_ids, indptr, cols, vals,
-                             table, acc)
-    # other rows gather the table through the read-only cache while a
-    # row's threads update acc
-    _require(not _overlap(acc, table),
-             f"{name}: acc must not share memory with table")
-    n = row_ids.shape[0]
-    if n == 0 or acc.shape[1] == 0:
-        return acc
+    w = float(residual_weight)
+    _require(normalization in _NORMS,
+             f"{name}: unknown normalization {normalization}")
+    _require(row_ids is not None or n == acc.shape[0],
+             f"{name}: a view without row_ids must list every row of acc")
+    _require(row_ids is None or not (write or w > 0.0
+                                     or normalization != "none"),
+             f"{name}: write, the residual and the normalisation need a "
+             "view of every row (row_ids=None)")
+    _require(w == 0.0 or (residual is not None
+                          and residual.dtype == table.dtype
+                          and residual.shape == acc.shape),
+             f"{name}: residual must be acc's shape in table's dtype")
     d = acc.shape[1]
+    _require(normalization == "none" or d <= FUSED_NORM_MAX_WIDTH,
+             f"{name}: rows wider than {FUSED_NORM_MAX_WIDTH} are not "
+             "normalised in the epilogue")
+    res = residual if w > 0.0 else table
+    ops = [indptr, cols, vals, table, acc, res]
+    _require_cuda_contiguous(name, acc.device,
+                             *ops, *([] if row_ids is None else [row_ids]))
+    # other rows gather the table through the read-only cache while a
+    # row's team updates acc
+    _require(not _overlap(acc, table) and not _overlap(acc, res),
+             f"{name}: acc must not share memory with table or residual")
+    if n == 0 or d == 0:
+        return acc
+    hub = _hub_args(hubs, acc.device, name)
+    part = None
+    if hub[4]:
+        part = torch.empty((hub[4], d), dtype=torch.float32, device=acc.device)
     bf16 = table.dtype == torch.bfloat16
-    vec4 = (d % 4 == 0 and table.data_ptr() % (8 if bf16 else 16) == 0
-            and _aligned16(acc))
+    align = 8 if bf16 else 16
+    vec4 = (d % 4 == 0 and table.data_ptr() % align == 0
+            and res.data_ptr() % align == 0 and _aligned16(acc))
     fn = _bound("spmm_acc")
     with torch.cuda.device(acc.device):
-        rc = fn(row_ids.data_ptr(), indptr.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), table.data_ptr(), int(bf16), acc.data_ptr(),
-                n, d, int(vec4), _stream(acc))
+        rc = fn(None if row_ids is None else row_ids.data_ptr(),
+                indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                table.data_ptr(), int(bf16), res.data_ptr(), acc.data_ptr(),
+                n, d, int(not write), 1.0 - w, w, _NORMS[normalization],
+                int(vec4), *hub, None if part is None else part.data_ptr(),
+                _stream(acc))
     _check_launch("spmm_acc", rc)
     return acc
 

@@ -2,180 +2,140 @@
 //
 // Replaces the per-round segment-sum of the overlapped halo exchange,
 // `seg` in cleora_tpu/parallel/embed.py:_overlap_propagate (:49-54),
-// applied to the shard's own rows at :66 and to each received slab at :72:
+// applied to the shard's own rows at :66 and to each received slab at :72,
+// with the residual mix of :192-193 and the row normalisation of
+// cleora_tpu/ops/normalize.py (:15, :20) after the last round fused in:
 //
-//   acc[row_ids[i], :] += sum_{e in [indptr[i], indptr[i+1])}
-//                             vals[e] * table[cols[e], :]
+//   s[i, :] = sum_{e in [indptr[i], indptr[i+1])} vals[e] * table[cols[e], :]
+//   acc[row(i), :] = s[i, :]                      first round (write)
+//   acc[row(i), :] += s[i, :]                     later rounds (add)
+//   acc[row(i), :] = keep * acc + w * res[row(i)]  last round, when w > 0
+//   acc[row(i), :] /= max(||acc[row(i), :]||, 1e-10)  last round, l2 / l1
 //
-// One call is one round of one shard: a compact CSR that lists only the
-// local rows with an edge from that round's column owner (ascending, each
-// once), and the table the round gathers from: the shard's own state in
-// round 0, the received (M, D) slab after it.  acc is the float32
-// (rows_per_shard, D) accumulator, updated in place; table is float32 or
-// bfloat16 (the state's dtype, as the slab travels).
+// One call is one round of one shard.  Its view is a CSR over either every
+// row of the shard (row(i) = i; the first and the last round, so the first
+// writes every row and the last mixes and normalises every row) or a
+// compact list of the rows with an edge in the round (row(i) = row_ids[i],
+// ascending, each once; the middle rounds).  table is the round's gather
+// table: the shard's own state in round 0, the received (M, D) slab after
+// it; res is the shard's state.  acc is the float32 (rows_per_shard, D)
+// accumulator, updated in place; table and res are both float32 or both
+// bfloat16 (the state's dtype, as the slab travels).  With one shard round
+// 0 is first and last: one launch is K1 with its epilogue, bit for bit.
 //
-// Bound on the card: bytes.  A call reads row_ids and indptr (4 R + 8 (R+1)
-// B), cols and vals (8 E B), one table row per distinct column the round
-// names, and the R accumulator rows, and writes those rows back; it does
-// 2 E D flops, a fraction of a flop per byte.
+// Bound on the card: bytes.  A call reads the view (indptr, row_ids),
+// cols and vals (8 E B), one table row per distinct column the round
+// names, the accumulator rows it adds to (none in the first round) and
+// res's rows where w > 0, and writes its rows of acc once; it does 2 E D
+// flops, a fraction of a flop per byte.  So the first round writes the
+// accumulator (no zero fill to write and read back), and the last leaves
+// no separate normalisation pass (a read and a write of the state).
 //
-// Design: K1's, with the TPU's scatter-add made a register sum.  A row of
-// threads (threadIdx.y) owns one compact row; each thread owns one float4
-// column group (4 bf16 values for a bf16 table) per column tile and walks
-// the row's edges in order, four gathers in flight, summing in edge order
-// as K1 does.  The sum is added to acc once at the end, so no atomics are
-// needed: a row appears once per round, and the rounds run in order on
-// one stream.  Unlike K1 (a fresh output per call) or K5's acc mode (which
-// also writes a full (rows, D) output), a round that touches few rows
-// launches few blocks and moves only those rows.  D not divisible by 4, or
-// a misaligned table or acc, takes the scalar instantiation.
+// Design: K1's, row_team.cuh's SpMM: a team of lanes a row, float4 slots,
+// the row's (col, val) pairs loaded L at a time and broadcast by shuffles,
+// a batch of predicated gathers, warp-uniform loop control; the sum stays
+// in registers, the old accumulator row is added to it once, and the
+// epilogue mixes, normalises and stores the row.  Its gather batch is half
+// of K1's (kLoads4), which leaves the registers that rows of 1-2 edges
+// need to keep more rows in flight; the adds stay in edge order.  A
+// row of more than `long_slice` entries in the round (kernels.LONG_SLICE;
+// the decision reads that row's degree in the round alone, so one shard's
+// round 0 cuts the rows K1 cuts) is cut into slices, a team each, written
+// to the scratch `part` and joined in slice order by spmm_acc_join, which
+// then adds the old row and applies the same epilogue.  A row
+// appears once per round and the rounds run in order on one stream, so no
+// atomics are needed.  D not divisible by 4, or a misaligned table, res or
+// acc, takes the one-column slots.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "row_team.cuh"
+
+// Slot loads in flight a lane with float4 slots: half of K1's.  The
+// accumulator row a round adds to, and a middle round's rows of 1-2
+// edges, want the registers more than a deep gather batch
+// (scripts/torch_k19_k11_probe.py times the rounds against the parent's).
+constexpr int kLoads4 = 8;
 
 namespace {
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+using row_team::kSpmmThreads;
+
+// K19's kernels: row_team's SpMM over a view (row_ids, add), with kLoads4
+// float4 slot loads in flight a lane.
+template <typename T, bool kVec4, int kS>
+__global__ void __launch_bounds__(kSpmmThreads)
+    spmm_acc_rows(const int32_t* __restrict__ row_ids,
+                  const int64_t* __restrict__ indptr,
+                  const int32_t* __restrict__ indices,
+                  const float* __restrict__ vals, const T* __restrict__ x,
+                  const T* __restrict__ res, float* __restrict__ out,
+                  int64_t n_rows, int64_t d, int add, float keep, float w,
+                  int norm, int L, int64_t long_slice, int64_t row_blocks,
+                  const int32_t* __restrict__ item_rows,
+                  const int64_t* __restrict__ item_starts,
+                  const int32_t* __restrict__ item_cuts, int64_t n_items,
+                  float* __restrict__ part) {
+  row_team::spmm_rows<T, kVec4, kS, kVec4 ? kLoads4 : 32, true>(
+      row_ids, indptr, indices, vals, x, res, out, n_rows, d, add, keep, w,
+      norm, L, long_slice, row_blocks, item_rows, item_starts, item_cuts,
+      n_items, part);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
+template <typename T, bool kVec4, int kS>
+__global__ void __launch_bounds__(kSpmmThreads)
+    spmm_acc_join(const int32_t* __restrict__ row_ids,
+                  const int32_t* __restrict__ item_rows,
+                  const int32_t* __restrict__ item_cuts,
+                  const int32_t* __restrict__ split, int64_t n_split,
+                  const float* __restrict__ part, const T* __restrict__ res,
+                  float* __restrict__ out, int64_t d, int add, float keep,
+                  float w, int norm, int L) {
+  row_team::spmm_join<T, kVec4, kS, true>(row_ids, item_rows, item_cuts,
+                                         split, n_split, part, res, out, d,
+                                         add, keep, w, norm, L);
 }
 
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float v, const float4& a) {
-  acc.x += v * a.x;
-  acc.y += v * a.y;
-  acc.z += v * a.z;
-  acc.w += v * a.w;
-}
-
-template <typename T>
-__global__ void spmm_acc_vec4(const int32_t* __restrict__ row_ids,
-                              const int64_t* __restrict__ indptr,
-                              const int32_t* __restrict__ cols,
-                              const float* __restrict__ vals,
-                              const T* __restrict__ table,
-                              float* __restrict__ acc, int64_t n_rows,
-                              int64_t d) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (i >= n_rows) return;
-  const int64_t start = indptr[i];
-  const int64_t end = indptr[i + 1];
-  float* dst = acc + (int64_t)row_ids[i] * d;
-  const int64_t groups = d >> 2;
-  for (int64_t g = threadIdx.x; g < groups; g += blockDim.x) {
-    const int64_t c = g << 2;
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    int64_t e = start;
-    for (; e + 4 <= end; e += 4) {
-      const int64_t c0 = __ldg(cols + e), c1 = __ldg(cols + e + 1);
-      const int64_t c2 = __ldg(cols + e + 2), c3 = __ldg(cols + e + 3);
-      const float v0 = __ldg(vals + e), v1 = __ldg(vals + e + 1);
-      const float v2 = __ldg(vals + e + 2), v3 = __ldg(vals + e + 3);
-      const float4 a0 = load4(table + c0 * d + c);
-      const float4 a1 = load4(table + c1 * d + c);
-      const float4 a2 = load4(table + c2 * d + c);
-      const float4 a3 = load4(table + c3 * d + c);
-      axpy4(sum, v0, a0);
-      axpy4(sum, v1, a1);
-      axpy4(sum, v2, a2);
-      axpy4(sum, v3, a3);
-    }
-    for (; e < end; ++e) {
-      const int64_t col = __ldg(cols + e);
-      axpy4(sum, __ldg(vals + e), load4(table + col * d + c));
-    }
-    float4* out = reinterpret_cast<float4*>(dst + c);
-    float4 a = *out;
-    a.x += sum.x;
-    a.y += sum.y;
-    a.z += sum.z;
-    a.w += sum.w;
-    *out = a;
+template <typename T, bool kVec4, int kS>
+struct Kernels {
+  static cudaError_t launch(const row_team::SpmmArgs& a, int L,
+                            unsigned tiles) {
+    return row_team::spmm_launch_tile<T>(a, L, tiles,
+                                         spmm_acc_rows<T, kVec4, kS>,
+                                         spmm_acc_join<T, kVec4, kS>);
   }
-}
-
-template <typename T>
-__global__ void spmm_acc_scalar(const int32_t* __restrict__ row_ids,
-                                const int64_t* __restrict__ indptr,
-                                const int32_t* __restrict__ cols,
-                                const float* __restrict__ vals,
-                                const T* __restrict__ table,
-                                float* __restrict__ acc, int64_t n_rows,
-                                int64_t d) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (i >= n_rows) return;
-  const int64_t start = indptr[i];
-  const int64_t end = indptr[i + 1];
-  float* dst = acc + (int64_t)row_ids[i] * d;
-  for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
-    float sum = 0.f;
-    for (int64_t e = start; e < end; ++e) {
-      const int64_t col = __ldg(cols + e);
-      sum += __ldg(vals + e) * load1(table + col * d + c);
-    }
-    dst[c] += sum;
-  }
-}
-
-template <typename T>
-void launch(const int32_t* row_ids, const int64_t* indptr,
-            const int32_t* cols, const float* vals, const T* table,
-            float* acc, int64_t n_rows, int64_t d, int vec4,
-            cudaStream_t stream) {
-  const int64_t groups = vec4 ? d / 4 : d;
-  const int tx = (int)(groups < 256 ? groups : 256);
-  const int ty = 256 / tx > 0 ? 256 / tx : 1;
-  const dim3 block(tx, ty);
-  const dim3 grid((unsigned)((n_rows + ty - 1) / ty));
-  if (vec4) {
-    spmm_acc_vec4<T><<<grid, block, 0, stream>>>(row_ids, indptr, cols, vals,
-                                                  table, acc, n_rows, d);
-  } else {
-    spmm_acc_scalar<T><<<grid, block, 0, stream>>>(row_ids, indptr, cols,
-                                                    vals, table, acc, n_rows,
-                                                    d);
-  }
-}
+};
 
 }  // namespace
 
-// Launches K19 on `stream` and returns cudaGetLastError().  A round with
-// no rows (or D = 0) launches nothing: a grid of 0 blocks is an invalid
-// configuration.  `vec4` requires d % 4 == 0, table aligned to 4 elements
-// and acc to 16 bytes (checked by the Python wrapper); every row id must
-// lie in [0, rows of acc) and every col in [0, rows of table) (checked on
-// the host when the plan is built).
-extern "C" int spmm_acc_launch(const int32_t* row_ids, const int64_t* indptr,
-                               const int32_t* cols, const float* vals,
-                               const void* table, int table_bf16, float* acc,
-                               int64_t n_rows, int64_t d, int vec4,
-                               void* stream) {
-  if (n_rows > 0 && d > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (table_bf16) {
-      launch(row_ids, indptr, cols, vals,
-             static_cast<const __nv_bfloat16*>(table), acc, n_rows, d, vec4,
-             s);
-    } else {
-      launch(row_ids, indptr, cols, vals, static_cast<const float*>(table),
-             acc, n_rows, d, vec4, s);
-    }
-  }
-  return (int)cudaGetLastError();
+// Launches K19 on `stream` and returns the first cudaGetLastError() that is
+// not 0 (cudaErrorInvalidValue for a normalisation of a row wider than one
+// column tile).  A view with no rows (or D = 0) launches nothing: a grid
+// of 0 blocks is an invalid configuration.  row_ids null: the view lists
+// every row of acc (n_rows of them).  add 0 writes the rows' sums, 1 adds
+// them to acc.  keep, w: the residual mix with res (w = 0 reads no res);
+// norm: 0 none, 1 l2, 2 l1 (d <= 1024 only).  `vec4` requires d % 4 == 0,
+// table and res aligned to 4 elements and acc to 16 bytes (checked by the
+// Python wrapper); every row id must lie in [0, rows of acc) and every col
+// in [0, rows of table) (checked on the host when the plan is built).
+// Rows of more than `long_slice` entries are taken by the n_items slices
+// (item_rows, item_starts, item_cuts: kernels.HubPlan of the view; split
+// lists the first slice of each of the n_split hub rows), which need
+// n_items * d float32 of scratch in `part`; pass long_slice = INT64_MAX and
+// no items to walk every row with its own team.
+extern "C" int spmm_acc_launch(
+    const int32_t* row_ids, const int64_t* indptr, const int32_t* cols,
+    const float* vals, const void* table, int table_bf16, const void* res,
+    float* acc, int64_t n_rows, int64_t d, int add, float keep, float w,
+    int norm, int vec4, int64_t long_slice, const int32_t* item_rows,
+    const int64_t* item_starts, const int32_t* item_cuts, int64_t n_items,
+    const int32_t* split, int64_t n_split, float* part, void* stream) {
+  const row_team::SpmmArgs a{
+      row_ids, indptr, cols, vals, table, res, acc, n_rows, d, add, keep, w,
+      norm, long_slice, item_rows, item_starts, item_cuts, n_items, split,
+      n_split, part, static_cast<cudaStream_t>(stream)};
+  return (int)row_team::spmm_launch<Kernels>(a, table_bf16 != 0,
+                                             vec4 != 0);
 }

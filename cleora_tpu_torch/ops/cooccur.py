@@ -382,27 +382,54 @@ def ppmi_colsum_plain(ctx: torch.Tensor, cnt: torch.Tensor, col: torch.Tensor,
 def ppmi_values(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
                 col: torch.Tensor, total: torch.Tensor, n: int):
     """``(vals, indptr)`` of one (cen, ctx)-sorted range.  On CUDA this
-    launches K11; on the CPU it runs :func:`ppmi_values_plain`."""
+    launches K11; on the CPU it runs :func:`ppmi_values_plain`.  Raises
+    ValueError where cen decreases or a cen or ctx leaves [0, n)."""
     if cen.is_cuda:
         return kernels.ppmi(cen, ctx, cnt, col, total, n)
     return ppmi_values_plain(cen, ctx, cnt, col, total, n)
 
 
-def ppmi_values_plain(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
-                      col: torch.Tensor, total: torch.Tensor, n: int):
-    """Plain PyTorch version of K11: exact int64 row sums, one conversion
-    of each sum to float32, then ``_ppmi_range_impl``'s float32 arithmetic
-    in its order (cleora_tpu/ops/cooccur.py:951-962)."""
+def _check_ppmi_ids(ids: torch.Tensor, n: int, sorted_: bool) -> None:
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n
+                        or sorted_ and bool(torch.any(ids[1:] < ids[:-1]))):
+        raise ValueError("ppmi: cen must be non-decreasing node ids below "
+                         "n, and ctx node ids below n")
+
+
+def ppmi_rows_plain(cen: torch.Tensor, cnt: torch.Tensor, n: int):
+    """Plain PyTorch version of K11's row pass: the range's CSR row pointer
+    (int64 (n+1,)) and each row's exact int64 sum of ``cnt`` (n,).  Raises
+    ValueError where cen decreases or leaves [0, n)."""
     c64 = cen.long()
-    rows = torch.zeros((n,), dtype=torch.int64, device=cen.device)
-    rows.index_add_(0, c64, cnt.long())
-    rs = torch.clamp_min(rows[c64].to(torch.float32), 1e-10)
-    cs = torch.clamp_min(col[ctx.long()].to(torch.float32), 1e-10)
-    q = cnt.to(torch.float32) * total.to(torch.float32) / (rs * cs)
-    vals = torch.clamp_min(torch.log(torch.clamp_min(q, 1e-15)), 0.0)
+    _check_ppmi_ids(c64, n, True)
+    rs = torch.zeros((n,), dtype=torch.int64, device=cen.device)
+    rs.index_add_(0, c64, cnt.long())
     indptr = torch.zeros((n + 1,), dtype=torch.int64, device=cen.device)
     torch.cumsum(torch.bincount(c64, minlength=n), 0, out=indptr[1:])
-    return vals, indptr
+    return indptr, rs
+
+
+def ppmi_vals_plain(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+                    col: torch.Tensor, total: torch.Tensor,
+                    rs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11's values pass: one conversion of each
+    int64 sum to float32, then ``_ppmi_range_impl``'s float32 arithmetic
+    in its order (cleora_tpu/ops/cooccur.py:951-962).  Raises ValueError
+    for a ctx outside [0, n)."""
+    x64 = ctx.long()
+    _check_ppmi_ids(x64, col.shape[0], False)
+    rsf = torch.clamp_min(rs[cen.long()].to(torch.float32), 1e-10)
+    cs = torch.clamp_min(col[x64].to(torch.float32), 1e-10)
+    q = cnt.to(torch.float32) * total.to(torch.float32) / (rsf * cs)
+    return torch.clamp_min(torch.log(torch.clamp_min(q, 1e-15)), 0.0)
+
+
+def ppmi_values_plain(cen: torch.Tensor, ctx: torch.Tensor, cnt: torch.Tensor,
+                      col: torch.Tensor, total: torch.Tensor, n: int):
+    """Plain PyTorch version of K11: :func:`ppmi_rows_plain`, then
+    :func:`ppmi_vals_plain`.  Returns ``(vals, indptr)``."""
+    indptr, rs = ppmi_rows_plain(cen, cnt, n)
+    return ppmi_vals_plain(cen, ctx, cnt, col, total, rs), indptr
 
 
 def range_col_sums(ranges, n: int, device):

@@ -232,28 +232,61 @@ def spmm_axpy_plain(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
     return out
 
 
-def spmm_acc(acc: torch.Tensor, row_ids: torch.Tensor, indptr: torch.Tensor,
-             cols: torch.Tensor, vals: torch.Tensor,
-             table: torch.Tensor) -> torch.Tensor:
+def spmm_acc(acc: torch.Tensor, row_ids: Optional[torch.Tensor],
+             indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             table: torch.Tensor, write: bool = False,
+             residual_weight: float = 0.0,
+             residual: Optional[torch.Tensor] = None,
+             normalization: str = "none",
+             hubs: Optional[kernels.HubPlan] = None) -> torch.Tensor:
     """One round of the overlapped halo exchange
-    (cleora_tpu/parallel/embed.py:_overlap_propagate, ``seg`` at :49-54):
-    ``acc[row_ids[i]] += Σ_e vals[e]·table[cols[e]]`` over the edges of
-    compact row ``i`` (``indptr``), in place on the float32 accumulator.
-    On CUDA this launches K19 (``kernels/spmm_acc.cu``); on the CPU it
-    runs :func:`spmm_acc_plain`.  Returns ``acc``."""
+    (cleora_tpu/parallel/embed.py:_overlap_propagate, ``seg`` at :49-54),
+    in place on the float32 accumulator: the round's sum of
+    ``vals[e]·table[cols[e]]`` over the edges of the view's row ``i``
+    (``indptr``) written into (``write``) or added to row ``row_ids[i]``
+    of ``acc`` (row ``i`` when ``row_ids`` is None: a view of every row),
+    then, for the last round, ``(1-w)·acc + w·residual`` when w > 0 and
+    each row divided by max(its ``"l2"`` or ``"l1"`` norm, 1e-10).  On
+    CUDA this launches K19 (``kernels/spmm_acc.cu``; ``hubs``, the view's
+    :class:`kernels.HubPlan`, cuts its hub rows into slices), with the
+    normalisation in its epilogue up to ``kernels.FUSED_NORM_MAX_WIDTH``
+    columns and by K2 after it for wider rows; on the CPU it runs
+    :func:`spmm_acc_plain`.  Returns ``acc``."""
+    if normalization not in ("none", "l2", "l1"):
+        raise ValueError(f"spmm_acc: unknown normalization {normalization}")
     if acc.is_cuda:
-        return kernels.spmm_acc_(acc, row_ids, indptr, cols, vals,
-                                 table.contiguous())
-    return spmm_acc_plain(acc, row_ids, indptr, cols, vals, table)
+        fused = acc.shape[1] <= kernels.FUSED_NORM_MAX_WIDTH
+        kernels.spmm_acc_(
+            acc, row_ids, indptr, cols, vals, table.contiguous(), write,
+            residual_weight,
+            None if residual is None else residual.contiguous(),
+            normalization if fused else "none", hubs)
+        return acc if fused else normalize(acc, normalization)
+    return spmm_acc_plain(acc, row_ids, indptr, cols, vals, table, write,
+                          residual_weight, residual, normalization)
 
 
-def spmm_acc_plain(acc: torch.Tensor, row_ids: torch.Tensor,
+def spmm_acc_plain(acc: torch.Tensor, row_ids: Optional[torch.Tensor],
                    indptr: torch.Tensor, cols: torch.Tensor,
-                   vals: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K19: the round's per-row sums by gather,
-    scale and ``index_add_`` (in edge chunks, as :func:`spmm_plain`), then
-    one ``index_add_`` of them into ``acc``."""
-    n = row_ids.shape[0]
+                   vals: torch.Tensor, table: torch.Tensor,
+                   write: bool = False, residual_weight: float = 0.0,
+                   residual: Optional[torch.Tensor] = None,
+                   normalization: str = "none") -> torch.Tensor:
+    """Plain PyTorch version of K19 in the order of the chain it replaced
+    (a zero accumulator, the rounds' sums, the residual mix, the row
+    normalisation): the round's per-row sums by gather, scale and
+    ``index_add_`` (in edge chunks, as :func:`spmm_plain`), written into
+    or added to ``acc``, then mixed and normalised in place."""
+    n = indptr.shape[0] - 1
+    if row_ids is None and n != acc.shape[0]:
+        raise ValueError("spmm_acc: a view without row_ids must list every "
+                         "row of acc")
+    w = float(residual_weight)
+    if row_ids is not None and (write or w > 0.0
+                                or normalization != "none"):
+        raise ValueError("spmm_acc: write, the residual and the "
+                         "normalisation need a view of every row "
+                         "(row_ids=None)")
     seg = torch.repeat_interleave(
         torch.arange(n, device=acc.device), indptr[1:] - indptr[:-1])
     sums = torch.zeros((n, acc.shape[1]), dtype=torch.float32,
@@ -264,4 +297,13 @@ def spmm_acc_plain(acc: torch.Tensor, row_ids: torch.Tensor,
         e = s + chunk
         scaled = table.index_select(0, cols[s:e]).float() * vals[s:e, None]
         sums.index_add_(0, seg[s:e], scaled)
-    return acc.index_add_(0, row_ids.long(), sums)
+    if row_ids is not None:
+        acc.index_add_(0, row_ids.long(), sums)
+    elif write:
+        acc.copy_(sums)
+    else:
+        acc.add_(sums)
+    if w > 0.0:
+        acc.copy_((1.0 - w) * acc + w * residual.float())
+    normalize_plain(acc, normalization)
+    return acc

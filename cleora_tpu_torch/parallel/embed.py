@@ -17,9 +17,10 @@ the only shard.  Each iteration, on every rank (:func:`_local_step`):
    the single-device loop's, so one shard is bitwise ``embed()``).
    ``halo="overlap"`` fuses 1 and 2: P-1 point-to-point rounds, each
    slab packed by K16 and sent with ``batch_isend_irecv`` while kernel
-   K19 adds the previous round's edges into a float32 accumulator;
-3. the row normalization of the overlap rounds' sum (kernel K2), or the
-   spectral rescale with an all-reduced Gram matrix;
+   K19 sums the previous round's edges into a float32 accumulator (the
+   first round writes it, the last mixes the residual and normalises);
+3. the spectral rescale with an all-reduced Gram matrix, or K2 for rows
+   wider than K1's and K19's epilogue normalises;
 4. whitening with global statistics: the masked column sum and the D×D
    covariance are local full-float32 products, all-reduced, then one
    replicated ``torch.linalg.eigh`` and the projection product.
@@ -36,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from .._util import full_float32_matmul, to_host
 from ..ops.halo import halo_pack
 from ..ops.loop import effective_residual_weight
@@ -178,22 +180,78 @@ def _check_rows(name: str, a: np.ndarray, n: int) -> None:
         raise ValueError(f"malformed {name} plan: row out of range")
 
 
+def overlap_views(rounds: list, rps: int, device: torch.device) -> list:
+    """One shard's rounds (its ``RoundCsr`` list) as K19's device
+    views ``(row_ids, indptr, cols, vals, hubs)``: the first and the last
+    round over every one of the ``rps`` rows (``row_ids`` None, an empty
+    range for a row without the round's edges), so the first writes the
+    accumulator and the last mixes and normalises every row; the middle
+    rounds over their compact rows.  ``hubs`` is each view's
+    :class:`kernels.HubPlan` on CUDA (a row's cut reads its degree in the
+    round alone), else None."""
+    views = []
+    for r, rc in enumerate(rounds):
+        row_ids, indptr = rc.row_ids, rc.indptr
+        if r in (0, len(rounds) - 1):
+            counts = np.zeros(rps, dtype=np.int64)
+            counts[row_ids] = np.diff(indptr)
+            indptr = np.zeros(rps + 1, dtype=np.int64)
+            np.cumsum(counts, out=indptr[1:])
+            row_ids = None
+        row_ids, indptr, cols, vals = (
+            None if a is None else torch.from_numpy(a).to(device)
+            for a in (row_ids, indptr, rc.cols, rc.vals))
+        hubs = kernels.hub_plan(indptr) if device.type == "cuda" else None
+        views.append((row_ids, indptr, cols, vals, hubs))
+    return views
+
+
+def overlap_modes(r: int, n_rounds: int, x: torch.Tensor,
+                  residual_weight: float = 0.0,
+                  normalization: str = "none") -> dict:
+    """K19's modes for round ``r`` of ``n_rounds`` (``spmm_acc``'s keyword
+    arguments): round 0 writes, later rounds add, and the last round mixes
+    in ``x`` (the shard's state) with ``residual_weight`` and applies the
+    ``"l2"``/``"l1"`` ``normalization``."""
+    last = r == n_rounds - 1
+    return dict(write=r == 0,
+                residual_weight=residual_weight if last else 0.0,
+                residual=x if last else None,
+                normalization=normalization if last else "none")
+
+
+def overlap_round(acc: torch.Tensor, views: list, r: int,
+                  table: torch.Tensor, x: torch.Tensor,
+                  residual_weight: float = 0.0,
+                  normalization: str = "none") -> torch.Tensor:
+    """Round ``r`` of :func:`overlap_views` ``views`` (K19) into float32
+    ``acc`` from the round's gather ``table``, in the modes of
+    :func:`overlap_modes` (with one shard round 0 is the last, and the
+    step is K1's)."""
+    row_ids, indptr, cols, vals, hubs = views[r]
+    return spmm_acc(acc, row_ids, indptr, cols, vals, table, hubs=hubs,
+                    **overlap_modes(r, len(views), x, residual_weight,
+                                    normalization))
+
+
 class OverlapExchange:
     """``halo="overlap"`` on this shard (cleora_tpu/parallel/embed.py:
     _overlap_propagate): calling it with the shard's state returns the
-    float32 local SpMM.  In round r the shard sends the slab its peer
-    (me + r) mod P reads, packed by K16, and receives the one from
-    (me - r) mod P with one ``batch_isend_irecv``; K19 adds round 0's
-    edges (the shard's own rows) while round 1 is in flight, and each
-    later round's edges once its slab has arrived, while the next one is
-    in flight.  Two send and two receive slabs alternate, so a slab is
-    repacked only after the send that read it has completed; on NCCL the
-    transfers wait for the packs on the compute stream, and ``wait()``
-    makes the compute stream wait for the transfers.  One shard runs round
-    0 alone."""
+    float32 local SpMM with the residual mix and the ``"l2"``/``"l1"``
+    ``normalization`` applied.  In round r the shard sends the slab its
+    peer (me + r) mod P reads, packed by K16, and receives the one from
+    (me - r) mod P with one ``batch_isend_irecv``; K19 writes round 0's
+    sums (the shard's own rows) while round 1 is in flight, and adds each
+    later round's once its slab has arrived, while the next one is in
+    flight; the last round mixes and normalises every row.  Two send and
+    two receive slabs alternate, so a slab is repacked only after the send
+    that read it has completed; on NCCL the transfers wait for the packs
+    on the compute stream, and ``wait()`` makes the compute stream wait
+    for the transfers.  One shard runs round 0 alone: K1's step."""
 
     def __init__(self, mesh: ShardGroup, sharded: ShardedCsr,
-                 plan: OverlapPlan, width: int, dtype: str = "float32"):
+                 plan: OverlapPlan, width: int, dtype: str = "float32",
+                 residual_weight: float = 0.0, normalization: str = "none"):
         k, P = mesh.rank, mesh.world_size
         rps, M = sharded.rows_per_shard, plan.M
         if len(plan.rounds) != P:
@@ -202,12 +260,10 @@ class OverlapExchange:
                 f"group has {P} ranks")
         _check_rows("overlap", plan.send_idx, rps)
         dev = mesh.device
-        self.rounds = []
         for r, rc in enumerate(plan.rounds[k]):
             _check_rows("overlap", rc.row_ids, rps)
             _check_rows("overlap", rc.cols, rps if r == 0 else M)
-            self.rounds.append(tuple(torch.from_numpy(a).to(dev) for a in (
-                rc.row_ids, rc.indptr, rc.cols, rc.vals)))
+        self.views = overlap_views(plan.rounds[k], rps, dev)
         # round r packs what peer (k + r) mod P reads of my rows
         self.send = [torch.from_numpy(np.ascontiguousarray(
             plan.send_idx[k, (k + r) % P][None])).to(dev) for r in range(P)]
@@ -218,6 +274,7 @@ class OverlapExchange:
         self.slabs = [torch.empty((1, M, int(width)), dtype=state_dtype,
                                   device=dev) for _ in range(2 * n_slabs)]
         self.mesh, self.rps, self.M = mesh, rps, M
+        self.w, self.normalization = float(residual_weight), normalization
 
     def _post(self, x: torch.Tensor, r: int):
         """Pack round r's slab and start its transfer; returns (works,
@@ -235,17 +292,23 @@ class OverlapExchange:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         P = self.mesh.world_size
-        acc = torch.zeros((self.rps, x.shape[1]), dtype=torch.float32,
+        # round 0 writes every row: no zero fill
+        acc = torch.empty((self.rps, x.shape[1]), dtype=torch.float32,
                           device=x.device)
+
+        def step(r, table):
+            overlap_round(acc, self.views, r, table, x, self.w,
+                          self.normalization)
+
         pending = self._post(x, 1) if P > 1 else None
-        spmm_acc(acc, *self.rounds[0], x)
+        step(0, x)
         for r in range(1, P):
             works, recv = pending
             for w in works:
                 w.wait()
             if r + 1 < P:
                 pending = self._post(x, r + 1)
-            spmm_acc(acc, *self.rounds[r], recv.view(self.M, x.shape[1]))
+            step(r, recv.view(self.M, x.shape[1]))
         return acc
 
 
@@ -300,9 +363,10 @@ def _local_step(x: torch.Tensor, propagate: Callable, mesh: ShardGroup, *,
                 n_rows: int, n_real: int, normalization: str,
                 do_whiten: bool) -> torch.Tensor:
     """One propagate → normalize → whiten step on this shard;
-    ``propagate(x)`` is the exchange, the local SpMM and the residual mix
-    in float32.  bf16 state is exchanged in bf16; everything after the
-    gather computes in float32 and the result is stored back at x's dtype.
+    ``propagate(x)`` is the exchange, the local SpMM, the residual mix and
+    the l2/l1 normalisation that K1 and K19 fuse, in float32.  bf16 state
+    is exchanged in bf16; everything after the gather computes in float32
+    and the result is stored back at x's dtype.
     ``n_real`` rows of the shard are real (a prefix: the pad rows are the
     last global rows)."""
     y = propagate(x)
@@ -379,10 +443,9 @@ def build_sharded_embed(
     nd = n_rows * int(feature_dim)
     state_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     w = float(residual_weight)
-    # K1 normalises l2/l1 rows in its epilogue; the overlap rounds' sum
-    # (K19) is normalised after it
-    fused = ("none" if overlap is not None and hier is None
-             or normalization not in ("l2", "l1") else normalization)
+    # K1 and K19's last round mix the residual and normalise l2/l1 rows in
+    # their epilogue (K2 after them past one column tile)
+    fused = normalization if normalization in ("l2", "l1") else "none"
     if hier is not None:
         exchange = HierExchange(mesh, sharded, hier, feature_dim, dtype)
 
@@ -390,13 +453,8 @@ def build_sharded_embed(
             return spmm(exchange.csr, exchange(x), w, residual=x,
                         normalization=fused)
     elif overlap is not None:
-        exchange = OverlapExchange(mesh, sharded, overlap, feature_dim, dtype)
-
-        def propagate(x):
-            y = exchange(x)
-            if w > 0.0:  # the residual mix of cleora_tpu/parallel/embed.py:193
-                y = (1.0 - w) * y + w * x.float()
-            return y
+        propagate = OverlapExchange(mesh, sharded, overlap, feature_dim,
+                                    dtype, w, fused)
     else:
         csr, send_idx = shard_operator(mesh, sharded, halo, feature_dim,
                                        dtype)

@@ -8,9 +8,10 @@ loop (cleora_tpu_torch/parallel) against the JAX package's
   the padded groups' edges.
 * K19's plain version (``spmm_acc_plain``) against a float64 dense
   reference (rtol=1e-5, atol=1e-6: float32 sums in another order).
-* One shard in this process: both modes against the port's flat loop
-  (hier bitwise: K1 over the same rows in the same order; overlap within
-  rtol=1e-4, atol=1e-5) and against the JAX package's one-device run
+* One shard in this process: both modes bitwise the port's flat loop
+  (hier: K1 over the same rows in the same order; overlap: round 0 over
+  every row, written, mixed and normalised in the flat loop's order) and
+  against the JAX package's one-device run
   (unwhitened rtol=1e-4, atol=1e-5; whitened by row Gram matrices within
   atol=2e-5, eigenvector signs being arbitrary; bf16 storage atol=2e-2).
 * Several ranks: one spawned run of 4 gloo ranks (overlap, and hier on a
@@ -185,17 +186,15 @@ def one_shard_refs(graphs):
 @pytest.mark.parametrize("mode", ["overlap", "hier"])
 @pytest.mark.parametrize("case", sorted(_ONE))
 def test_one_shard_modes(graphs, one_shard_refs, mode, case):
-    """With one shard "overlap" is round 0 alone (K19 over every edge) and
-    "hier" the 1×1 grid: the port's flat loop, and the JAX package's."""
+    """With one shard "overlap" is round 0 alone (K19 over every edge,
+    with the residual mix and the normalisation) and "hier" the 1×1 grid:
+    the port's flat loop, bit for bit, and the JAX package's."""
     _, tg = graphs
     kw = dict(feature_dim=D, num_iterations=ITERS, **_ONE[case], **CPU)
     flat = embed_sharded(tg, halo=False, **kw)
     ours = embed_sharded(tg, halo=mode, **kw)
     assert ours.shape == flat.shape and ours.dtype == np.float32
-    if mode == "hier":
-        assert np.array_equal(ours, flat)
-    else:
-        np.testing.assert_allclose(ours, flat, **TOL)
+    assert np.array_equal(ours, flat)
     ref = one_shard_refs[case]
     if case == "bf16":
         np.testing.assert_allclose(ours, ref, rtol=0, atol=2e-2)

@@ -30,9 +30,12 @@ separate residual operand as K1; K17 and K18 bitwise (K8's and K12's
 arithmetic on each rank's rows, K18's hop through K12's own device code;
 one nonzero term per summed lane), K18's stages bitwise their plain
 versions; K19
-rtol=1e-5, atol=1e-6 in float32 and bfloat16 (exact bf16→float32 loads;
-the row sum in another order than the plain version's atomics), and
-bitwise K1 over a round that holds every edge (K1's loop, in K1's order);
+rtol=1e-5, atol=1e-6 in float32 and bfloat16 in each mode (add over
+compact rows, write, and the last round's residual mix and normalisation;
+exact bf16→float32 loads; the row sum in another order than the plain
+version's atomics, the mix contracted), and one shard's round 0 with the
+residual and the normalisation bitwise K1 with them fused (K1's loop,
+slices and epilogue, in K1's order);
 K1 with the l2/l1 normalisation in its epilogue, with hub rows cut into
 slices, and the fused attention pass rtol=1e-5, atol=1e-6 against
 spmm_plain / K4's plain weights followed by the plain normalisation (the
@@ -98,6 +101,8 @@ from cleora_tpu_torch.ops.walk import (
     walk_uniform_plain,
     walk_uniform_sharded,
 )
+from cleora_tpu_torch.parallel.embed import overlap_views
+from cleora_tpu_torch.parallel.shard import RoundCsr
 from cleora_tpu_torch.ops.spmm import (
     CsrMatrix,
     spmm,
@@ -585,15 +590,34 @@ def test_k11_matches_plain(cuda_device, passes):
         cooccur.ppmi_colsum_plain(ctx, cnt, col_p, total_p)
     torch.cuda.synchronize()
     assert torch.equal(col, col_p) and torch.equal(total, total_p)
-    for cen, ctx, cnt, _ in ranges:
+    # on a graph of nh nodes: rows over LONG_SLICE entries (node 1, and
+    # node nh - 1 at the range's end), and an empty range
+    nh = 2 * kernels.LONG_SLICE
+    hub = kernels.LONG_SLICE + 300
+    cen_h = torch.tensor([1] * hub + [7] * 3 + [nh - 1] * (nh - 8),
+                         dtype=torch.int32, device=cuda_device)
+    ctx_h = torch.cat([torch.randperm(nh, device=cuda_device)[:k].sort().values
+                       for k in (hub, 3, nh - 8)]).int()
+    cnt_h = torch.randint(1, 1000, cen_h.shape, dtype=torch.int32,
+                          device=cuda_device)
+    col_h = torch.randint(1, 10**6, (nh,), device=cuda_device)
+    total_h = torch.tensor([10**9], device=cuda_device)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    cases = ([(*r[:3], col, total, n) for r in ranges]
+             + [(cen_h, ctx_h, cnt_h, col_h, total_h, nh),
+                (empty, empty, empty, col, total, n)])
+    for cen, ctx, cnt, c, t, nn in cases:
         before = kernels.LAUNCHES["ppmi"]
-        vals, indptr = kernels.ppmi(cen, ctx, cnt, col, total, n)
+        vals, indptr = kernels.ppmi(cen, ctx, cnt, c, t, nn)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["ppmi"] == before + 1
-        want_vals, want_indptr = cooccur.ppmi_values_plain(cen, ctx, cnt, col,
-                                                           total, n)
+        assert kernels.LAUNCHES["ppmi"] == before + (cen.numel() > 0)
+        want_vals, want_indptr = cooccur.ppmi_values_plain(cen, ctx, cnt, c,
+                                                           t, nn)
         assert torch.equal(indptr, want_indptr)
         torch.testing.assert_close(vals, want_vals, rtol=1e-6, atol=0.0)
+    with pytest.raises(ValueError, match="cen must be non-decreasing"):
+        kernels.ppmi(cen_h.flip(0).contiguous(), ctx_h, cnt_h, col_h,
+                     total_h, nh)
 
 
 def weighted_walk_tables(n, seed, device, hub_degree=3000):
@@ -1253,39 +1277,58 @@ def test_k19_matches_plain(cuda_device, d, dtype, offset):
     every width class, and a table that starts one element past an
     aligned address (the scalar path then)."""
     arrays = _round_arrays(3000, 700, d)
-    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     base = torch.randn((700 * d + offset,), device=cuda_device).to(dtype)
     table = base[offset:].view(700, d)
+    res = torch.randn((3000, d), device=cuda_device).to(dtype)
     acc0 = torch.randn((3000, d), device=cuda_device)
-    before = kernels.LAUNCHES["spmm_acc"]
-    got = spmm_acc(acc0.clone(), *args, table)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["spmm_acc"] == before + 1
-    want = spmm_acc_plain(acc0.clone(), *args, table)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # a compact round (add), then views of every row: the first round
+    # (write) and the last (add, residual mix, normalisation)
+    rc = RoundCsr(*arrays)
+    full = overlap_views([rc, rc], 3000, cuda_device)[0][:4]
+    compact = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    hubs = kernels.hub_plan(compact[1])
+    assert hubs.item_rows.numel() > 0  # row 3 is cut into slices
+    modes = [(compact, {}, kernels.hub_plan(compact[1])),
+             (full, dict(write=True), kernels.hub_plan(full[1])),
+             (full, dict(residual_weight=0.3, residual=res,
+                         normalization="l2" if d <= 1024 else "none"),
+              kernels.hub_plan(full[1]))]
+    for args, kw, hubs in modes:
+        before = kernels.LAUNCHES["spmm_acc"]
+        got = spmm_acc(acc0.clone(), *args, table, hubs=hubs, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["spmm_acc"] == before + 1
+        want = spmm_acc_plain(acc0.clone(), *args, table, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    got = spmm_acc(acc0.clone(), *compact, table, hubs=modes[0][2])
     untouched = torch.ones(3000, dtype=torch.bool, device=cuda_device)
-    untouched[args[0].long()] = False
+    untouched[compact[0].long()] = False
     assert torch.equal(got[untouched], acc0[untouched])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,norm", [(0.0, "l2"), (0.3, "l1"), (0.3, "none")])
 @cuda
-def test_k19_over_every_edge_is_k1(cuda_device, dtype):
-    """Round 0 of one shard holds every edge: into a zero accumulator K19
-    gives K1's output bitwise (the same loop in the same edge order)."""
-    indptr, cols, vals = markov_csr(3000, 4, 2000)
+def test_k19_over_every_edge_is_k1(cuda_device, dtype, w, norm):
+    """Round 0 of one shard holds every edge and is its last round: the
+    step is one K19 launch, bitwise K1 with the residual mix and the
+    normalisation fused (the same loop, slices and epilogue in K1's
+    order), on a graph with a row over LONG_SLICE entries."""
+    indptr, cols, vals = markov_csr(3000, 4, kernels.LONG_SLICE + 2000)
     x = torch.randn((3000, 256), device=cuda_device).to(dtype)
     csr = CsrMatrix.from_numpy(indptr, cols, vals, cuda_device)
-    deg = np.diff(indptr)
-    rows = np.nonzero(deg)[0].astype(np.int32)
-    compact = np.zeros(rows.shape[0] + 1, dtype=np.int64)
-    np.cumsum(deg[rows], out=compact[1:])
-    acc = torch.zeros((3000, 256), device=cuda_device)
-    spmm_acc(acc, torch.from_numpy(rows).to(cuda_device),
-             torch.from_numpy(compact).to(cuda_device), csr.indices,
-             csr.vals, x)
+    rc = RoundCsr.from_edges(np.repeat(np.arange(3000), np.diff(indptr)),
+                             cols, vals)
+    (view,) = overlap_views([rc], 3000, cuda_device)
+    assert view[4].item_rows.numel() == 2  # the hub's slices
+    acc = torch.full((3000, 256), float("nan"), device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    spmm_acc(acc, *view[:4], x, write=True, residual_weight=w, residual=x,
+             normalization=norm, hubs=view[4])
     torch.cuda.synchronize()
-    assert torch.equal(acc, spmm(csr, x))
+    assert kernels.LAUNCHES == before | {
+        "spmm_acc": before["spmm_acc"] + 1}
+    assert torch.equal(acc, spmm(csr, x, w, normalization=norm))
 
 
 @cuda
@@ -1318,6 +1361,25 @@ def test_k19_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="indptr int64"):
         kernels.spmm_acc_(acc, arrays[0], arrays[1].int(), *arrays[2:],
                           table)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
+
+
+def test_k19_wrapper_rejects_bad_modes():
+    arrays = [torch.from_numpy(a) for a in _round_arrays(30, 7, 0, 9)]
+    acc, table = torch.zeros((30, 4)), torch.zeros((7, 4))
+    kernels.reset_launches()
+    for kw in (dict(write=True), dict(normalization="l1")):
+        with pytest.raises(ValueError, match="need a view of every row"):
+            kernels.spmm_acc_(acc, *arrays, table, **kw)
+    with pytest.raises(ValueError, match="must list every row of acc"):
+        kernels.spmm_acc_(acc, None, *arrays[1:], table)
+    with pytest.raises(ValueError, match="residual must be acc's shape"):
+        kernels.spmm_acc_(torch.zeros((10, 4)), None, *arrays[1:], table,
+                          residual_weight=0.5)
+    with pytest.raises(ValueError, match="not normalised in the epilogue"):
+        kernels.spmm_acc_(torch.zeros((10, 1028)), None, arrays[1],
+                          *arrays[2:], torch.zeros((7, 1028)),
+                          normalization="l2")
     assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
