@@ -50,9 +50,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1000), (37, 8, 256, 100000), (64, 4, 300, 5000) with uint16 codes, (3,
    64, 1024, 2000) with int32 codes, whose tables are gathered from HBM};
    K14 on K1's hub CSR at C in {2, 7, 40, 47} and alpha in {0.5, 0.3}
-   (clamped rows bitwise, the rest rtol=1e-5, atol=1e-6: the row sum in
-   another order than the plain version's atomics; also whether it equals
-   the plain version on the CPU, which adds in edge order); K15's forward
+   (clamped rows bitwise, the rest rtol=1e-5, atol=1e-6 against the plain
+   version on the card, whose atomics add in another order, and bitwise
+   equal to the plain version on the CPU, which adds in edge order as K14
+   does); K15's forward
    (h and its packed bits) and backward bitwise at p in {0, 0.5} on odd
    shapes, and against the CPU's; the GCN SpMM's backward (K1 over the transpose, through
    ops/gcn.py's CsrSpmm) against the plain SpMM (rtol=1e-5, atol=1e-6);
@@ -191,7 +192,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    label propagation's predictions equal but for near-ties (top two within
    1e-6), 2 GCN steps at dropout 0.5 (a cut from 5) and one epoch of the
    linear probe
-   with parameters within 1e-4 relative; K14 at C = 47 and 40, K15 at
+   with parameters within 1e-4 relative; K14 at C = 47 (also at the
+   stride of 48 that label propagation carries it at, its first 47
+   columns bitwise the 47-column output) and 40, K15 at
    width 64 and K1 over the GCN operator's transpose at width 64 on phase
    5's 1,958,363-row graph against their plain versions, timed beside
    torch.sparse.mm + tail + where, F.dropout(F.relu) and its autograd
@@ -236,14 +239,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (atol=1e-3);
 13. the walk siblings over the shard group in a one-rank NCCL group: (a)
    K17 (kernels/walk_owned.cu) and K18 (kernels/walk2_owned.cu) on phase
-   3's weighted 100,000-node graph, the row-sharded tables cut for one
-   rank and for two ranks launched in turn and summed in this process,
-   4,096 walks of 10 (K18 also over four ranks' slices): the walks
-   bitwise equal to K8's and K12's and to the plain versions of K17 and
-   K18 run on the card, (p, q) in {(0.5, 2), (2, 0.5)}, K18 at one slice
-   one local stage a hop; (b) embed_deepwalk on phase 7's corpus in phase 7's
+   3's weighted 100,000-node graph, the row-sharded tables cut for one,
+   two and four ranks, the slices launched in turn in this process,
+   4,096 walks of 10: the walks bitwise equal to K8's and K12's and to the
+   plain versions of K17 and K18 run on the card, (p, q) in {(0.5, 2),
+   (2, 0.5)}, K17 one launch a slice a round (one round at one slice, at
+   most 9 past it), K18 at one slice one local stage a hop; (b)
+   embed_deepwalk on phase 7's corpus in phase 7's
    configuration with n_devices=1, walk_tables="sharded",
-   factorization="sharded" as a main path (K17 79 times a batch): its
+   factorization="sharded" as a main path (K17 once a batch): its
    first walk batch bitwise equal to phase 7's (K17 against K8), every
    count range equal to phase 7's (entries, pair sum and a weighted key
    sum), the embedding by the Gram matrix of 4,096 sampled rows against
@@ -256,10 +260,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stage stopwatch: its first batch bitwise equal to phase 8's K12 walks,
    exactly phase 8's pair count, its K18 launches; (d) K17 over phase 7's
    first batch (131,072 walks of 80) and K18 over phase 8's (131,072
-   walks of 10) at one slice and at four slices summed in this process,
-   timed against their plain versions on the card (K18 at one slice) and
-   K8's and K12's time on the same walks, with their bounds in 32-byte
-   sectors and K18's launches a hop; (e) ShardedDeviceIndex(mesh=)
+   walks of 10) at one slice and at four slices in this process, timed
+   against their plain versions on the card (at one slice) and K8's and
+   K12's time on the same walks, with their bounds in 32-byte sectors,
+   K17's rounds and K18's launches a hop; (e) ShardedDeviceIndex(mesh=)
    over phase 5's output, 1,024 queries at top_k=10, equal to the
    unsharded index's scores and, but for exact ties, indices;
 14. the overlapped and hierarchical halo exchanges on phase 5's graph and
@@ -782,7 +786,7 @@ def check_k14(dev: torch.device, csr) -> None:
     """K14 against its plain version on the hub CSR: clamped rows bitwise,
     the rest rtol=1e-5, atol=1e-6 (the row sum in another order than the
     plain version's atomics, about 7e-6 relative on the hub's 50,000
-    edges); also whether it equals the plain version run on the CPU, which
+    edges), and bitwise equal to the plain version run on the CPU, which
     adds in edge order as K14 does."""
     from cleora_tpu_torch.ops.label_prop import (
         label_prop_step,
@@ -804,10 +808,10 @@ def check_k14(dev: torch.device, csr) -> None:
                          / want.abs().clamp_min(1e-30)).max())
             on_cpu = label_prop_step_plain(host, f.cpu(), y.cpu(), mask.cpu(),
                                            alpha, beta)
+            assert torch.equal(got.cpu(), on_cpu), (c, alpha)
             log(f"K14 C={c} alpha={alpha}: max |err| {max_err(got, want):.3e}"
                 f", max relative {rel:.3e}, clamped rows bitwise; bitwise "
-                f"equal to the plain version on the CPU: "
-                f"{torch.equal(got.cpu(), on_cpu)}")
+                f"equal to the plain version on the CPU")
 
 
 def check_k15(dev: torch.device) -> None:
@@ -3728,6 +3732,20 @@ def node_classification(dev: torch.device, card: str, big) -> list:
             f"max |err| {lib_err:.3e}); bound {bound:.3f} ms; max |err| "
             f"{err:.3e}; [{card}]")
         k14[c] = (ms, plain_ms, lib_ms, err, nbytes, flops)
+        wide = -(-c // cl.LABEL_STRIDE) * cl.LABEL_STRIDE
+        if wide != c:  # the stride label propagation carries C columns at
+            fw, yw = F.pad(f, (0, wide - c)), F.pad(y, (0, wide - c))
+            bufw = torch.empty_like(fw)
+            label_prop_step(S, fw, yw, mask, 0.5, 0.5, out=bufw)
+            assert torch.equal(bufw[:, :c], got), c
+            wide_ms = time_ms(lambda: label_prop_step(S, fw, yw, mask, 0.5,
+                                                      0.5, out=bufw))
+            wide_bound = (nbytes + 12 * n * (wide - c)) / HBM_BYTES_PER_S
+            log(f"K14 C={c} at a stride of {wide} (label propagation's "
+                f"layout, float4 groups): {wide_ms:.3f} ms, its first {c} "
+                f"columns bitwise the {c}-column output; bound "
+                f"{wide_bound * 1e3:.3f} ms; [{card}]")
+            del fw, yw, bufw
         del f, y, mask, buf, got, want
     del S, s_lib
 
@@ -4274,7 +4292,7 @@ K18_TIMED_LENGTH = 10
 def plain_walk_kernels():
     """K17's and K18's wrappers in ``kernels`` replaced by their plain
     versions, so that ops/walk.py's walk loops run the plain stages on the
-    card's tensors (the plain versions' signatures are the wrappers'
+    card's tensors (the plain versions' signatures are the wrappers'; K18's
     without the output buffer)."""
     import cleora_tpu_torch.ops.walk as walk
     from cleora_tpu_torch import kernels
@@ -4287,7 +4305,7 @@ def plain_walk_kernels():
         return out.copy_(walk.walk2_local_plain(*args[:-1],
                                                 shared=out.dim() == 2))
 
-    swaps = {"walk_owned": into_out(walk.walk_owned_hop_plain),
+    swaps = {"walk_owned": walk.walk_owned_round_plain,
              "walk2_local": local,
              "walk2_propose": into_out(walk.walk2_propose_plain),
              "walk2_member": into_out(walk.walk2_member_plain),
@@ -4313,10 +4331,11 @@ def rank_slices(arrays, n: int, world: int, dev: torch.device) -> list:
 
 
 def check_k17_k18(dev: torch.device) -> None:
-    """K17 and K18 with one rank's slice and with two (K17, K18) and four
-    (K18) ranks' slices summed in this process, bitwise against K8 and K12
-    and against their own plain versions on the card; K18 at one slice
-    launches its local stage once a hop and nothing else."""
+    """K17 and K18 with one, two and four ranks' slices in this process,
+    bitwise against K8 and K12 and against their own plain versions on the
+    card; K17 launches once a slice a round, one round at one slice and at
+    most walk_length - 1 past it; K18 at one slice launches its local stage
+    once a hop and nothing else."""
     from cleora_tpu_torch import kernels
     from cleora_tpu_torch.ops import walk
 
@@ -4331,18 +4350,22 @@ def check_k17_k18(dev: torch.device) -> None:
     length, seed, base = K17_CHECK_LENGTH, 21, 5
     k8 = walk.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
                            base, n)
+    k17_rounds = {}
     for world in (1, 2, 4):
-        if world < 4:
-            first = rank_slices(arrays[:3], n, world, dev)
-            before = kernels.LAUNCHES["walk_owned"]
-            got = walk.walk_uniform_sharded(first, starts, length, seed,
-                                            base)
-            assert kernels.LAUNCHES["walk_owned"] == before + world * (
-                length - 1)
-            with plain_walk_kernels():
-                plain = walk.walk_uniform_sharded(first, starts, length,
-                                                  seed, base)
-            assert torch.equal(got, k8) and torch.equal(plain, k8), world
+        first = rank_slices(arrays[:3], n, world, dev)
+        before = kernels.LAUNCHES["walk_owned"]
+        stats = {}
+        got = walk.walk_uniform_sharded(first, starts, length, seed, base,
+                                        stats=stats)
+        rounds = k17_rounds[world] = stats["rounds"]
+        assert kernels.LAUNCHES["walk_owned"] == before + world * rounds
+        assert rounds == 1 if world == 1 else 1 <= rounds <= length - 1, (
+            world, rounds)
+        with plain_walk_kernels():
+            plain = walk.walk_uniform_sharded(first, starts, length, seed,
+                                              base, stats=stats)
+        assert stats["rounds"] == rounds, (world, stats, rounds)
+        assert torch.equal(got, k8) and torch.equal(plain, k8), world
         second = rank_slices(arrays, n, world, dev)
         for p, q in K18_PQ:
             inv_p = float(np.float32(1.0 / p))
@@ -4360,23 +4383,23 @@ def check_k17_k18(dev: torch.device) -> None:
             assert torch.equal(got, k12) and torch.equal(plain, k12), (
                 world, p, q)
     torch.cuda.synchronize()
-    log(f"K17 over 1 and 2 rank slices, K18 over 1, 2 and 4 "
+    log(f"K17 and K18 over 1, 2 and 4 rank slices "
         f"({K17_CHECK_WALKS} walks of {K17_CHECK_LENGTH} on a {n}-node "
         f"graph with a hub of degree {int(t.deg[1])}, a dead row, an "
-        f"isolated node and pad lanes; K18 at (p, q) in {K18_PQ}, one "
-        "local stage a hop at one slice): bitwise equal to K8, K12 and "
-        "their plain versions on the card")
+        f"isolated node and pad lanes; K17 rounds by slices {k17_rounds}; "
+        f"K18 at (p, q) in {K18_PQ}, one local stage a hop at one slice): "
+        "bitwise equal to K8, K12 and their plain versions on the card")
 
 
-def k17_sector_bytes(walks: torch.Tensor, deg: torch.Tensor, n: int) -> int:
-    """The bytes K17's hops need, in 32-byte sectors, as K8's: a live lane
+def k17_sector_bytes(walks: torch.Tensor, n: int) -> int:
+    """The bytes K17's walks need, in 32-byte sectors, as K8's: a live hop
     reads deg of its node and, when it moves, indptr and cols (one sector
-    per random read); every hop reads the frontier and writes one int32 a
-    lane."""
+    per random read); the walks are written and the starts read once.  The
+    lane states that rounds past one slice carry are not counted: they are
+    the slicing's, not the walks' work."""
     reads = int((walks[:, :-1] < n).sum())
     moves = int((walks[:, 1:] < n).sum())
-    return 32 * (reads + 2 * moves) + 8 * walks.shape[0] * (
-        walks.shape[1] - 1)
+    return 32 * (reads + 2 * moves) + 4 * walks.numel() + 4 * walks.shape[0]
 
 
 def same_neighbours(got, want) -> int:
@@ -4442,7 +4465,7 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                 backend="device", cooccurrence="device", n_devices=1,
                 walk_tables="sharded", factorization="sharded")
 
-        expected = {"walk_owned": batches * (WALK_LENGTH - 1),
+        expected = {"walk_owned": batches,  # one launch a batch
                     "pair_enum": batches,
                     "run_length": batches,
                     "run_length_merge": (batches - 1) * passes,
@@ -4532,22 +4555,35 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
 
         # ---- (d) K17 and K18 at the main path's shapes, timed
         indptr, cols, deg_, _ = alg._walk_csr(g)
-        t1 = rank_slices((indptr, cols, deg_), n, 1, dev)
         starts = p7["walks"][:, 0].contiguous().to(dev)
-        k17 = lambda: walk.walk_uniform_sharded(t1, starts, WALK_LENGTH, 0, 0)
-        walks = k17()
-        assert torch.equal(walks.cpu(), p7["walks"])
-        k17_ms = time_ms(k17)
-        with plain_walk_kernels():
-            assert torch.equal(k17(), walks)
-            k17_plain_ms = time_ms(k17, reps=3, warmup=1)
-        k17_bytes = k17_sector_bytes(walks, t1[0].deg, n)
-        log(f"K17 ({walks.shape[0]} walks of {WALK_LENGTH}, "
-            f"{WALK_LENGTH - 1} launches) {k17_ms:.3f} ms (plain "
-            f"{k17_plain_ms:.3f}; K8 on the same walks {p7['k8_ms']:.3f}); "
-            f"bound {k17_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, "
-            f"32-byte sectors); [{card}]")
-        del walks, t1, starts
+        k17_ms, k17_rounds = {}, {}
+        for world in (1, 4):
+            tw = rank_slices((indptr, cols, deg_), n, world, dev)
+            stats = {}
+            k17 = lambda: walk.walk_uniform_sharded(tw, starts, WALK_LENGTH,
+                                                    0, 0, stats=stats)
+            walks = k17()
+            assert torch.equal(walks.cpu(), p7["walks"]), world
+            k17_rounds[world] = stats["rounds"]
+            k17_ms[world] = time_ms(k17)
+            if world == 1:
+                with plain_walk_kernels():
+                    assert torch.equal(k17(), walks)
+                    k17_plain_ms = time_ms(k17, reps=3, warmup=1)
+            del tw
+        t8 = walk.WalkTables(indptr, cols, deg_, n, dev)
+        k8_ms = time_ms(lambda: walk.walk_uniform(
+            t8.indptr, t8.cols, t8.deg, starts, WALK_LENGTH, 0, 0, n))
+        k17_bytes = k17_sector_bytes(walks, n)
+        log(f"K17 ({walks.shape[0]} walks of {WALK_LENGTH}): one slice "
+            f"{k17_ms[1]:.3f} ms ({k17_rounds[1]} round, one launch; plain "
+            f"{k17_plain_ms:.3f}), four slices in this process "
+            f"{k17_ms[4]:.3f} ms ({k17_rounds[4]} rounds, a launch a slice "
+            f"each); K8 on the same walks {k8_ms:.3f} (phase 7 "
+            f"{p7['k8_ms']:.3f}); bound "
+            f"{k17_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes, 32-byte "
+            f"sectors); [{card}]")
+        del walks, t8, starts
         arrays = alg._walk_csr(g, with_vals=True)
         starts = n2v_walks[:, 0].contiguous().to(dev)
         tries = walk.walk2_tries(N2V_Q)
@@ -4608,7 +4644,7 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
     src = "cleora_tpu_torch/kernels/"
     return [
         kernel_row("walk_owned", src + "walk_owned.cu",
-                   "cleora_tpu/algorithms.py:1380", k17_ms, k17_plain_ms,
+                   "cleora_tpu/algorithms.py:1380", k17_ms[1], k17_plain_ms,
                    None, 0.0, k17_bytes, 0, launches["walk_owned"]),
         kernel_row("walk2_owned", src + "walk2_owned.cu",
                    "cleora_tpu/algorithms.py:1574", k18_ms[1], k18_plain_ms,

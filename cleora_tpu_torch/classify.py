@@ -12,8 +12,8 @@ CUDA, ``"cpu"`` runs the plain PyTorch versions, and without a card and
 without ``device="cpu"`` a call raises.
 
 - Label propagation runs ``num_iterations`` launches of kernel K14
-  (``ops/label_prop.py``) over S = D⁻¹A in CSR, two buffers in turn, and
-  takes the argmax on the card.
+  (``ops/label_prop.py``) over S = D⁻¹A in CSR, two buffers in turn at a
+  stride of whole float4 groups, and takes the argmax on the card.
 - The MLP trains with torch autograd and plain SGD on full-float32 matrix
   products (the JAX program pins ``Precision.HIGHEST``); it has no kernel
   of its own.  ``hidden_dim=0`` is the linear probe.
@@ -142,17 +142,28 @@ def _label_matrix(graph, labels: Dict[str, int]):
     return Y, labeled, classes
 
 
+# label propagation carries Y, F and its two buffers at a stride rounded up
+# to this many columns, the columns past the classes zero (they stay zero:
+# each column of a step is its own), so that K14 gathers whole float4 rows
+LABEL_STRIDE = 4
+
+
 def _propagate_labels(S: CsrMatrix, Y: torch.Tensor, mask: torch.Tensor,
                       alpha: float, iters: int) -> torch.Tensor:
-    """F after ``iters`` steps from F = Y, written into two buffers in
-    turn.  ``1 − α`` is taken in float32, as the JAX program's traced
+    """F (n, C) after ``iters`` steps from F = Y, written into two buffers
+    of :data:`LABEL_STRIDE`-rounded width in turn (a view of the first C
+    columns).  ``1 − α`` is taken in float32, as the JAX program's traced
     ``1 - alpha``."""
     beta = float(np.float32(1) - np.float32(alpha))
+    c = Y.shape[1]
+    wide = -(-c // LABEL_STRIDE) * LABEL_STRIDE
+    if wide != c:
+        Y = F.pad(Y, (0, wide - c))
     buffers = [torch.empty_like(Y), torch.empty_like(Y)] if iters else []
     F_ = Y
     for i in range(iters):
         F_ = label_prop_step(S, F_, Y, mask, alpha, beta, out=buffers[i % 2])
-    return F_
+    return F_[:, :c]
 
 
 def label_propagation(

@@ -170,10 +170,11 @@ _ARGTYPES = {
     "ppmi": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64,
              _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
              _c.c_void_p, _c.c_void_p],
-    # indptr, indices, vals, f, y, mask, out, n_rows, c, alpha, beta, stream
+    # indptr, indices, vals, f, y, mask, out, n_rows, c, alpha, beta, vec4,
+    # stream
     "label_prop": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
-                   _c.c_int64, _c.c_float, _c.c_float, _c.c_void_p],
+                   _c.c_int64, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
     # z, h, mask, numel, p, q, k0, k1, epoch, layer, stream
     "relu_dropout": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                      _c.c_float, _c.c_float, _c.c_uint32, _c.c_uint32,
@@ -193,12 +194,13 @@ _ARGTYPES = {
     # idx, x, out, n_slots, row_bytes, vec_bytes, stream
     "halo_pack": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p],
-    # indptr, cols, deg, frontier, out, batch, hop, base, k0, k1, n, row_lo,
-    # rps, root, stream
+    # indptr, cols, deg, nodes, hops, walks, batch, walk_length, base, k0,
+    # k1, n, row_lo, rps, root, state, exclusive, live, stream
     "walk_owned": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                   _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
-                   _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_int64,
-                   _c.c_int64, _c.c_int, _c.c_void_p],
+                   _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
+                   _c.c_int64, _c.c_uint32, _c.c_uint32, _c.c_int32,
+                   _c.c_int64, _c.c_int64, _c.c_int, _c.c_void_p, _c.c_int,
+                   _c.c_void_p, _c.c_void_p],
     # indptr, cols, vals, deg, wmax, wsum, cur, prev, out, shared, batch, hop,
     # base, k0, k1, n, row_lo, rps, inv_p, inv_q, tries, stream
     "walk2_local": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
@@ -1034,7 +1036,8 @@ def label_prop(indptr: torch.Tensor, indices: torch.Tensor,
     f) + beta·y)`` (A in CSR) on float32 (N, C) ``f`` and ``y`` and bool
     (N,) ``mask``, with alpha and beta rounded to float32.  Writes a new
     tensor, or ``out``, which must not share memory with ``f`` or ``y``.
-    Returns it."""
+    Returns it.  Rows of C % 4 == 0 columns, 16-byte aligned, take float4
+    column groups, others one column a group."""
     name = "label_prop"
     n = indptr.shape[0] - 1
     _require_csr(name, indptr, indices, vals)
@@ -1053,12 +1056,13 @@ def label_prop(indptr: torch.Tensor, indices: torch.Tensor,
              f"{name}: out must not share memory with f or y")
     _require_cuda_contiguous(name, f.device, indptr, indices, vals, f, y,
                              mask, out)
+    vec4 = f.shape[1] % 4 == 0 and _aligned16(f, y, out)
     fn = _bound(name)
     with torch.cuda.device(f.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
                 f.data_ptr(), y.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 n, f.shape[1], float(np.float32(alpha)),
-                float(np.float32(beta)),
+                float(np.float32(beta)), int(vec4),
                 torch.cuda.current_stream(f.device).cuda_stream)
     _check_launch(name, rc)
     return out
@@ -1261,36 +1265,60 @@ def _require_int32_rows(name: str, t: torch.Tensor, rows: int,
 
 
 def walk_owned(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
-               frontier: torch.Tensor, hop: int, seed: int, base: int,
-               n: int, row_lo: int, root: bool,
-               out: torch.Tensor) -> torch.Tensor:
-    """K17: this rank's share of hop ``hop`` of the first-order walks over
-    its slice of the row-sharded walk CSR (``indptr`` local row starts and
-    ``deg``: int32 (rps,); ``cols`` int32), for the lanes at ``frontier``
-    (int32 (B,); lane b is walk ``base + b``), written into ``out`` (int32
-    (B,)), which is returned: K8's next node for the lanes whose row the
-    rank owns (rows ``[row_lo, row_lo + rps)``), the sentinel ``n`` for a
-    lane at the sentinel when ``root``, 0 otherwise.  The slice must be
-    valid (``ops/walk.py:ShardedWalkTables`` checks it once)."""
+               nodes: torch.Tensor, hops: Optional[torch.Tensor],
+               walks: torch.Tensor, seed: int, base: int, n: int,
+               row_lo: int, root: bool, state: Optional[torch.Tensor] = None,
+               exclusive: bool = False,
+               live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K17: one round of the first-order walks over this rank's slice of the
+    row-sharded walk CSR (``indptr`` local row starts and ``deg``: int32
+    (rps,); ``cols`` int32; rows ``[row_lo, row_lo + rps)``) for the lanes
+    whose state is ``nodes`` and ``hops`` (int32 (B,); ``hops`` None: the
+    first round, every hop 0; lane b is walk ``base + b``).  Each lane the
+    slice takes (its row is the slice's; lanes at the sentinel or past their
+    last hop when ``root``) walks K8's hops while its rows stay on the
+    slice, writing each node into ``walks`` (int32 (B, L)), and its new
+    node and hop into ``state`` (int32 (2B,)); with ``exclusive`` the other
+    lanes' entries of ``state`` are set to 0.  ``state`` None for a slice
+    holding every row, which finishes every lane.  ``live`` (int32 (1,))
+    gets the number of input lanes short of hop L − 1 added.  Returns
+    ``walks``.  The slice must be valid (``ops/walk.py:ShardedWalkTables``
+    checks it once)."""
     name = "walk_owned"
-    for t in (indptr, cols, deg, frontier, out):
-        _require(t.dtype == torch.int32 and t.dim() == 1,
-                 f"{name}: int32 1-D tables, frontier and out expected")
-    _require(indptr.shape == deg.shape and frontier.shape == out.shape,
-             f"{name}: indptr/deg and frontier/out must match")
-    _require(hop >= 0 and base >= 0 and row_lo >= 0,
-             f"{name}: hop, base and row_lo must be >= 0")
-    _require_cuda_contiguous(name, frontier.device, indptr, cols, deg,
-                             frontier, out)
+    for t in (indptr, cols, deg, nodes, walks):
+        _require(t.dtype == torch.int32,
+                 f"{name}: int32 tables, nodes and walks expected")
+    for t in (indptr, cols, deg, nodes):
+        _require(t.dim() == 1, f"{name}: 1-D tables and nodes expected")
+    b = nodes.shape[0]
+    _require(indptr.shape == deg.shape, f"{name}: indptr/deg must match")
+    _require(walks.dim() == 2 and walks.shape[0] == b and walks.shape[1] >= 1,
+             f"{name}: walks must be (B, L) with L >= 1")
+    _require(base >= 0 and row_lo >= 0,
+             f"{name}: base and row_lo must be >= 0")
+    tensors = [indptr, cols, deg, nodes, walks]
+    if hops is not None:
+        _require(hops.dtype == torch.int32 and hops.shape == nodes.shape,
+                 f"{name}: hops must be int32 of the shape of nodes")
+        tensors.append(hops)
+    if state is not None:
+        _require_int32_rows(name, state, 2, b)
+        tensors.append(state)
+    if live is not None:
+        _require_int32_rows(name, live, 1, 1)
+        tensors.append(live)
+    _require_cuda_contiguous(name, nodes.device, *tensors)
     k0, k1 = _seed_words(seed)
-    with torch.cuda.device(frontier.device):
+    with torch.cuda.device(nodes.device):
         rc = _bound(name)(
             indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-            frontier.data_ptr(), out.data_ptr(), frontier.shape[0], int(hop),
-            int(base), k0, k1, int(n), int(row_lo), indptr.shape[0],
-            int(bool(root)), _stream(frontier))
+            nodes.data_ptr(), None if hops is None else hops.data_ptr(),
+            walks.data_ptr(), b, walks.shape[1], int(base), k0, k1, int(n),
+            int(row_lo), indptr.shape[0], int(bool(root)),
+            None if state is None else state.data_ptr(), int(bool(exclusive)),
+            None if live is None else live.data_ptr(), _stream(nodes))
     _check_launch(name, rc)
-    return out
+    return walks
 
 
 _WALK2 = "walk2_owned"

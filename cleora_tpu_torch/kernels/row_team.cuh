@@ -1,8 +1,8 @@
 // The row team shared by K1 (spmm_csr.cu), K19 (spmm_acc.cu), K2's kernel
-// for rows of up to 1,024 columns (row_normalize.cu) and the fused
-// attention pass (edge_attention.cu): its layout, the row-team SpMM that
-// K1 and K19 launch, and its epilogue, the residual mix and the row
-// normalisation.
+// for rows of up to 1,024 columns (row_normalize.cu), the fused attention
+// pass (edge_attention.cu) and K14 (label_prop.cu, its layout and
+// gather-sum): its layout, the row-team SpMM that K1 and K19 launch, and
+// its epilogue, the residual mix and the row normalisation.
 //
 // Layout.  A team of L lanes owns a row: a whole warp from 32 column
 // groups on, else the smallest power of two that gives each lane a group,
@@ -157,8 +157,10 @@ __device__ __forceinline__ void load_slot(float (&o)[1],
 // `end`, walked L at a time, with kLoads / kS edges' gathers in flight (at
 // least 2; the order of the adds does not depend on it).  A row is stride
 // 32 (every chunk); slice j of K is e0 = row start + 32 j, stride 32 K.
-// Every lane of the warp calls this, `live` or not.
-template <typename T, bool kVec4, int kS, int kLoads>
+// Every lane of the warp calls this, `live` or not.  kRound: each product
+// and sum rounded on its own (__fmul_rn, __fadd_rn; K14's arithmetic),
+// else the compiler may contract them into a fused multiply-add (K1).
+template <typename T, bool kVec4, int kS, int kLoads, bool kRound = false>
 __device__ __forceinline__ void gather_sum(
     float (&acc)[kS][Cols<kVec4>::kP], const bool (&ok)[kS],
     const int32_t* __restrict__ indices, const float* __restrict__ vals,
@@ -203,7 +205,13 @@ __device__ __forceinline__ void gather_sum(
 #pragma unroll
           for (int t = 0; t < kS; ++t)
 #pragma unroll
-            for (int q = 0; q < kP; ++q) acc[t][q] += vj[u] * g[u][t][q];
+            for (int q = 0; q < kP; ++q) {
+              if constexpr (kRound) {
+                acc[t][q] = __fadd_rn(acc[t][q], __fmul_rn(g[u][t][q], vj[u]));
+              } else {
+                acc[t][q] += vj[u] * g[u][t][q];
+              }
+            }
         }
       }
     }

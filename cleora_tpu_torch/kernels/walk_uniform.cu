@@ -25,40 +25,17 @@
 //
 // Design: one thread per walk runs the whole walk in registers in one
 // launch (the TPU ran one dispatch per batch with a scan over the hops).
-// Philox needs only 32-bit multiplies (__umulhi) and xors.  The float
-// arithmetic is one round-to-nearest product and a truncation, which the
-// plain version repeats exactly.
+// Philox needs only 32-bit multiplies (__umulhi) and xors.  The hop itself
+// is walk_hop.cuh's, which K17 runs too: one round-to-nearest product and a
+// truncation, which the plain version repeats exactly.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "walk_hop.cuh"
+
 namespace {
-
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-
-// The first output word of Philox4x32-10 at counter (c0, c1, c2, 0).
-__device__ __forceinline__ uint32_t philox_x0(uint32_t c0, uint32_t c1,
-                                              uint32_t c2, uint32_t k0,
-                                              uint32_t k1) {
-  uint32_t c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
-    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c1 = lo1;
-    c3 = lo0;
-    c0 = n0;
-    c2 = n2;
-  }
-  return c0;
-}
 
 __global__ void walk_uniform_kernel(const int32_t* __restrict__ indptr,
                                     const int32_t* __restrict__ cols,
@@ -78,13 +55,9 @@ __global__ void walk_uniform_kernel(const int32_t* __restrict__ indptr,
     int32_t nxt = n;
     if (cur >= 0 && cur < n) {
       const int32_t d = __ldg(deg + cur);
-      if (d > 0) {
-        const uint32_t bits = philox_x0(g0, g1, (uint32_t)h, k0, k1);
-        const float u = __uint2float_rn(bits >> 8) * 5.9604644775390625e-08f;
-        int32_t t = (int32_t)__fmul_rn(u, __int2float_rn(d));
-        if (t > d - 1) t = d - 1;
-        nxt = __ldg(cols + __ldg(indptr + cur) + t);
-      }
+      if (d > 0)
+        nxt = walk_hop::next(indptr, cols, cur, d, g0, g1, (uint32_t)h, k0,
+                             k1);
     }
     cur = nxt;
     row[h + 1] = cur;

@@ -27,8 +27,9 @@ bit for bit: over replicated tables each rank walks a block of lanes
 (:func:`device_walks` with ``group``); over tables cut by rows
 (:class:`ShardedWalkTables`, the JAX package's ``_device_walk_sharded_jit``
 and ``_device_walk2_sharded_jit``, cleora_tpu/algorithms.py:1380, :1574)
-the rank that owns a lane's row computes its share of each hop (kernel K17,
-``kernels/walk_owned.cu``; for the p/q walk kernel K18,
+the rank that owns a lane's row computes its hops (kernel K17,
+``kernels/walk_owned.cu``: a round walks each lane through the hops whose
+rows one slice owns; for the p/q walk kernel K18,
 ``kernels/walk2_owned.cu``: a hop in one launch where one slice owns both
 rows, rejection rounds in chunks across owners), every other rank writes
 0, and an all-reduce combines the shares.
@@ -77,10 +78,11 @@ def _unit_float(word: torch.Tensor) -> torch.Tensor:
     return (word >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def hop_uniform(walk_index: torch.Tensor, hop: int, seed: int) -> torch.Tensor:
-    """The float32 uniform in [0, 1) of hop ``hop`` of the walks with global
-    indices ``walk_index`` (int64): ``(x0 >> 8)·2⁻²⁴`` of Philox4x32-10 at
-    counter (index low word, index high word, hop, 0)."""
+def hop_uniform(walk_index: torch.Tensor, hop, seed: int) -> torch.Tensor:
+    """The float32 uniform in [0, 1) of hop ``hop`` (an int, or an int64
+    tensor of each lane's hop) of the walks with global indices
+    ``walk_index`` (int64): ``(x0 >> 8)·2⁻²⁴`` of Philox4x32-10 at counter
+    (index low word, index high word, hop, 0)."""
     k0, k1 = _key(seed)
     zero = torch.zeros_like(walk_index)
     x0 = philox4x32(walk_index & _M32, walk_index >> 32, zero + hop, zero,
@@ -538,42 +540,147 @@ def _owned(cur: torch.Tensor, row_lo: int, rps: int, n: int):
     return valid, owned, torch.where(owned, lr, torch.zeros_like(lr))
 
 
-def walk_owned_hop(t: ShardedWalkTables, cur: torch.Tensor, hop: int,
-                   seed: int, base: int, out: torch.Tensor) -> torch.Tensor:
-    """This rank's share of hop ``hop`` of the first-order walks whose
-    lanes stand at ``cur`` (int32 (B,); lane b is walk ``base + b``),
-    written into ``out`` (int32 (B,)): K8's next node for the lanes whose
-    current row the rank owns, ``n`` for a lane at the sentinel on rank 0,
-    0 everywhere else, so that the sum over the ranks is K8's hop.  On
-    CUDA this launches K17; on the CPU it runs
-    :func:`walk_owned_hop_plain`."""
-    if cur.is_cuda:
-        return kernels.walk_owned(t.indptr, t.cols, t.deg, cur, hop, seed,
-                                  base, t.n, t.row_lo, t.rank == 0, out)
-    out.copy_(walk_owned_hop_plain(t.indptr, t.cols, t.deg, cur, hop, seed,
-                                   base, t.n, t.row_lo, t.rank == 0))
-    return out
+def walk_owned_round(t: ShardedWalkTables, nodes: torch.Tensor, hops,
+                     walks: torch.Tensor, seed: int, base: int, state=None,
+                     exclusive: bool = False, live=None) -> torch.Tensor:
+    """This slice's part of one round of the first-order walks whose lanes
+    stand at ``nodes`` after hop ``hops`` (int32 (B,); None: the first
+    round; lane b is walk ``base + b``): each lane whose row the slice owns
+    walks K8's hops while its rows stay on the slice, up to the last hop,
+    writing each node into ``walks`` (int32 (B, L)); the root slice fills
+    the lanes at the sentinel with ``n`` and carries the finished ones.
+    The new nodes and hops of the lanes it took go into ``state`` (int32
+    (2B,)), and with ``exclusive`` 0 for the others; None for a slice that
+    holds every row.  ``live`` (int32 (1,)) gets the count of the input
+    lanes short of hop L − 1 added.  On CUDA this launches K17; on the CPU
+    it runs :func:`walk_owned_round_plain`.  Returns ``walks``."""
+    args = (t.indptr, t.cols, t.deg, nodes, hops, walks, seed, base, t.n,
+            t.row_lo, t.rank == 0, state, exclusive, live)
+    if nodes.is_cuda:
+        return kernels.walk_owned(*args)
+    return walk_owned_round_plain(*args)
 
 
-def walk_owned_hop_plain(indptr: torch.Tensor, cols: torch.Tensor,
-                         deg: torch.Tensor, cur: torch.Tensor, hop: int,
-                         seed: int, base: int, n: int, row_lo: int,
-                         root: bool) -> torch.Tensor:
-    """Plain PyTorch version of K17: :func:`walk_uniform_plain`'s hop on
-    the rank's rows (``indptr``/``deg`` local to the slice)."""
-    index = base + torch.arange(cur.shape[0], dtype=torch.int64,
-                                device=cur.device)
+def walk_owned_round_plain(indptr: torch.Tensor, cols: torch.Tensor,
+                           deg: torch.Tensor, nodes: torch.Tensor, hops,
+                           walks: torch.Tensor, seed: int, base: int, n: int,
+                           row_lo: int, root: bool, state=None,
+                           exclusive: bool = False,
+                           live=None) -> torch.Tensor:
+    """Plain PyTorch version of K17: :func:`walk_uniform_plain`'s hops, one
+    vector step over the lanes still walking on the slice each, with the
+    writes of K17 (``indptr``/``deg`` local to the slice)."""
+    dev = nodes.device
+    b, length = walks.shape
+    last = length - 1
+    lane = torch.arange(b, device=dev)
+    index = base + lane
+    cur = nodes.to(torch.int32).clone()
+    hop = (torch.zeros_like(cur) if hops is None
+           else hops.to(torch.int32).clone())
+    if live is not None:
+        live += (hop < last).sum().to(torch.int32)
     valid, owned, at = _owned(cur, row_lo, indptr.shape[0], n)
-    zero = torch.zeros_like(cur)
-    d = torch.where(owned, deg[at], zero)
-    u = hop_uniform(index, hop, seed)
-    t = torch.minimum((u * d.to(torch.float32)).to(torch.int32), d - 1)
-    step = indptr[at].long() + t.clamp_min(0).long()
-    nxt = cols[step.clamp_max(max(cols.shape[0] - 1, 0))]
-    share = torch.where(owned, torch.where(d > 0, nxt, zero + n), zero)
-    if root:
-        share = torch.where(valid, share, zero + n)
-    return share
+    carried = (hop >= last) | ~valid
+    mine = torch.where(carried, torch.full_like(owned, bool(root)), owned)
+    first = mine & (hop == 0)
+    walks[lane[first], 0] = cur[first]
+    dead = mine & ~valid & (hop < last)
+    step = mine & valid & (hop < last)
+    while bool(step.any()):
+        d = torch.where(step, deg[at], torch.zeros_like(cur))
+        dead |= step & (d == 0)
+        step &= d > 0
+        u = hop_uniform(index, hop.long(), seed)
+        t = torch.minimum((u * d.to(torch.float32)).to(torch.int32), d - 1)
+        pos = (indptr[at].long() + t.clamp_min(0).long()).clamp_max(
+            max(cols.shape[0] - 1, 0))
+        cur = torch.where(step, cols[pos], cur)
+        hop = hop + step.to(torch.int32)
+        walks[lane[step], hop[step].long()] = cur[step]
+        _, owned, at = _owned(cur, row_lo, indptr.shape[0], n)
+        step &= owned & (hop < last)
+    after = torch.arange(length, device=dev)[None, :] > hop[:, None].long()
+    walks[dead[:, None] & after] = n
+    cur = torch.where(dead, torch.full_like(cur, n), cur)
+    hop = torch.where(dead, torch.full_like(hop, last), hop)
+    if state is not None:
+        if exclusive:
+            state.zero_()
+        state[0][mine] = cur[mine]
+        state[1][mine] = hop[mine]
+    return walks
+
+
+# rounds between two reads of the live count (one host synchronisation
+# each; a read at round r sees the count K17 took in round r - 1, of the
+# lanes round r - 2 left short): at most this many rounds after the last
+# lane finished change nothing
+WALK_ROUND_CHECK = 4
+
+
+def walk_uniform_sharded(slices, starts: torch.Tensor, walk_length: int,
+                         seed: int, base: int, group=None,
+                         stats=None) -> torch.Tensor:
+    """(B, walk_length) int32 first-order walks over row-sharded tables,
+    bitwise :func:`walk_uniform`'s.  ``slices`` are the table slices this
+    process holds: its own rank's under a group, or several ranks' in one
+    process.
+
+    A slice that holds every row (one rank) walks the batch in one launch
+    of K17, with no collective.  Otherwise the walk runs in rounds: in each,
+    every slice advances the lanes whose rows it owns through their local
+    hops (:func:`walk_owned_round`), so every lane not yet done moves at
+    least one hop and a batch takes at most ``walk_length − 1`` rounds.
+    Each lane's new state has one writer (a process's one slice writes 0
+    for the lanes it does not take; several slices in one process write
+    every lane between them), and ``group.all_reduce_`` sums the (2, B)
+    int32 states over the ranks, one collective a round; each entry of the
+    walk matrix has one writer too, and the zeroed matrices are summed over
+    the ranks once a batch.  Each round's first slice also counts the lanes
+    the round before left short of their last hop; at round 2 and every
+    :data:`WALK_ROUND_CHECK` rounds the host reads the latest count, and
+    rounds stop at 0.  Deadlock hazard: every rank must run the same
+    collectives; the count is taken from the summed states, so it is the
+    same on every rank, and every rank reads it at the same rounds.
+    ``stats``, a dict, receives the number of rounds under ``"rounds"``."""
+    b = starts.shape[0]
+    first = slices[0]
+    dev = starts.device
+    if first.world == 1:
+        walks = torch.empty((b, walk_length), dtype=torch.int32, device=dev)
+        walk_owned_round(first, starts, None, walks, seed, base)
+        if stats is not None:
+            stats["rounds"] = 1
+        return walks
+    walks = torch.zeros((b, walk_length), dtype=torch.int32, device=dev)
+    buffers = [torch.empty((2, b), dtype=torch.int32, device=dev)
+               for _ in range(2)]
+    most = max(1, walk_length - 1)
+    counts = torch.zeros((most, 1), dtype=torch.int32, device=dev)
+    alone = len(slices) == 1
+    nodes, hops = starts, None
+    rnd = 0
+    while rnd < most:
+        state = buffers[rnd % 2]
+        if not alone and group is not None:
+            state.zero_()
+        for i, t in enumerate(slices):
+            live = counts[rnd - 1] if rnd and i == 0 else None
+            walk_owned_round(t, nodes, hops, walks, seed, base, state,
+                             alone, live)
+        if group is not None:
+            group.all_reduce_(state)
+        nodes, hops = state[0], state[1]
+        rnd += 1
+        if (rnd == 2 or rnd % WALK_ROUND_CHECK == 0) and rnd < most:
+            if int(counts[rnd - 2]) == 0:
+                break
+    if group is not None:
+        group.all_reduce_(walks)
+    if stats is not None:
+        stats["rounds"] = rnd
+    return walks
 
 
 def _summed(slices, group, stage, out: torch.Tensor) -> torch.Tensor:
@@ -585,25 +692,6 @@ def _summed(slices, group, stage, out: torch.Tensor) -> torch.Tensor:
     if group is not None:
         group.all_reduce_(out)
     return out
-
-
-def walk_uniform_sharded(slices, starts: torch.Tensor, walk_length: int,
-                         seed: int, base: int, group=None) -> torch.Tensor:
-    """(B, walk_length) int32 first-order walks over row-sharded tables,
-    bitwise :func:`walk_uniform`'s.  ``slices`` are the table slices this
-    process holds: its own rank's under a group (``group.all_reduce_``
-    sums the ranks' shares of every hop), or several ranks' in one process
-    (their shares summed here).  Every rank runs the same hops, so the
-    collectives line up."""
-    walks = torch.empty((walk_length, starts.shape[0]), dtype=torch.int32,
-                        device=starts.device)
-    walks[0] = starts
-    for hop in range(walk_length - 1):
-        _summed(slices, group,
-                lambda t, out: walk_owned_hop(t, walks[hop], hop, seed, base,
-                                              out),
-                walks[hop + 1])
-    return walks.T.contiguous()
 
 
 # K18's buffers travel as int32: a float32 is carried by its bits, and each

@@ -1084,11 +1084,12 @@ def _label_state(n, c, device, seed=0):
     return f, y, mask
 
 
-@pytest.mark.parametrize("c", [2, 7, 40, 47])
+@pytest.mark.parametrize("c", [2, 7, 40, 47, 48])
 @pytest.mark.parametrize("alpha", [0.5, 0.3])
 @cuda
 def test_k14_matches_plain(cuda_device, c, alpha):
-    csr = CsrMatrix.from_numpy(*markov_csr(3000, c, 5000), cuda_device)
+    arrays = markov_csr(3000, c, 5000)
+    csr = CsrMatrix.from_numpy(*arrays, cuda_device)
     f, y, mask = _label_state(3000, c, cuda_device)
     beta = float(np.float32(1) - np.float32(alpha))
     before = kernels.LAUNCHES["label_prop"]
@@ -1098,6 +1099,10 @@ def test_k14_matches_plain(cuda_device, c, alpha):
     want = label_prop_step_plain(csr, f, y, mask, alpha, beta)
     assert torch.equal(out[mask], y[mask])
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    # K14 adds in edge order, as the plain version does on the CPU
+    host = CsrMatrix.from_numpy(*arrays, "cpu")
+    assert torch.equal(out.cpu(), label_prop_step_plain(
+        host, f.cpu(), y.cpu(), mask.cpu(), alpha, beta))
     # into a given buffer, as the propagation loop calls it
     buf = torch.empty_like(f)
     assert label_prop_step(csr, f, y, mask, alpha, beta, out=buf) is buf
@@ -1397,12 +1402,12 @@ def test_k16_wrapper_rejects_bad_operands():
 
 
 @cuda
-@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
 @pytest.mark.parametrize("seed,base", [(0, 0), (2**40 + 3, 2**33 + 5)])
 def test_k17_matches_k8_and_plain(cuda_device, world, seed, base):
-    """The owner-routed first-order hop over ``world`` rank slices, their
-    shares summed in this process: bitwise K8's walks and the plain
-    version's on the CPU."""
+    """The owner-routed first-order walk over ``world`` rank slices in this
+    process, a launch a slice a round: bitwise K8's walks and the plain
+    version's on the CPU, in as many rounds."""
     n, length = 3000, 20
     arrays = walk_csr(n, 1)
     t = WalkTables(*arrays, n, cuda_device)
@@ -1410,17 +1415,22 @@ def test_k17_matches_k8_and_plain(cuda_device, world, seed, base):
     slices = [ShardedWalkTables(*arrays, n, r, world, cuda_device)
               for r in range(world)]
     before = kernels.LAUNCHES["walk_owned"]
+    stats = {}
     got = walk_uniform_sharded(slices, starts.to(cuda_device), length, seed,
-                               base)
+                               base, stats=stats)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["walk_owned"] == before + world * (length - 1)
+    rounds = stats["rounds"]
+    assert rounds == 1 if world == 1 else 1 <= rounds <= length - 1
+    assert kernels.LAUNCHES["walk_owned"] == before + world * rounds
     assert torch.equal(got, kernels.walk_uniform(
         t.indptr, t.cols, t.deg, starts.to(cuda_device), length, seed, base,
         n))
     cpu = [ShardedWalkTables(*arrays, n, r, world, "cpu")
            for r in range(world)]
     assert torch.equal(got.cpu(), walk_uniform_sharded(cpu, starts, length,
-                                                       seed, base))
+                                                       seed, base,
+                                                       stats=stats))
+    assert stats["rounds"] == rounds
 
 
 @cuda
@@ -1526,12 +1536,16 @@ def test_k17_and_k18_wrappers_reject_bad_operands():
     cur = torch.zeros(7, dtype=torch.int32)
     tables = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum)
     kernels.reset_launches()
+    walks = torch.empty((7, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.walk_owned(t.indptr, t.cols, t.deg, cur, 0, 0, 0, n, 0, True,
-                           torch.empty_like(cur))
+        kernels.walk_owned(t.indptr, t.cols, t.deg, cur, None, walks, 0, 0,
+                           n, 0, True)
     with pytest.raises(ValueError, match="int32"):
-        kernels.walk_owned(t.indptr, t.cols, t.deg, cur.long(), 0, 0, 0, n,
-                           0, True, torch.empty_like(cur))
+        kernels.walk_owned(t.indptr, t.cols, t.deg, cur.long(), None, walks,
+                           0, 0, n, 0, True)
+    with pytest.raises(ValueError, match="2 x 7"):
+        kernels.walk_owned(t.indptr, t.cols, t.deg, cur, cur, walks, 0, 0, n,
+                           0, True, torch.zeros(14, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.walk2_local(*tables, cur, cur, 0, 0, 0, n, 0, 1.0, 1.0, 64,
                             torch.empty((4, 7), dtype=torch.int32))
