@@ -34,7 +34,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    seed in {0, 7, -3, 2**40+5}; K4 on the same CSR plus a row whose values
    are all 0, D in {8, 256, 300, 1028}, T in {0.7, 1.0} (rtol=1e-5,
    atol=1e-6);
-   K5 on the first CSR, D in {8, 136, 256, 300, 4096}, with RandNE's,
+   K5 on the first CSR, D in {8, 136, 256, 300, 4096} (at 4,096 its
+   banded kernel: x outgrows the L2), with RandNE's,
    Chebyshev's (z and acc) and Katz's coefficients, and with a separate
    self_ operand (a 3,000-row gather table under a 2,000-row CSR,
    Chebyshev's coefficients, D in {8, 256, 300}) (rtol=1e-5, atol=1e-6:
@@ -115,7 +116,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    200,000-node graph's transposed transition CSR (K5 and K1 at
    (200,000, 4,096) on the walk's own states, K7 in NetMF's mode on the
    summed walk and in GraRep's on each power); times them beside one
-   library call each;
+   library call each.  At that panel, and at ProNE's (200,000, 256) on
+   that graph, K5 takes its banded kernel (x's columns in bands of 32 that
+   fit the L2; the blocked NetMF's and that ProNE's launches are counted
+   on LAUNCHES["spmm_axpy_band"]), which is held bitwise equal to the
+   short-row kernel on the same inputs at both shapes, and timed beside it
+   at the panel;
 7. DeepWalk (the walk pipeline), with launch counts zeroed before and read
    after its main path: on a 20,000-node, 60,000-edge parity graph, K8, K9 and K10
    bitwise against their plain versions on the first walk batch (K10 after
@@ -1137,7 +1143,8 @@ def check_k12(dev: torch.device) -> None:
         plain_s = time.perf_counter() - t0
         for batch in K12_CHECK_BATCHES:
             got = torch.cat([
-                kernels.walk_p_q(*tables, starts[lo:lo + batch], *walk, lo, n)
+                kernels.walk_p_q(t.head, t.cols, t.vals,
+                                 starts[lo:lo + batch], *walk, lo, n)
                 for lo in range(0, K12_CHECK_WALKS, batch)])
             torch.cuda.synchronize()
             assert torch.equal(got, want), (p, q, batch)
@@ -1997,21 +2004,76 @@ def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
                                 max_err(acc, want_acc))
         y = got
         del want, want_acc, got
-    # K5 at this panel's shape (a NetMF walk step), with both bounds: x,
-    # acc read and acc, out written once; or one gathered x row an entry
-    acc_t = acc.clone()
-    k5_ms = time_ms(lambda: spmm_axpy(csr_pt, y, 1.0, acc=acc_t, d=1.0))
+    # K5 at this panel's shape (a NetMF walk step): the banded kernel the
+    # main path takes, bitwise the short-row kernel on the same inputs and
+    # against the plain version; both timed, with both bounds: x, acc read
+    # and acc, out written once; or one gathered x row an entry
+    from cleora_tpu_torch import kernels
+
+    band = kernels.band_columns(n, b)
+    assert band > 0, (n, b)
+    tree_choice = kernels.band_columns
+
+    @contextlib.contextmanager
+    def short_row():
+        kernels.band_columns = lambda rows, width: 0
+        try:
+            yield
+        finally:
+            kernels.band_columns = tree_choice
+
+    def k5_short(acc_s):
+        with short_row():
+            return spmm_axpy(csr_pt, y, 1.0, acc=acc_s, d=1.0)
+
+    want_acc = acc.clone()
+    want, k5_plain_ms = timed_once(
+        lambda: spmm_axpy_plain(csr_pt, y, 1.0, acc=want_acc, d=1.0))
+    acc_b, acc_s = acc.clone(), acc.clone()
+    before = kernels.LAUNCHES["spmm_axpy_band"]
+    got = spmm_axpy(csr_pt, y, 1.0, acc=acc_b, d=1.0)
+    assert kernels.LAUNCHES["spmm_axpy_band"] == before + 1
+    short = k5_short(acc_s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, short) and torch.equal(acc_b, acc_s)
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(acc_b, want_acc, **tol)
+    band_err = max(max_err(got, want), max_err(acc_b, want_acc))
+    del got, short, want, want_acc
+    k5_ms = time_ms(lambda: spmm_axpy(csr_pt, y, 1.0, acc=acc_b, d=1.0))
+    k5_short_ms = time_ms(lambda: k5_short(acc_s))
     lib_op = sparse_csr(csr_pt)
-    k5_lib_ms = time_ms(lambda: acc_t.add_(torch.sparse.mm(lib_op, y)))
-    del acc_t, lib_op
+    k5_lib_ms = time_ms(lambda: acc_s.add_(torch.sparse.mm(lib_op, y)))
+    del acc_b, acc_s, lib_op
     panel = 4 * n * b
     once = 8 * (n + 1) + 8 * csr_pt.nnz + 4 * panel
     gathered = once - panel + 4 * csr_pt.nnz * b
-    log(f"  K5 at the blocked panel ({n}, {b}): {k5_ms:.3f} ms "
-        f"(torch.sparse.mm + add_ {k5_lib_ms:.3f}); bounds "
+    log(f"  K5 at the blocked panel ({n}, {b}): banded ({band} columns a "
+        f"band) {k5_ms:.3f} ms, bitwise the short-row kernel's "
+        f"{k5_short_ms:.3f} ms (plain {k5_plain_ms:.3f}, max |err| "
+        f"{band_err:.3e}; torch.sparse.mm + add_ {k5_lib_ms:.3f}); bounds "
         f"{once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
         f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an entry); "
         f"[{card}]")
+    # ProNE's Chebyshev step on this graph, (n, DIM) with z, self and acc:
+    # banded too, bitwise the short-row kernel and against plain
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xs, zs, accs = (torch.randn((n, DIM), device=dev, generator=gen)
+                    for _ in range(3))
+    assert kernels.band_columns(n, DIM) > 0, (n, DIM)
+    got, want = k5_pair(csr_pt, xs, zs, accs, "chebyshev")
+    with short_row():
+        short = k5_pair(csr_pt, xs, zs, accs, "chebyshev")[0]
+    for g_, s_, w_ in zip(got, short, want):
+        assert torch.equal(g_, s_)
+        torch.testing.assert_close(g_, w_, **tol)
+        band_err = max(band_err, max_err(g_, w_))
+    log(f"  K5 at ProNE's shape ({n}, {DIM}), Chebyshev step: banded, "
+        f"bitwise the short-row kernel, max |err| {band_err:.3e} (with the "
+        "panel's)")
+    del xs, zs, accs, got, want, short
+    errs["k5_panel"] = (k5_ms, k5_plain_ms, k5_lib_ms, band_err, once,
+                        2 * csr_pt.nnz * b + 3 * n * b)
     errs["log_clip"] = check_log_clip(acc, deg_dev, s_col, 1.0, 0.0)
     del acc
 
@@ -2085,9 +2147,10 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     # one run each, under the stopwatch: on the card its synchronisations
     # cost less than the spread between runs
     kept = {}
-    staged_spectral("embed_randne()", randne, {"spmm_axpy": ITERATIONS},
-                    (alg, "_device_weighted_sum_core"), (alg, "_fetch_f64"),
-                    (alg, "_finalize"), keep=kept)
+    randne_launches = staged_spectral(
+        "embed_randne()", randne, {"spmm_axpy": ITERATIONS},
+        (alg, "_device_weighted_sum_core"), (alg, "_fetch_f64"),
+        (alg, "_finalize"), keep=kept)
     sample = sample_rows(n)
     refs = {"randne": kept["embed_randne()"], "rows": sample}
 
@@ -2284,8 +2347,8 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
     def prone():
         return alg.embed_prone(gb, feature_dim=DIM, backend="device")
 
-    prone_launches = staged_spectral(
-        "embed_prone()", prone, {"spmm_axpy": 9},
+    staged_spectral(
+        "embed_prone()", prone, {"spmm_axpy_band": 9},
         (alg, "_prone_chebyshev_core"), (alg, "_fetch_f64"),
         (alg, "_svd_sqrt"), (alg, "_finalize"), keep=kept)
 
@@ -2300,9 +2363,9 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
 
     blocked_errs = check_blocked_block(alg, gb, dev, card)
     torch.cuda.empty_cache()
-    run_spectral("embed_netmf() blocked", netmf_blocked,
-                 {"spmm_axpy": blocks * sweeps * 5,
-                  "log_clip": blocks * sweeps})
+    netmf_launches = run_spectral(
+        "embed_netmf() blocked", netmf_blocked,
+        {"spmm_axpy_band": blocks * sweeps * 5, "log_clip": blocks * sweeps})
     stage_split("embed_netmf() blocked", netmf_blocked, *blocked_targets)
     grarep_launches = run_spectral(
         "embed_grarep() blocked", grarep_blocked,
@@ -2320,7 +2383,7 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         kernel_row("spmm_axpy", src + "spmm_axpy.cu",
                    "cleora_tpu/algorithms.py:186", k5_ms, k5_plain_ms,
                    k5_lib_ms, k5_err, k5_bytes, k5_flops,
-                   prone_launches["spmm_axpy"]),
+                   randne_launches["spmm_axpy"]),
         kernel_row("dense_markov", src + "dense_markov.cu",
                    "cleora_tpu/algorithms.py:397", k6_ms, k6_plain_ms,
                    k6_lib_ms, k6_err, k6_bytes, k6_flops,
@@ -2331,6 +2394,9 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         kernel_row("spmm_csr_blocked", src + "spmm_csr.cu",
                    "cleora_tpu/algorithms.py:640", *blocked_errs["k1_panel"],
                    grarep_launches["spmm_csr"]),
+        kernel_row("spmm_axpy_band", src + "spmm_axpy.cu",
+                   "cleora_tpu/algorithms.py:596", *blocked_errs["k5_panel"],
+                   netmf_launches["spmm_axpy_band"]),
     ], refs
 
 
@@ -3200,14 +3266,14 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
     t = walk.WalkTables2(indptr, cols, deg, n, vals, wmax, wsum, dev)
     starts = np.tile(np.nonzero(deg > 0)[0].astype(np.int32), N2V_WALKS)
     starts = torch.from_numpy(starts[:batch]).to(dev)
-    args = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, starts,
-            WALK_LENGTH, 1.0 / N2V_P, 1.0 / N2V_Q, tries, 0, 0, n)
-    walks = walk.walk_p_q(*args)
-    want, k12_plain_ms = timed_once(lambda: walk.walk_p_q_plain(*args))
+    args = (starts, WALK_LENGTH, 1.0 / N2V_P, 1.0 / N2V_Q, tries, 0, 0)
+    walks = walk.walk_p_q(t, *args)
+    want, k12_plain_ms = timed_once(lambda: walk.walk_p_q_plain(
+        t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, *args, n))
     assert torch.equal(walks, want)
     k12_err = max_err(walks, want)
     del want
-    k12_ms = time_ms(lambda: walk.walk_p_q(*args))
+    k12_ms = time_ms(lambda: walk.walk_p_q(t, *args))
     k12_bytes = k12_sector_bytes(walks, t)
     first_batch = walks.cpu()
     log(f"K12 ({walks.shape[0]} walks of {WALK_LENGTH}) {k12_ms:.3f} ms "
@@ -4210,7 +4276,7 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
         staged_spectral("embed_prone(n_devices=1) blocked graph",
                         lambda: alg.embed_prone(gb, feature_dim=DIM,
                                                 backend="device", n_devices=1),
-                        {"spmm_axpy": 9}, *sym_targets, keep=kept)
+                        {"spmm_axpy_band": 9}, *sym_targets, keep=kept)
         prone_out = kept.pop("embed_prone(n_devices=1) blocked graph")
         # out= on this graph (a cut from phase 5's, where it took 21-23 s)
         with tempfile.TemporaryDirectory() as tmp:
@@ -4243,7 +4309,8 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
                            (palg, "_sharded_exit"))
         cases = (
             ("netmf", alg.embed_netmf, {},
-             {"spmm_axpy": blocks * sweeps * 5, "log_clip": blocks * sweeps},
+             {"spmm_axpy_band": blocks * sweeps * 5,
+              "log_clip": blocks * sweeps},
              ((palg.ShardedOp, "apply_axpy"),) + blocked_targets),
             ("grarep", alg.embed_grarep, {"max_step": GRAREP_STEPS},
              {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
@@ -4371,8 +4438,7 @@ def check_k17_k18(dev: torch.device) -> None:
             inv_p = float(np.float32(1.0 / p))
             inv_q = float(np.float32(1.0 / q))
             args = (length, inv_p, inv_q, walk.walk2_tries(q), seed, base)
-            k12 = walk.walk_p_q(t.indptr, t.cols, t.vals, t.deg, t.wmax,
-                                t.wsum, starts, *args, n)
+            k12 = walk.walk_p_q(t, starts, *args)
             before = kernels.LAUNCHES["walk2_owned"]
             got = walk.walk_p_q_sharded(second, starts, *args)
             launches = kernels.LAUNCHES["walk2_owned"] - before
@@ -4607,9 +4673,8 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                 del k18_plain
             del tw
         t12 = walk.WalkTables2(*arrays[:3], n, *arrays[4:], dev)
-        k12_ms = time_ms(lambda: walk.walk_p_q(
-            t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax, t12.wsum,
-            starts, *k18_args[:4], 0, 0, n))
+        k12_ms = time_ms(lambda: walk.walk_p_q(t12, starts, *k18_args[:4],
+                                               0, 0))
         k18_bytes = k12_sector_bytes(walks, t12)
         log(f"K18 ({walks.shape[0]} walks of {K18_TIMED_LENGTH}): one slice "
             f"{k18_ms[1]:.3f} ms ({k18_hop_launches[1]:.2f} launches a hop; "

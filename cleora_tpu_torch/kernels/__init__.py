@@ -28,9 +28,10 @@ import torch
 from . import build
 
 # the launch counters: one a kernel library, one for K10's merge form, one
-# for the fused attention pass in K4's library and one for K15's backward
+# for the fused attention pass in K4's library, one for K15's backward and
+# one for K5's banded kernel
 COUNTERS = (*build.KERNELS, "run_length_merge", "attention_spmm",
-            "relu_dropout_backward")
+            "relu_dropout_backward", "spmm_axpy_band")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
@@ -123,6 +124,13 @@ _ARGTYPES = {
                   _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                   _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
                   _c.c_float, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # indptr, rows, indices, vals, x, self, z, acc, out, n_rows, d, a, b, c,
+    # dd, vec4, band, stream
+    "spmm_axpy_band": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
+                       _c.c_float, _c.c_float, _c.c_float, _c.c_int,
+                       _c.c_int64, _c.c_void_p],
     # indptr, whole, n_whole, item_rows, item_starts, item_cuts, n_items,
     # split, n_split, indices, vals, x, acc, d, a, dd, vec4, x_rows,
     # band_rows, cursor, part, stream
@@ -144,12 +152,12 @@ _ARGTYPES = {
     "walk_uniform": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                      _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
                      _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_void_p],
-    # indptr, cols, vals, deg, wmax, wsum, starts, walks, batch, walk_length,
-    # base, k0, k1, n, inv_p, inv_q, tries, stream
+    # head, cols, vals, starts, walks, batch, walk_length, base, k0, k1, n,
+    # inv_p, inv_q, tries, stream
     "walk_p_q": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                 _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                 _c.c_int64, _c.c_int, _c.c_int64, _c.c_uint32, _c.c_uint32,
-                 _c.c_int32, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+                 _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_uint32,
+                 _c.c_uint32, _c.c_int32, _c.c_float, _c.c_float, _c.c_int,
+                 _c.c_void_p],
     # tables, codes, code_bytes, scores, q, n, m, c, stream
     "pq_adc": [_c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int64,
                _c.c_int64, _c.c_int, _c.c_int, _c.c_void_p],
@@ -521,6 +529,34 @@ LONG_ROW_MIN_WIDTH = 128
 BAND_BYTES = 24 << 20
 LONG_SLICE = 4096
 
+# K5's banded kernel (spmm_axpy.cu's note has its design), taken by every
+# call that the long-row kernel does not take where x outgrows the L2 and
+# a band of BAND_COLUMNS of its columns over its rows fits BAND_L2_BYTES.
+# scripts/torch_k5_k12_probe.py swept the band at 200,000 rows on an H100:
+# 8 and 16 columns ran slower than the short-row kernel, 24 and 48 (pieces
+# that straddle 128-byte lines) slower than 32, and 32 columns the fastest,
+# 19-24 % under the short-row kernel from 256 columns to 4,096; 64 columns
+# (a 51 MB band) ran about as fast, so the budget allows a little more than
+# the 25.6 MB measured.  At 4,096 columns over 3,000 to 32,768 rows (x of
+# 49-537 MB) it ran 20-37 % under, so the lower edge is the budget, not
+# the L2's 50 MB (x below the budget is not measured).  A persistent grid
+# that took (band, row chunk) items from a counter ran 2 % slower than the
+# 2-D grid.
+BAND_L2_BYTES = 32 << 20
+BAND_COLUMNS = 32
+BAND_MIN_WIDTH = 256
+
+
+def band_columns(x_rows: int, width: int) -> int:
+    """The columns of a band of x for K5's banded kernel,
+    :data:`BAND_COLUMNS`, or 0 for the short-row kernel: at a width below
+    :data:`BAND_MIN_WIDTH`, where the whole x fits
+    :data:`BAND_L2_BYTES`, or where a band over x's rows does not."""
+    x_rows, width = int(x_rows), int(width)
+    if width < BAND_MIN_WIDTH or 4 * x_rows * width <= BAND_L2_BYTES:
+        return 0
+    return BAND_COLUMNS if 4 * x_rows * BAND_COLUMNS <= BAND_L2_BYTES else 0
+
 
 class HubPlan(NamedTuple):
     """The slices of a CSR's hub rows (more than :data:`LONG_SLICE`
@@ -595,7 +631,10 @@ def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     With a plan whose rows hold at least :data:`LONG_BAND_ENTRIES` entries
     a band of x on average (x cut into bands of :data:`BAND_BYTES`), at a
     width of at least :data:`LONG_ROW_MIN_WIDTH`, the long-row kernel runs,
-    which walks x band by band; otherwise the short-row kernel."""
+    which walks x band by band.  Otherwise, where :func:`band_columns`
+    gives a band, the banded kernel (counted in
+    ``LAUNCHES["spmm_axpy_band"]``: bitwise the short-row kernel, which
+    runs everywhere else)."""
     name = "spmm_axpy"
     n = indptr.shape[0] - 1
     _require_csr(name, indptr, indices, vals)
@@ -644,8 +683,20 @@ def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
     long_rows = (rows is not None and width >= LONG_ROW_MIN_WIDTH
                  and indices.shape[0]
                  >= LONG_BAND_ENTRIES * bands * max(1, n_work))
+    band = 0 if long_rows else band_columns(x.shape[0], width)
+    counted = "spmm_axpy_band" if band else name
     with torch.cuda.device(x.device):
-        if not long_rows:
+        if band:
+            rc = _bound(name, "spmm_axpy_band")(
+                indptr.data_ptr(),
+                None if rows is None else rows.rows.data_ptr(),
+                indices.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                s.data_ptr(), None if z is None else z.data_ptr(),
+                None if acc is None else acc.data_ptr(),
+                None if out is None else out.data_ptr(), n_work, width,
+                float(a), float(b), float(c), float(d), int(vec4), band,
+                stream)
+        elif not long_rows:
             rc = _bound(name)(
                 indptr.data_ptr(),
                 None if rows is None else rows.rows.data_ptr(),
@@ -674,7 +725,7 @@ def spmm_axpy(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
                 None if cursor is None else cursor.data_ptr(),
                 None if part is None else part.data_ptr(), stream)
             del cursor, part
-    _check_launch(name, rc)
+    _check_launch(counted, rc)
     return out
 
 
@@ -776,44 +827,52 @@ def walk_uniform(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
     return walks
 
 
-def walk_p_q(indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-             deg: torch.Tensor, wmax: torch.Tensor, wsum: torch.Tensor,
+def walk_head(indptr: torch.Tensor, deg: torch.Tensor, wmax: torch.Tensor,
+              wsum: torch.Tensor) -> torch.Tensor:
+    """K12's head records of the weighted walk CSR: an int32 (n, 4) tensor
+    whose row i is (``indptr[i]``, ``deg[i]``, the bits of ``wmax[i]`` and
+    of ``wsum[i]``), 16 bytes a row, on the tables' device."""
+    return torch.stack([indptr.to(torch.int32), deg.to(torch.int32),
+                        wmax.to(torch.float32).view(torch.int32),
+                        wsum.to(torch.float32).view(torch.int32)],
+                       dim=1).contiguous()
+
+
+def walk_p_q(head: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              starts: torch.Tensor, walk_length: int, inv_p: float,
              inv_q: float, tries: int, seed: int, base: int,
              n: int) -> torch.Tensor:
     """K12: one second-order (Node2Vec p/q) walk of ``walk_length`` nodes
     from each of ``starts`` (int32 (B,); the sentinel ``n`` marks a pad
-    lane) over the weighted walk CSR (``indptr``, ``cols``, ``deg``: int32;
-    ``vals`` float32 per column; ``wmax``, ``wsum`` float32 per node), with
-    ``inv_p``/``inv_q`` rounded to float32 and at most ``tries`` proposals
-    per hop.  Lane ``b`` is the walk of global index ``base + b`` and draws
-    from Philox4x32-10 keyed by ``seed``.  Returns a new int32
-    (B, walk_length) tensor.  The tables must be valid
-    (``ops/walk.py:WalkTables2`` checks them once)."""
+    lane) over the weighted walk CSR: ``head``, its :func:`walk_head`
+    records (a row's ``indptr``, ``deg``, ``wmax`` and ``wsum``; int32
+    (n, 4)), ``cols`` (int32, aligned to 16 bytes) and ``vals`` (float32 per
+    column), with ``inv_p``/``inv_q`` rounded to float32 and at most
+    ``tries`` proposals per hop.  Lane ``b`` is the walk of global index
+    ``base + b`` and draws from Philox4x32-10 keyed by ``seed``.  Returns a
+    new int32 (B, walk_length) tensor.  The tables must be valid
+    (``ops/walk.py:WalkTables2`` checks them once and builds ``head``)."""
     name = "walk_p_q"
-    for t in (indptr, cols, deg, starts):
+    for t in (cols, starts):
         _require(t.dtype == torch.int32 and t.dim() == 1,
-                 f"{name}: int32 1-D tables and starts expected")
-    for t in (vals, wmax, wsum):
-        _require(t.dtype == torch.float32 and t.dim() == 1,
-                 f"{name}: float32 1-D vals, wmax and wsum expected")
-    _require(indptr.shape == deg.shape == wmax.shape == wsum.shape
-             and indptr.shape[0] == n,
-             f"{name}: indptr, deg, wmax and wsum must have one entry per "
-             "node")
+                 f"{name}: int32 1-D cols and starts expected")
+    _require(vals.dtype == torch.float32 and vals.dim() == 1,
+             f"{name}: float32 1-D vals expected")
+    _require(head.dtype == torch.int32 and head.shape == (n, 4),
+             f"{name}: head must be the (n, 4) int32 walk_head records, "
+             "one entry per node")
     _require(vals.shape == cols.shape, f"{name}: vals must match cols")
     _require(walk_length >= 1 and base >= 0 and tries >= 1,
              f"{name}: walk_length >= 1, base >= 0 and tries >= 1 expected")
-    _require_cuda_contiguous(name, starts.device, indptr, cols, vals, deg,
-                             wmax, wsum, starts)
+    _require_cuda_contiguous(name, starts.device, head, cols, vals, starts)
+    _require(_aligned16(cols), f"{name}: cols must be 16-byte aligned")
     batch = starts.shape[0]
     walks = torch.empty((batch, walk_length), dtype=torch.int32,
                         device=starts.device)
     key = int(seed) & ((1 << 64) - 1)
     fn = _bound(name)
     with torch.cuda.device(starts.device):
-        rc = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                deg.data_ptr(), wmax.data_ptr(), wsum.data_ptr(),
+        rc = fn(head.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                 starts.data_ptr(), walks.data_ptr(), batch, int(walk_length),
                 int(base), key & _U32, key >> 32, int(n),
                 float(np.float32(inv_p)), float(np.float32(inv_q)),

@@ -33,6 +33,31 @@
 // plain version's order (no fused multiply-add), so the two differ only by
 // the order of the row sum.  out must not alias x (other rows gather it).
 //
+// Wide panels (NetMF's blocked walk, _netmf_block_jit's `y = spmm; acc +=
+// y` at (200,000, 4,096): x is 3.28 GB, 65 times the L2; ProNE's
+// Chebyshev step at (200,000, 256)) take the banded kernel.  The short-row
+// kernel there gathers a whole x row from device memory for each entry
+// (at NetMF's panel 1.02 times that floor, 9.785 ms, against 3.916 ms for
+// each input once), and no loop order inside a row changes that.
+// spmm_axpy_band cuts x's columns into bands of kernels.BAND_COLUMNS = 32
+// (one 128-byte line of a row) and runs the rows band-major, every row
+// taking band j before any row takes band j + 1, so a band of x (25.6 MB
+// at 200,000 rows) leaves device memory about once and the rows' later
+// gathers of it hit the L2; the CSR is read again for each band, mostly
+// from the L2.  A row's 8 lanes hold its band segment (a float4 each),
+// gather its entries' segments in edge order and apply the whole tail
+// before the store, with streaming cache operators on out, acc, self and
+// z so that they leave the L2 before the band does.  Its arithmetic is
+// row_group4's, the short-row kernel's own code, so the two agree bit for
+// bit.  What it cannot avoid: each row's pieces of out, acc, self and z
+// (and the band's first read of x) are 128 bytes at the row stride of x,
+// a device-memory access pattern far slower than whole rows; narrower
+// bands (32- and 64-byte pieces) ran slower than the short-row kernel.
+// Where a band of x's rows outgrows the budget (embed()'s and the
+// Chebyshev siblings' 1.96 M rows at D = 256: 250 MB) the short-row kernel
+// runs, at 1.03 times its gather floor there (6.585 against 6.412 ms); so
+// does every call whose x fits the budget whole.
+//
 // Long rows (the rsvd apply of the walk siblings: a PPMI piece holds about
 // 810 entries in each of its rows, and 7 of 8 rows of a piece are empty)
 // take other kernels, over a row plan of the piece's non-empty rows
@@ -84,97 +109,168 @@ __device__ __forceinline__ float tail(float s, float a, float b, float xr,
   return o;
 }
 
-__global__ void spmm_axpy_vec4(const int64_t* __restrict__ indptr,
+// A row's float4 column group [col0, col0 + 4) (kStream: out, acc, self and
+// z through the streaming cache operators, so that they leave the L2 first
+// and a band of x stays there).  The short-row and the banded kernel both
+// run this, so their sums are the same chain of multiply-adds in edge
+// order and their tails the same roundings: they agree bit for bit.
+template <bool kStream>
+__device__ __forceinline__ void row_group4(
+    int64_t start, int64_t end, int64_t row, int64_t col0,
+    const int32_t* __restrict__ indices, const float* __restrict__ vals,
+    const float* __restrict__ x, const float* __restrict__ self,
+    const float* __restrict__ z, float* acc_out, float* out, int64_t d,
+    float a, float b, float c, float dd) {
+  const bool has_z = z != nullptr;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  int64_t e = start;
+  for (; e + 4 <= end; e += 4) {
+    const int64_t c0 = __ldg(indices + e), c1 = __ldg(indices + e + 1);
+    const int64_t c2 = __ldg(indices + e + 2), c3 = __ldg(indices + e + 3);
+    const float v0 = __ldg(vals + e), v1 = __ldg(vals + e + 1);
+    const float v2 = __ldg(vals + e + 2), v3 = __ldg(vals + e + 3);
+    const float4 a0 = load4(x + c0 * d + col0);
+    const float4 a1 = load4(x + c1 * d + col0);
+    const float4 a2 = load4(x + c2 * d + col0);
+    const float4 a3 = load4(x + c3 * d + col0);
+    axpy4(s, v0, a0);
+    axpy4(s, v1, a1);
+    axpy4(s, v2, a2);
+    axpy4(s, v3, a3);
+  }
+  for (; e < end; ++e) {
+    const int64_t col = __ldg(indices + e);
+    axpy4(s, __ldg(vals + e), load4(x + col * d + col0));
+  }
+  const int64_t at = row * d + col0;
+  float4 xr = make_float4(0.f, 0.f, 0.f, 0.f), zr = xr;
+  if (kStream) {
+    if (b != 0.f) xr = __ldcs(reinterpret_cast<const float4*>(self + at));
+    if (has_z) zr = __ldcs(reinterpret_cast<const float4*>(z + at));
+  } else {
+    if (b != 0.f) xr = load4(self + at);
+    if (has_z) zr = load4(z + at);
+  }
+  float4 o;
+  o.x = tail(s.x, a, b, xr.x, has_z, c, zr.x);
+  o.y = tail(s.y, a, b, xr.y, has_z, c, zr.y);
+  o.z = tail(s.z, a, b, xr.z, has_z, c, zr.z);
+  o.w = tail(s.w, a, b, xr.w, has_z, c, zr.w);
+  float4* ow = reinterpret_cast<float4*>(out + at);
+  float4* uw = reinterpret_cast<float4*>(acc_out + at);
+  if (out != nullptr) {
+    if (kStream)
+      __stcs(ow, o);
+    else
+      *ow = o;
+  }
+  if (acc_out != nullptr) {
+    float4 u = kStream ? __ldcs(uw) : *uw;
+    u.x = __fadd_rn(u.x, __fmul_rn(dd, o.x));
+    u.y = __fadd_rn(u.y, __fmul_rn(dd, o.y));
+    u.z = __fadd_rn(u.z, __fmul_rn(dd, o.z));
+    u.w = __fadd_rn(u.w, __fmul_rn(dd, o.w));
+    if (kStream)
+      __stcs(uw, u);
+    else
+      *uw = u;
+  }
+}
+
+// row_group4 for one column (the scalar kernels: d % 4 != 0 or a tensor
+// not aligned to 16 bytes).
+template <bool kStream>
+__device__ __forceinline__ void row_col(
+    int64_t start, int64_t end, int64_t row, int64_t col0,
+    const int32_t* __restrict__ indices, const float* __restrict__ vals,
+    const float* __restrict__ x, const float* __restrict__ self,
+    const float* __restrict__ z, float* acc_out, float* out, int64_t d,
+    float a, float b, float c, float dd) {
+  const bool has_z = z != nullptr;
+  float s = 0.f;
+  for (int64_t e = start; e < end; ++e) {
+    const int64_t col = __ldg(indices + e);
+    s += __ldg(vals + e) * __ldg(x + col * d + col0);
+  }
+  const int64_t at = row * d + col0;
+  float xr = 0.f, zr = 0.f;
+  if (b != 0.f) xr = kStream ? __ldcs(self + at) : __ldg(self + at);
+  if (has_z) zr = kStream ? __ldcs(z + at) : __ldg(z + at);
+  const float o = tail(s, a, b, xr, has_z, c, zr);
+  if (out != nullptr) {
+    if (kStream)
+      __stcs(out + at, o);
+    else
+      out[at] = o;
+  }
+  if (acc_out != nullptr) {
+    const float u = __fadd_rn(kStream ? __ldcs(acc_out + at) : acc_out[at],
+                              __fmul_rn(dd, o));
+    if (kStream)
+      __stcs(acc_out + at, u);
+    else
+      acc_out[at] = u;
+  }
+}
+
+// The short-row kernel: a row of threads (threadIdx.y) an output row, its
+// lanes striding over the row's column groups.
+template <bool kVec4>
+__global__ void spmm_axpy_rows(const int64_t* __restrict__ indptr,
                                const int32_t* __restrict__ rows,
                                const int32_t* __restrict__ indices,
                                const float* __restrict__ vals,
                                const float* __restrict__ x,
                                const float* __restrict__ self,
                                const float* __restrict__ z, float* acc_out,
-                               float* out, int64_t n_rows,
-                               int64_t d, float a, float b, float c,
-                               float dd) {
+                               float* out, int64_t n_rows, int64_t d, float a,
+                               float b, float c, float dd) {
   const int64_t w = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
   if (w >= n_rows) return;
   const int64_t row = rows ? (int64_t)rows[w] : w;
   const int64_t start = indptr[row];
   const int64_t end = indptr[row + 1];
-  const int64_t groups = d >> 2;
-  const bool has_z = z != nullptr;
+  const int64_t groups = kVec4 ? d >> 2 : d;
   for (int64_t g = threadIdx.x; g < groups; g += blockDim.x) {
-    const int64_t col0 = g << 2;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    int64_t e = start;
-    for (; e + 4 <= end; e += 4) {
-      const int64_t c0 = __ldg(indices + e), c1 = __ldg(indices + e + 1);
-      const int64_t c2 = __ldg(indices + e + 2), c3 = __ldg(indices + e + 3);
-      const float v0 = __ldg(vals + e), v1 = __ldg(vals + e + 1);
-      const float v2 = __ldg(vals + e + 2), v3 = __ldg(vals + e + 3);
-      const float4 a0 = load4(x + c0 * d + col0);
-      const float4 a1 = load4(x + c1 * d + col0);
-      const float4 a2 = load4(x + c2 * d + col0);
-      const float4 a3 = load4(x + c3 * d + col0);
-      axpy4(s, v0, a0);
-      axpy4(s, v1, a1);
-      axpy4(s, v2, a2);
-      axpy4(s, v3, a3);
-    }
-    for (; e < end; ++e) {
-      const int64_t col = __ldg(indices + e);
-      axpy4(s, __ldg(vals + e), load4(x + col * d + col0));
-    }
-    const int64_t at = row * d + col0;
-    float4 xr = make_float4(0.f, 0.f, 0.f, 0.f), zr = xr;
-    if (b != 0.f) xr = load4(self + at);
-    if (has_z) zr = load4(z + at);
-    float4 o;
-    o.x = tail(s.x, a, b, xr.x, has_z, c, zr.x);
-    o.y = tail(s.y, a, b, xr.y, has_z, c, zr.y);
-    o.z = tail(s.z, a, b, xr.z, has_z, c, zr.z);
-    o.w = tail(s.w, a, b, xr.w, has_z, c, zr.w);
-    if (out != nullptr) *reinterpret_cast<float4*>(out + at) = o;
-    if (acc_out != nullptr) {
-      float4 u = *reinterpret_cast<const float4*>(acc_out + at);
-      u.x = __fadd_rn(u.x, __fmul_rn(dd, o.x));
-      u.y = __fadd_rn(u.y, __fmul_rn(dd, o.y));
-      u.z = __fadd_rn(u.z, __fmul_rn(dd, o.z));
-      u.w = __fadd_rn(u.w, __fmul_rn(dd, o.w));
-      *reinterpret_cast<float4*>(acc_out + at) = u;
-    }
+    if (kVec4)
+      row_group4<false>(start, end, row, g << 2, indices, vals, x, self, z,
+                        acc_out, out, d, a, b, c, dd);
+    else
+      row_col<false>(start, end, row, g, indices, vals, x, self, z, acc_out,
+                     out, d, a, b, c, dd);
   }
 }
 
-__global__ void spmm_axpy_scalar(const int64_t* __restrict__ indptr,
-                                 const int32_t* __restrict__ rows,
-                                 const int32_t* __restrict__ indices,
-                                 const float* __restrict__ vals,
-                                 const float* __restrict__ x,
-                                 const float* __restrict__ self,
-                                 const float* __restrict__ z, float* acc_out,
-                                 float* out, int64_t n_rows,
-                                 int64_t d, float a, float b, float c,
-                                 float dd) {
+// The banded kernel: x's columns cut into bands of `band` columns, every
+// row taking band j before any row takes band j + 1, so that a band of x
+// (x_rows * band * 4 bytes, sized by the wrapper to stay in the L2) leaves
+// device memory about once and every later gather of it hits the L2.  A
+// row's blockDim.x lanes hold its band segment, a column group each; a
+// block holds blockDim.y rows.  blockIdx.y is the band, blockIdx.x the row
+// chunk: blocks start in order of their linear index, band-major.
+template <bool kVec4>
+__global__ void spmm_axpy_band(const int64_t* __restrict__ indptr,
+                               const int32_t* __restrict__ rows,
+                               const int32_t* __restrict__ indices,
+                               const float* __restrict__ vals,
+                               const float* __restrict__ x,
+                               const float* __restrict__ self,
+                               const float* __restrict__ z, float* acc_out,
+                               float* out, int64_t n_rows, int64_t d, float a,
+                               float b, float c, float dd, int64_t band) {
   const int64_t w = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (w >= n_rows) return;
+  const int64_t col0 =
+      (int64_t)blockIdx.y * band + (int64_t)threadIdx.x * (kVec4 ? 4 : 1);
+  if (w >= n_rows || col0 >= d) return;
   const int64_t row = rows ? (int64_t)rows[w] : w;
   const int64_t start = indptr[row];
   const int64_t end = indptr[row + 1];
-  const bool has_z = z != nullptr;
-  for (int64_t col0 = threadIdx.x; col0 < d; col0 += blockDim.x) {
-    float s = 0.f;
-    for (int64_t e = start; e < end; ++e) {
-      const int64_t col = __ldg(indices + e);
-      s += __ldg(vals + e) * __ldg(x + col * d + col0);
-    }
-    const int64_t at = row * d + col0;
-    const float xr = b != 0.f ? __ldg(self + at) : 0.f;
-    const float zr = has_z ? __ldg(z + at) : 0.f;
-    const float o = tail(s, a, b, xr, has_z, c, zr);
-    if (out != nullptr) out[at] = o;
-    if (acc_out != nullptr) {
-      acc_out[at] = __fadd_rn(acc_out[at], __fmul_rn(dd, o));
-    }
-  }
+  if (kVec4)
+    row_group4<true>(start, end, row, col0, indices, vals, x, self, z,
+                     acc_out, out, d, a, b, c, dd);
+  else
+    row_col<true>(start, end, row, col0, indices, vals, x, self, z, acc_out,
+                  out, d, a, b, c, dd);
 }
 
 constexpr int kLongWarps = 8;  // slices a block of spmm_axpy_long, a warp each
@@ -425,13 +521,47 @@ extern "C" int spmm_axpy_launch(const int64_t* indptr, const int32_t* rows,
     const dim3 block(tx, ty);
     const dim3 grid((unsigned)((n_rows + ty - 1) / ty));
     if (vec4) {
-      spmm_axpy_vec4<<<grid, block, 0, s>>>(indptr, rows, indices, vals, x,
-                                            self, z, acc, out, n_rows, d, a,
-                                            b, c, dd);
+      spmm_axpy_rows<true><<<grid, block, 0, s>>>(indptr, rows, indices,
+                                                  vals, x, self, z, acc, out,
+                                                  n_rows, d, a, b, c, dd);
     } else {
-      spmm_axpy_scalar<<<grid, block, 0, s>>>(indptr, rows, indices, vals, x,
-                                              self, z, acc, out, n_rows, d,
-                                              a, b, c, dd);
+      spmm_axpy_rows<false><<<grid, block, 0, s>>>(indptr, rows, indices,
+                                                   vals, x, self, z, acc, out,
+                                                   n_rows, d, a, b, c, dd);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launches K5's banded kernel on `stream` (the short-row kernel's contract,
+// x's columns in bands of `band` columns, a multiple of 4 when `vec4`, at
+// most 256 lanes a row) and returns the first CUDA error.
+extern "C" int spmm_axpy_band_launch(const int64_t* indptr,
+                                     const int32_t* rows,
+                                     const int32_t* indices,
+                                     const float* vals, const float* x,
+                                     const float* self, const float* z,
+                                     float* acc, float* out, int64_t n_rows,
+                                     int64_t d, float a, float b, float c,
+                                     float dd, int vec4, int64_t band,
+                                     void* stream) {
+  if (n_rows > 0 && d > 0) {
+    if (band <= 0 || (vec4 && band % 4 != 0)) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t lanes = vec4 ? band / 4 : band;
+    const int64_t bands = (d + band - 1) / band;
+    if (lanes > 256 || bands > 65535) return (int)cudaErrorInvalidValue;
+    const int ty = (int)(256 / lanes);
+    const dim3 block((unsigned)lanes, (unsigned)ty);
+    const dim3 grid((unsigned)((n_rows + ty - 1) / ty), (unsigned)bands);
+    if (vec4) {
+      spmm_axpy_band<true><<<grid, block, 0, s>>>(
+          indptr, rows, indices, vals, x, self, z, acc, out, n_rows, d, a, b,
+          c, dd, band);
+    } else {
+      spmm_axpy_band<false><<<grid, block, 0, s>>>(
+          indptr, rows, indices, vals, x, self, z, acc, out, n_rows, d, a, b,
+          c, dd, band);
     }
   }
   return (int)cudaGetLastError();

@@ -192,4 +192,88 @@ __device__ __forceinline__ int32_t hop(
   return nxt;
 }
 
+// ---- K12's form: one 16-byte head record a row and window lookups.
+//
+// The head record of a row holds (first entry, degree, wmax, wsum) as
+// int32, int32, float32 bits, float32 bits (kernels.walk_head), so a hop
+// reads one sector for what the four arrays above take four.  A walk's
+// lane loads kWindow entries of cols, from the row's first entry rounded
+// down to 4, in 16-byte loads that are all in flight at once, and finds the
+// first position whose column is >= x by a scan of its registers.  A row
+// longer than the window is narrowed by lower_bound's steps until the
+// window covers what is left.  The position found is lower_bound's, and
+// the column there is tested against x.
+
+constexpr int kWindow = 32;  // entries of a window load
+
+struct Window {
+  int32_t base;            // the window's first entry (a multiple of 4)
+  int4 v[kWindow / 4];     // entries base + 4 i .. base + 4 i + 3
+};
+
+// Whether [lo, hi) lies in the window that starts at lo rounded down to 4.
+__device__ __forceinline__ bool window_holds(int32_t lo, int32_t hi) {
+  return hi <= (lo & ~3) + kWindow;
+}
+
+// The window at lo rounded down to 4; only the loads that meet [lo, hi)
+// are made (an aligned 16-byte load that holds an entry of cols stays
+// inside it).
+__device__ __forceinline__ Window load_window(
+    const int32_t* __restrict__ cols, int32_t lo, int32_t hi) {
+  Window w;
+  w.base = lo & ~3;
+#pragma unroll
+  for (int i = 0; i < kWindow / 4; ++i) {
+    const int32_t at = w.base + 4 * i;
+    w.v[i] = at < hi ? __ldg(reinterpret_cast<const int4*>(cols + at))
+                     : make_int4(0, 0, 0, 0);
+  }
+  return w;
+}
+
+__device__ __forceinline__ int32_t lane_of(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The first position in [lo, hi) (inside the window) whose column is >= x,
+// and whether that column is x: `pos` is hi when there is none.
+struct Found {
+  int32_t pos;
+  bool hit;
+};
+
+__device__ __forceinline__ Found window_find(const Window& w, int32_t lo,
+                                             int32_t hi, int32_t x) {
+  Found f{hi, false};
+#pragma unroll
+  for (int i = kWindow / 4 - 1; i >= 0; --i) {
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      const int32_t at = w.base + 4 * i + j;
+      const int32_t col = lane_of(w.v[i], j);
+      if (at >= lo && at < hi && col >= x) f = {at, col == x};
+    }
+  }
+  return f;
+}
+
+// window_find in a row [lo, end) of any length.  lower_bound's steps keep
+// its answer in [lo, hi], and cols[hi] >= x when hi < end, so the window
+// must hold [lo, min(hi + 1, end)) for the test of that column.
+__device__ __forceinline__ Found row_find(const int32_t* __restrict__ cols,
+                                          int32_t lo, int32_t end,
+                                          int32_t x) {
+  int32_t hi = end;
+  while (!window_holds(lo, hi < end ? hi + 1 : end)) {
+    const int32_t mid = lo + ((hi - lo) >> 1);
+    if (__ldg(cols + mid) < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  hi = hi < end ? hi + 1 : end;
+  return window_find(load_window(cols, lo, hi), lo, hi, x);
+}
+
 }  // namespace walk2

@@ -250,20 +250,20 @@ def walk2_tries(q: float) -> int:
     return int(min(WALK2_TRIES_CAP, max(WALK2_TRIES, np.ceil(8.0 * q))))
 
 
-def walk_p_q(indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-             deg: torch.Tensor, wmax: torch.Tensor, wsum: torch.Tensor,
-             starts: torch.Tensor, walk_length: int, inv_p: float,
-             inv_q: float, tries: int, seed: int, base: int,
-             n: int) -> torch.Tensor:
+def walk_p_q(t: "WalkTables2", starts: torch.Tensor, walk_length: int,
+             inv_p: float, inv_q: float, tries: int, seed: int,
+             base: int) -> torch.Tensor:
     """(B, walk_length) int32 second-order walks from int32 ``starts``
-    (lane b is the walk of global index ``base + b``).  On CUDA this
-    launches K12; on the CPU it runs :func:`walk_p_q_plain`."""
+    (lane b is the walk of global index ``base + b``) over the tables
+    ``t``.  On CUDA this launches K12 on ``t.head``, ``t.cols`` and
+    ``t.vals``; on the CPU it runs :func:`walk_p_q_plain` on the four
+    arrays."""
     if starts.is_cuda:
-        return kernels.walk_p_q(indptr, cols, vals, deg, wmax, wsum, starts,
-                                walk_length, inv_p, inv_q, tries, seed, base,
-                                n)
-    return walk_p_q_plain(indptr, cols, vals, deg, wmax, wsum, starts,
-                          walk_length, inv_p, inv_q, tries, seed, base, n)
+        return kernels.walk_p_q(t.head, t.cols, t.vals, starts, walk_length,
+                                inv_p, inv_q, tries, seed, base, t.n)
+    return walk_p_q_plain(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
+                          starts, walk_length, inv_p, inv_q, tries, seed,
+                          base, t.n)
 
 
 def _row_search(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
@@ -409,9 +409,11 @@ def _proposal(indptr, d, at, u1) -> torch.Tensor:
 class WalkTables2(WalkTables):
     """The weighted walk CSR on one device for the second-order walk: the
     tables of :class:`WalkTables` plus float32 edge weights ``vals``
-    (nnz,) and the per-row max ``wmax`` and sum ``wsum`` (n,).  Validated
-    once: K12 trusts every offset, and its binary searches need each row's
-    columns in ascending order."""
+    (nnz,) and the per-row max ``wmax`` and sum ``wsum`` (n,), and K12's
+    16-byte head record a row, ``head`` (``kernels.walk_head``: the row's
+    ``indptr``, ``deg``, ``wmax`` and ``wsum`` in one int32 (n, 4) tensor).
+    Validated once: K12 trusts every offset, and its lookups need each
+    row's columns in ascending order."""
 
     def __init__(self, indptr: np.ndarray, cols: np.ndarray, deg: np.ndarray,
                  n: int, vals: np.ndarray, wmax: np.ndarray, wsum: np.ndarray,
@@ -428,6 +430,8 @@ class WalkTables2(WalkTables):
         self.vals = torch.from_numpy(vals).to(device)
         self.wmax = torch.from_numpy(wmax).to(device)
         self.wsum = torch.from_numpy(wsum).to(device)
+        self.head = kernels.walk_head(self.indptr, self.deg, self.wmax,
+                                      self.wsum)
 
 
 def device_walks2(tables, starts: np.ndarray, num_walks: int,
@@ -448,9 +452,8 @@ def device_walks2(tables, starts: np.ndarray, num_walks: int,
                                     tries, seed, lo, group)
     else:
         def launch(chunk, lo):
-            return walk_p_q(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-                            chunk, walk_length, inv_p, inv_q, tries, seed, lo,
-                            t.n)
+            return walk_p_q(t, chunk, walk_length, inv_p, inv_q, tries,
+                            seed, lo)
         if group is not None:
             launch = _lane_blocks(launch, t.n, group)
     yield from _walk_batches(t.device, starts, num_walks, batch, resident,

@@ -90,16 +90,14 @@ def walk_probe(parent, chunks, card: str) -> None:
             float(np.float32(1.0 / cs.N2V_Q)), walk.walk2_tries(cs.N2V_Q),
             0, 0)
     t12 = walk.WalkTables2(indptr, cols, deg, n, vals, wmax, wsum, dev)
-    k12 = walk.walk_p_q(t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax,
-                        t12.wsum, starts, *args[:4], 0, 0, n)
+    k12 = walk.walk_p_q(t12, starts, *args[:4], 0, 0)
     pk12 = importlib.import_module(PARENT + ".kernels")
     whole = starts.shape[0], cs.WALK_LENGTH
     runs = {"parent": lambda: pk12.walk_p_q(
                 t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax, t12.wsum,
                 starts, whole[1], *args[1:4], 0, 0, n),
-            "this": lambda: walk.walk_p_q(
-                t12.indptr, t12.cols, t12.vals, t12.deg, t12.wmax, t12.wsum,
-                starts, whole[1], *args[1:4], 0, 0, n)}
+            "this": lambda: walk.walk_p_q(t12, starts, whole[1],
+                                          *args[1:4], 0, 0)}
     assert torch.equal(runs["parent"](), runs["this"]())
     print(json.dumps({"probe": "K12", "walks": whole[0],
                       "length": whole[1],
@@ -127,9 +125,7 @@ def walk_probe(parent, chunks, card: str) -> None:
                           "chunk": walk.WALK2_CHUNK, "ms": ms,
                           "launches_a_hop": hop,
                           "k12_ms": cs.time_ms(lambda: walk.walk_p_q(
-                              t12.indptr, t12.cols, t12.vals, t12.deg,
-                              t12.wmax, t12.wsum, starts, *args[:4], 0, 0,
-                              n)),
+                              t12, starts, *args[:4], 0, 0)),
                           "card": card}), flush=True)
         if world == 4:
             default = walk.WALK2_CHUNK

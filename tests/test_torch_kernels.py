@@ -429,10 +429,13 @@ def test_k5_matches_plain(cuda_device, d, case):
     plain_kw = dict(kw)
     if "acc" in kw:
         plain_kw["acc"] = acc.clone()
-    before = kernels.LAUNCHES["spmm_axpy"]
+    # x of 3,000 rows outgrows the L2 budget at d=4096: the banded kernel
+    counter = ("spmm_axpy_band" if kernels.band_columns(3000, d)
+               else "spmm_axpy")
+    before = kernels.LAUNCHES[counter]
     out = spmm_axpy(csr, x, **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["spmm_axpy"] == before + 1
+    assert kernels.LAUNCHES[counter] == before + 1
     want = spmm_axpy_plain(csr, x, **plain_kw)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
     if "acc" in kw:
@@ -663,7 +666,7 @@ def test_k12_bitwise(cuda_device, p, q, batch):
     args = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum, starts, 20,
             1.0 / p, 1.0 / q, walk2_tries(q), 2**40 + 7, 3)
     before = kernels.LAUNCHES["walk_p_q"]
-    got = kernels.walk_p_q(*args, n)
+    got = kernels.walk_p_q(t.head, t.cols, t.vals, *args[6:], n)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["walk_p_q"] == before + 1
     assert got.shape == (batch, 20)
@@ -671,6 +674,25 @@ def test_k12_bitwise(cuda_device, p, q, batch):
     cpu = walk_p_q_plain(*(a.cpu() if torch.is_tensor(a) else a
                            for a in args), n)
     assert torch.equal(got.cpu(), cpu)
+
+
+@cuda
+@pytest.mark.parametrize("length", [1, 2, 7, 9, 80])
+def test_k12_window_form_at_every_walk_length(cuda_device, length):
+    """K12's record and window form (the head records, the window
+    lookups, a hub row of 3,000 entries narrowed first, the nodes stored a
+    group of 8 at a time with a partial last group) bitwise the plain
+    version."""
+    n = 4000
+    t = weighted_walk_tables(n, 3, cuda_device)
+    starts = torch.randint(0, n + 1, (999,), device=cuda_device,
+                           dtype=torch.int32)
+    starts[:64] = 1  # the hub
+    args = (starts, length, 2.0, 0.5, walk2_tries(2.0), 99, 5, n)
+    got = kernels.walk_p_q(t.head, t.cols, t.vals, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, walk_p_q_plain(t.indptr, t.cols, t.vals, t.deg,
+                                           t.wmax, t.wsum, *args))
 
 
 def _adc_case(q, m, c, n, dtype, device, seed=0):
@@ -882,6 +904,81 @@ def test_k5_self_operand_matches_plain(cuda_device, d):
     torch.testing.assert_close(acc, want_acc, rtol=1e-5, atol=1e-6)
 
 
+def _k5_call(monkeypatch, band, call):
+    """``call()`` with K5's band forced to ``band`` columns (0: the
+    short-row kernel), its launch counted on that kernel's counter alone."""
+    monkeypatch.setattr(kernels, "band_columns", lambda rows, width: band)
+    name = "spmm_axpy_band" if band else "spmm_axpy"
+    before = dict(kernels.LAUNCHES)
+    out = call()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before | {name: before[name] + 1}
+    return out
+
+
+@cuda
+@pytest.mark.parametrize("d", [8, 300, 302, 4096])
+@pytest.mark.parametrize("band", [8, 24])
+def test_k5_band_is_bitwise_the_short_row_kernel(cuda_device, d, band,
+                                                 monkeypatch):
+    """K5's banded kernel (x's columns in bands; at d=302 its scalar form)
+    bitwise the short-row kernel on the Chebyshev step, out and acc, and
+    against the plain version."""
+    csr = CsrMatrix.from_numpy(*markov_csr(3000, d, 5000), cuda_device)
+    x, z, acc = (torch.randn((3000, d), device=cuda_device) for _ in range(3))
+    outs = {}
+    for w in (band, 0):
+        a = acc.clone()
+        outs[w] = (_k5_call(monkeypatch, w, lambda: spmm_axpy(
+            csr, x, -2.0, 2.0, z=z, c=-1.0, acc=a, d=0.05)), a)
+    assert torch.equal(outs[band][0], outs[0][0])
+    assert torch.equal(outs[band][1], outs[0][1])
+    want_acc = acc.clone()
+    want = spmm_axpy_plain(csr, x, -2.0, 2.0, z=z, c=-1.0, acc=want_acc,
+                           d=0.05)
+    torch.testing.assert_close(outs[band][0], want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(outs[band][1], want_acc, rtol=1e-5, atol=1e-6)
+
+
+@cuda
+@pytest.mark.parametrize("d", [256, 302])
+def test_k5_band_takes_the_self_operand_and_a_row_plan(cuda_device, d,
+                                                       monkeypatch):
+    """The banded kernel on the sharded siblings' call (a 3,000-row gather
+    table, ``self_`` the shard's 2,000 rows) and over a row plan whose rows
+    are too short for the long-row kernel (acc only, the empty rows
+    untouched), bitwise the short-row kernel on both."""
+    indptr, _, vals = markov_csr(2000, d, 500)
+    cols = np.random.default_rng(d).integers(0, 3000, size=vals.shape[0])
+    csr = CsrMatrix(torch.from_numpy(indptr).to(cuda_device),
+                    torch.from_numpy(cols.astype(np.int32)).to(cuda_device),
+                    torch.from_numpy(vals).to(cuda_device))
+    table = torch.randn((3000, d), device=cuda_device)
+    own, z, acc = (torch.randn((2000, d), device=cuda_device)
+                   for _ in range(3))
+    got = {}
+    for w in (16, 0):
+        a = acc.clone()
+        got[w] = (_k5_call(monkeypatch, w, lambda: spmm_axpy(
+            csr, table, -2.0, 2.0, z=z, c=-1.0, acc=a, d=0.05,
+            self_=own)), a)
+    assert torch.equal(got[16][0], got[0][0])
+    assert torch.equal(got[16][1], got[0][1])
+    indptr, cols, vals = markov_csr(3000, d + 1, 5000)
+    order = np.lexsort((cols, np.repeat(np.arange(3000), np.diff(indptr))))
+    square = CsrMatrix.from_numpy(indptr, cols[order], vals[order],
+                                  cuda_device)
+    assert square.row_plan() is not None
+    x = torch.randn((3000, d), device=cuda_device)
+    acc = torch.randn((3000, d), device=cuda_device)
+    runs = {w: _k5_call(monkeypatch, w, lambda: spmm_accumulate_(
+        square, x, acc.clone())) for w in (16, 0)}
+    assert torch.equal(runs[16], runs[0])
+    want = acc.clone()
+    spmm_axpy_plain(square, x, 1.0, acc=want, d=1.0)
+    torch.testing.assert_close(runs[16], want, rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------- argument checks (need no card)
 def test_k5_wrapper_checks_the_self_operand():
     """With ``self_`` the gather table may have any number of rows; the
@@ -1030,20 +1127,20 @@ def test_k12_and_k13_wrappers_reject_bad_operands():
     t = WalkTables2(np.array([0, 1]), np.array([1, 0]), np.array([1, 1]), 2,
                     np.ones(2), np.ones(2), np.ones(2), torch.device("cpu"))
     starts = torch.zeros(4, dtype=torch.int32)
-    tab = (t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum)
+    tab = (t.head, t.cols, t.vals)
     kernels.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 64, 0, 0, 2)
     with pytest.raises(ValueError, match="int32"):
         kernels.walk_p_q(*tab, starts.long(), 5, 1.0, 1.0, 64, 0, 0, 2)
     with pytest.raises(ValueError, match="float32"):
-        kernels.walk_p_q(t.indptr, t.cols, t.vals.double(), *tab[3:], starts,
-                         5, 1.0, 1.0, 64, 0, 0, 2)
+        kernels.walk_p_q(t.head, t.cols, t.vals.double(), starts, 5, 1.0,
+                         1.0, 64, 0, 0, 2)
     with pytest.raises(ValueError, match="one entry per node"):
         kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 64, 0, 0, 3)
     with pytest.raises(ValueError, match="vals must match cols"):
-        kernels.walk_p_q(t.indptr, t.cols, t.vals[:1], *tab[3:], starts, 5,
-                         1.0, 1.0, 64, 0, 0, 2)
+        kernels.walk_p_q(t.head, t.cols, t.vals[:1], starts, 5, 1.0, 1.0,
+                         64, 0, 0, 2)
     with pytest.raises(ValueError, match="tries >= 1"):
         kernels.walk_p_q(*tab, starts, 5, 1.0, 1.0, 0, 0, 0, 2)
     tables, codes = _adc_case(2, 4, 16, 10, torch.uint8, "cpu")
@@ -1456,8 +1553,7 @@ def test_k18_matches_k12_and_plain(cuda_device, world, p, q):
     launches = kernels.LAUNCHES["walk2_owned"] - before
     assert launches == 9 if world == 1 else launches > 9 * world
     assert torch.equal(got, kernels.walk_p_q(
-        t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-        starts.to(cuda_device), *args, n))
+        t.head, t.cols, t.vals, starts.to(cuda_device), *args, n))
     cpu = [ShardedWalkTables(*arrays[:3], n, r, world, "cpu", *arrays[3:])
            for r in range(world)]
     assert torch.equal(got.cpu(), walk_p_q_sharded(cpu, starts, *args))

@@ -161,8 +161,7 @@ def test_a_dead_row_stops_the_walk_as_in_jax():
     t = twalk.WalkTables2(tabs[0], tabs[1], tabs[3], 3, tabs[2], tabs[4],
                           tabs[5], CPU)
     starts = torch.zeros(8, dtype=torch.int32)
-    ours = twalk.walk_p_q(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-                          starts, 4, 1.0, 1.0, 8, 0, 0, 3).numpy()
+    ours = twalk.walk_p_q(t, starts, 4, 1.0, 1.0, 8, 0, 0).numpy()
     ip, cols, vals, deg, wmax, wsum = (
         jnp.asarray(a, dtype=jnp.float32 if a.dtype == np.float64
                     else jnp.int32) for a in tabs)
@@ -180,8 +179,7 @@ def test_pad_lanes_and_dead_ends_emit_the_sentinel():
                           np.array([1, 1, 0]), 3, np.ones(2), np.ones(3),
                           np.ones(3), CPU)
     starts = torch.tensor([0, 3, 2], dtype=torch.int32)
-    w = twalk.walk_p_q(t.indptr, t.cols, t.vals, t.deg, t.wmax, t.wsum,
-                       starts, 5, 2.0, 0.5, 64, 1, 0, 3)
+    w = twalk.walk_p_q(t, starts, 5, 2.0, 0.5, 64, 1, 0)
     assert w.tolist() == [[0, 1, 2, 3, 3], [3, 3, 3, 3, 3], [2, 3, 3, 3, 3]]
 
 
