@@ -94,7 +94,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and every row a warp, torch.sparse.mm and the fused pass, timed, the
    rows up to LONG_SLICE entries against the plain versions and the hubs
    against float64 (rtol=1e-5, atol=1e-6; every row a warp to the float32
-   bound of a sum in one sequence);
+   bound of a sum in one sequence), and K1's band form with the same hub
+   slices on a panel of two bands of 32, bitwise K1;
 6. the spectral siblings at full width, each through its public entry point
    with backend="device" and the launch counts zeroed before and read
    after: embed_randne (40 iterations) and embed_hope at feature_dim=256
@@ -104,11 +105,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (block_rows=4096, power_iters=1), and embed_prone, at 200,000 nodes and
    600,000 undirected edges (ProNE moved there from phase 5's graph, where
    its float64 host SVD took 45-68 s; phase 12 runs it at full width).
-   Returns what phase 12 compares with.  Each entry point runs twice: once
-   as a user calls it, which gives the end-to-end seconds, the launch
-   counts and the peak device memory, and once more with its stages wrapped
-   in a stopwatch that synchronises the device around every call, which
-   gives the seconds by stage and nothing else.  Checks each output
+   Returns what phase 12 compares with.  Each entry point runs once, with
+   its stages wrapped in a stopwatch that synchronises the device around
+   every call: the end-to-end seconds (those synchronisations included),
+   the seconds by stage, the launch counts and the peak device memory (a
+   second, unwrapped run of the four dense and blocked paths was cut to
+   keep the time limit).  Checks each output
    (finite, unit rows) and holds the kernels against their plain versions
    at every shape these paths give them: K5 at D=256 with each coefficient
    set and its Katz step at D=136 on the big graph, K6 and K7 at 32,768
@@ -121,7 +123,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fit the L2; the blocked NetMF's and that ProNE's launches are counted
    on LAUNCHES["spmm_axpy_band"]), which is held bitwise equal to the
    short-row kernel on the same inputs at both shapes, and timed beside it
-   at the panel;
+   at the panel.  The blocked GraRep walks its panel band-major (bands of
+   32 columns, ops.spmm.panel_band): K1's band form against its plain
+   version on each power and bitwise row-major K1 on the same panel, K7's
+   band form bitwise K7 in place on the row-major panel with its input
+   unchanged, both timed beside what they replace; its 784 launches of
+   each are counted on LAUNCHES["spmm_csr_bands"] and
+   LAUNCHES["log_clip_bands"], with no row-major K1 or K7;
 7. DeepWalk (the walk pipeline), with launch counts zeroed before and read
    after its main path: on a 20,000-node, 60,000-edge parity graph, K8, K9 and K10
    bitwise against their plain versions on the first walk batch (K10 after
@@ -140,7 +148,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    5,500,000 undirected edges from default_rng(7), 2 walks of 80 per node,
    window 5; num_walks cut from the API's 10 to 2) through
    embed_deepwalk(feature_dim=256, backend="device", cooccurrence="device")
-   once untouched and once under the stage stopwatch, the count alone
+   once under the stage stopwatch (its untouched run was cut to keep the
+   time limit), the count alone
    (unique pairs within 1 % of the JAX package's 810,145,222 on this
    corpus shape; each of the 8 count ranges' fingerprints equal to those of
    the sort-based merge that K10's merge form replaced), the count
@@ -163,9 +172,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    partition, whose centroid accuracy must reach 0.99;
 8. Node2Vec at full width on phase 7's graph: embed_node2vec(feature_dim=
    256, num_walks=1, walk_length=80, window_size=5, p=0.5, q=2,
-   backend="device", cooccurrence="device", factorization="device") once
-   untouched (launch counts, peak memory, unit rows) and once under the
-   stage stopwatch; the count alone (exactly 769,985,370 pairs, unique
+   backend="device", cooccurrence="device", factorization="device") once,
+   under the stage stopwatch (launch counts, peak memory, unit rows, the
+   seconds by stage); the count alone (exactly 769,985,370 pairs, unique
    pairs within 1 % of the JAX package's 295.5 M on this configuration);
    K12 at the main path's batch bitwise against its plain version and
    timed; the planted partition with p=0.5, q=2 (accuracy >= 0.99);
@@ -1802,7 +1811,12 @@ def power_law_hubs(dev: torch.device, card: str) -> None:
         attention_spmm,
         attention_spmm_plain,
     )
-    from cleora_tpu_torch.ops.spmm import spmm, spmm_plain
+    from cleora_tpu_torch.ops.spmm import (
+        spmm,
+        spmm_bands,
+        spmm_plain,
+        to_bands,
+    )
 
     t0 = time.perf_counter()
     csr, deg = chung_lu_csr(FULL_NODES, FULL_UND_EDGES, 7, dev)
@@ -1838,6 +1852,15 @@ def power_law_hubs(dev: torch.device, card: str) -> None:
     assert bool((whole_err <= bound).all()), float(whole_err.max())
     err += f"; every row a warp: hub rows {float(whole_err.max()):.3e}"
     del got, want, unsliced, ref, mag, bound, whole_err
+    # K1's band form with the same hub slices, on a panel of two bands of
+    # 32, bitwise K1 on the row-major panel
+    g = kernels.BAND_COLUMNS
+    x2 = x[:, :2 * g].contiguous()
+    banded = spmm_bands(csr, to_bands(x2, g))
+    torch.cuda.synchronize()
+    assert torch.equal(banded, to_bands(spmm(csr, x2), g))
+    err += "; K1's band form (two bands of 32) bitwise K1"
+    del x2, banded
     sliced_ms = time_ms(lambda: spmm(csr, x))
     whole_ms = time_ms(lambda: kernels.spmm_csr(
         csr.indptr, csr.indices, csr.vals, x))
@@ -1938,19 +1961,6 @@ def run_spectral(name: str, call, expected=None, keep=None) -> dict:
     return launches
 
 
-def stage_split(name: str, call, *targets) -> None:
-    """A second run of ``call`` with ``targets`` under the stopwatch.  The
-    forced synchronisations serialise host and device, so its total is not
-    the entry point's time: run_spectral's is."""
-    with stopwatch(*targets) as stages:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    log(f"  {name}: second run under the stopwatch {wall_s:.3f} s; seconds "
-        "by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-
-
 def staged_spectral(name: str, call, expected, *targets, keep=None) -> dict:
     """One run of a spectral entry point with ``targets`` under the
     stopwatch: launch counts, peak memory and the end-to-end seconds of
@@ -1975,7 +1985,6 @@ def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
         spmm,
         spmm_axpy,
         spmm_axpy_plain,
-        spmm_plain,
     )
 
     rows, cols, vals, n = alg._coo_f32(graph)
@@ -2077,40 +2086,89 @@ def check_blocked_block(alg, graph, dev: torch.device, card: str) -> dict:
     errs["log_clip"] = check_log_clip(acc, deg_dev, s_col, 1.0, 0.0)
     del acc
 
-    # GraRep's block: K1 per power, K7 on a copy of each
-    y = alg._one_hot_block(n, b, 0, dev)
+    # GraRep's block on its band-major panel: K1's band form per power
+    # against its plain version, K7's band form on each power bitwise K7
+    # in place on the row-major panel, its input unchanged
+    from cleora_tpu_torch.ops.dense import (
+        log_clip,
+        log_clip_bands,
+        log_clip_bands_plain,
+    )
+    from cleora_tpu_torch.ops.spmm import (
+        from_bands,
+        one_hot_bands,
+        panel_band,
+        spmm_bands,
+        spmm_bands_plain,
+        to_bands,
+    )
+
+    g = panel_band(b)
+    assert g == kernels.BAND_COLUMNS, (b, g)
+    mode = grarep_mode()
+    yb = one_hot_bands(n, b, g, 0, dev)
     for _ in range(max_step):
-        want = spmm_plain(csr_pt, y)
-        got = spmm(csr_pt, y)
+        want = spmm_bands_plain(csr_pt, yb)
+        got = spmm_bands(csr_pt, yb)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **tol)
         errs["spmm_csr"] = max(errs["spmm_csr"], max_err(got, want))
-        y = got
+        yb = got
         del want, got
+        kept = yb.clone()
+        clipped = log_clip_bands(yb, None, None, *mode, b)
+        row = from_bands(yb, b)
         errs["log_clip"] = max(errs["log_clip"],
-                               check_log_clip(y, None, None, *grarep_mode()))
-    # K1 at this panel's shape (a GraRep power), against torch.sparse.mm;
+                               check_log_clip(row, None, None, *mode))
+        in_place = log_clip(row, None, None, *mode)
+        torch.cuda.synchronize()
+        assert torch.equal(clipped, in_place) and torch.equal(yb, kept)
+        del kept, clipped, row, in_place
+    # K1 at this panel's shape (a GraRep power): the band form bitwise
+    # row-major K1 on the same panel, both timed beside torch.sparse.mm;
     # bounds as K5's above
-    k1_plain_ms = timed_once(lambda: spmm_plain(csr_pt, y))[1]
-    k1_ms = time_ms(lambda: spmm(csr_pt, y))
+    y = from_bands(yb, b)
+    got, row_k1 = spmm_bands(csr_pt, yb), spmm(csr_pt, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, to_bands(row_k1, g))
+    del got, row_k1
+    k1_plain_ms = timed_once(lambda: spmm_bands_plain(csr_pt, yb))[1]
+    k1_ms = time_ms(lambda: spmm_bands(csr_pt, yb))
+    k1_row_ms = time_ms(lambda: spmm(csr_pt, y))
     lib_op = sparse_csr(csr_pt)
     k1_lib_ms = time_ms(lambda: torch.sparse.mm(lib_op, y))
     del lib_op
     k1_once = 8 * (n + 1) + 8 * csr_pt.nnz + 2 * panel
     k1_gathered = k1_once - panel + 4 * csr_pt.nnz * b
-    log(f"  K1 at the blocked panel ({n}, {b}): {k1_ms:.3f} ms (plain "
-        f"{k1_plain_ms:.3f}, torch.sparse.mm {k1_lib_ms:.3f}); bounds "
-        f"{k1_once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input once), "
-        f"{k1_gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an "
+    log(f"  K1 at the blocked panel ({n}, {b}): band form ({g} columns a "
+        f"band) {k1_ms:.3f} ms, bitwise row-major K1's {k1_row_ms:.3f} ms "
+        f"(plain {k1_plain_ms:.3f}, torch.sparse.mm {k1_lib_ms:.3f}); "
+        f"bounds {k1_once / HBM_BYTES_PER_S * 1e3:.3f} ms (each input "
+        f"once), {k1_gathered / HBM_BYTES_PER_S * 1e3:.3f} ms (one x row an "
         f"entry); [{card}]")
     errs["k1_panel"] = (k1_ms, k1_plain_ms, k1_lib_ms, errs["spmm_csr"],
                         k1_once, 2 * csr_pt.nnz * b)
+    # K7's band form at this panel beside the copy and K7 in place that
+    # it replaced: the panel read and L written once
+    k7_ms = time_ms(lambda: log_clip_bands(yb, None, None, *mode, b))
+    k7_clone_ms = time_ms(lambda: log_clip(y.clone(), None, None, *mode))
+    k7_plain_ms = timed_once(
+        lambda: log_clip_bands_plain(yb, None, None, *mode, b))[1]
+    k7_once = 4 * n * yb.shape[0] * g + 4 * n * b
+    log(f"  K7's band form at the blocked panel ({n}, {b}): {k7_ms:.3f} ms "
+        f"against a copy + K7 in place {k7_clone_ms:.3f} ms (plain "
+        f"{k7_plain_ms:.3f}); bound {k7_once / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; [{card}]")
+    errs["k7_panel"] = (k7_ms, k7_plain_ms, None, errs["log_clip"], k7_once,
+                        3 * n * b)
+    del y, yb
     log(f"  one row block of the blocked paths, ({n}, {b}) on the "
         f"{csr_pt.nnz}-entry transposed transition CSR, each step against "
         f"its plain version: K5 ({window} NetMF walk steps) max |err| "
-        f"{errs['spmm_axpy']:.3e}, K1 ({max_step} GraRep powers) "
-        f"{errs['spmm_csr']:.3e}, K7 (NetMF's mode on the summed walk, "
-        f"GraRep's on each power) {errs['log_clip']:.3e}")
+        f"{errs['spmm_axpy']:.3e}, K1's band form ({max_step} GraRep "
+        f"powers) {errs['spmm_csr']:.3e}, K7 (NetMF's mode on the summed "
+        f"walk, GraRep's on each power; its band form bitwise K7) "
+        f"{errs['log_clip']:.3e}")
     return errs
 
 
@@ -2270,12 +2328,12 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         return alg.embed_grarep(gd, feature_dim=DIM, max_step=GRAREP_STEPS,
                                 backend="device")
 
-    netmf = run_spectral("embed_netmf() dense", netmf_dense,
-                         {"dense_markov": 1, "log_clip": 1})
-    stage_split("embed_netmf() dense", netmf_dense, *dense_targets)
-    run_spectral("embed_grarep() dense", grarep_dense,
-                 {"dense_markov": 1, "log_clip": GRAREP_STEPS})
-    stage_split("embed_grarep() dense", grarep_dense, *dense_targets)
+    netmf = staged_spectral("embed_netmf() dense", netmf_dense,
+                            {"dense_markov": 1, "log_clip": 1},
+                            *dense_targets)
+    staged_spectral("embed_grarep() dense", grarep_dense,
+                    {"dense_markov": 1, "log_clip": GRAREP_STEPS},
+                    *dense_targets)
 
     # ---- K6 and K7 at the dense siblings' shape
     rows, cols, vals, _ = alg._coo_f32(gd)
@@ -2335,7 +2393,8 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         f"(ingest {time.perf_counter() - t0:.3f} s): block_rows={BLOCK_ROWS},"
         f" {blocks} blocks, {sweeps} sweeps")
     hub_census("phase 6's blocked graph", gb)
-    blocked_targets = ((alg, "spmm_axpy"), (alg, "spmm"), (alg, "log_clip"),
+    blocked_targets = ((alg, "spmm_axpy"), (alg, "spmm_bands"),
+                       (alg, "log_clip"), (alg, "log_clip_bands"),
                        (torch, "matmul"), (torch.linalg, "qr"),
                        (torch.linalg, "svd"), (alg, "_fetch_f64"))
     kept = {}
@@ -2363,15 +2422,15 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
 
     blocked_errs = check_blocked_block(alg, gb, dev, card)
     torch.cuda.empty_cache()
-    netmf_launches = run_spectral(
+    netmf_launches = staged_spectral(
         "embed_netmf() blocked", netmf_blocked,
-        {"spmm_axpy_band": blocks * sweeps * 5, "log_clip": blocks * sweeps})
-    stage_split("embed_netmf() blocked", netmf_blocked, *blocked_targets)
-    grarep_launches = run_spectral(
+        {"spmm_axpy_band": blocks * sweeps * 5, "log_clip": blocks * sweeps},
+        *blocked_targets)
+    grarep_launches = staged_spectral(
         "embed_grarep() blocked", grarep_blocked,
-        {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
-         "log_clip": blocks * sweeps * GRAREP_STEPS})
-    stage_split("embed_grarep() blocked", grarep_blocked, *blocked_targets)
+        {"spmm_csr_bands": blocks * sweeps * GRAREP_STEPS,
+         "log_clip_bands": blocks * sweeps * GRAREP_STEPS},
+        *blocked_targets)
     refs["blocked"] = gb
     refs["blocked_rows"] = sample_rows(nb)
     refs["blocked_prone"] = kept.pop("embed_prone()")[refs["blocked_rows"]]
@@ -2391,9 +2450,12 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         kernel_row("log_clip", src + "log_clip.cu",
                    "cleora_tpu/algorithms.py:429", k7_ms, k7_plain_ms,
                    k7_lib_ms, k7_err, k7_bytes, k7_flops, netmf["log_clip"]),
-        kernel_row("spmm_csr_blocked", src + "spmm_csr.cu",
+        kernel_row("spmm_csr_blocked", src + "spmm_csr_bands.cu",
                    "cleora_tpu/algorithms.py:640", *blocked_errs["k1_panel"],
-                   grarep_launches["spmm_csr"]),
+                   grarep_launches["spmm_csr_bands"]),
+        kernel_row("log_clip_bands", src + "log_clip.cu",
+                   "cleora_tpu/algorithms.py:642", *blocked_errs["k7_panel"],
+                   grarep_launches["log_clip_bands"]),
         kernel_row("spmm_axpy_band", src + "spmm_axpy.cu",
                    "cleora_tpu/algorithms.py:596", *blocked_errs["k5_panel"],
                    netmf_launches["spmm_axpy_band"]),
@@ -2676,15 +2738,14 @@ def walk_full_width(dev: torch.device, card: str) -> list:
                 "run_length_merge": (batches - 1) * passes,
                 "ppmi": passes, "spmm_axpy": applies * passes}
     kept = {}
-    launches = run_spectral("embed_deepwalk()", deepwalk, expected, kept)
     targets = ((walk, "walk_uniform"), (cooccur, "pair_keys"),
                (torch, "sort"), (cooccur, "run_length"),
                (cooccur, "ppmi_colsum_"), (cooccur, "ppmi_values"),
                (dense, "spmm_accumulate_"), (cooccur, "_merge"),
                (torch.linalg, "qr"),
                (torch.linalg, "svd"), (alg, "_finalize_factor"))
-    staged_spectral("embed_deepwalk() stopwatch run", deepwalk, expected,
-                    *targets)
+    launches = staged_spectral("embed_deepwalk()", deepwalk, expected,
+                               *targets, keep=kept)
     torch.cuda.empty_cache()
 
     # ---- the counts alone: pairs, unique pairs, K11 at full size
@@ -3216,7 +3277,6 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
                 "run_length": batches,
                 "run_length_merge": (batches - 1) * passes,
                 "ppmi": passes, "spmm_axpy": applies * passes}
-    launches = run_spectral("embed_node2vec()", node2vec, expected)
     groups = {"K12 walks": ("walk_p_q",),
               "counting": ("pair_keys", "sort", "run_length", "_merge"),
               "PPMI": ("ppmi_colsum_", "ppmi_values"),
@@ -3228,14 +3288,20 @@ def node2vec_full_width(dev: torch.device, card: str, g) -> tuple:
                    (dense, "spmm_accumulate_"), (cooccur, "_merge"),
                    (torch.linalg, "qr"), (torch.linalg, "svd"),
                    (alg, "_finalize_factor")) as stages:
-        t0 = time.perf_counter()
-        node2vec()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        timed = {}
+
+        def node2vec_timed():
+            t0 = time.perf_counter()
+            out = node2vec()
+            timed["wall_s"] = time.perf_counter() - t0
+            return out
+
+        launches = run_spectral("embed_node2vec()", node2vec_timed, expected)
+    wall_s = timed["wall_s"]
     split = {k: sum(stages.get(x, 0.0) for x in v) for k, v in groups.items()}
     split["other host"] = wall_s - sum(split.values())
     walk_s = stages["walk_p_q"]
-    log(f"  embed_node2vec(): second run under the stopwatch {wall_s:.3f} s; "
+    log(f"  embed_node2vec(): {wall_s:.3f} s under the stopwatch; "
         "seconds by stage " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in split.items())
         + f"; K12 {walk_s / batches * 1e3:.3f} ms per batch, "
@@ -4305,17 +4371,17 @@ def sharded_siblings(dev: torch.device, card: str, g, refs: dict) -> list:
             f"{gd.num_edges} nnz): block_rows={BLOCK_ROWS}, {blocks} blocks, "
             f"{sweeps} sweeps, against the single-device blocked path")
         blocked_targets = ((palg, "_sweep"), (palg, "_vblock"),
-                           (palg, "log_clip"), (palg, "_chol_qr"),
-                           (palg, "_sharded_exit"))
+                           (palg, "log_clip"), (palg, "log_clip_bands"),
+                           (palg, "_chol_qr"), (palg, "_sharded_exit"))
         cases = (
             ("netmf", alg.embed_netmf, {},
              {"spmm_axpy_band": blocks * sweeps * 5,
               "log_clip": blocks * sweeps},
              ((palg.ShardedOp, "apply_axpy"),) + blocked_targets),
             ("grarep", alg.embed_grarep, {"max_step": GRAREP_STEPS},
-             {"spmm_csr": blocks * sweeps * GRAREP_STEPS,
-              "log_clip": blocks * sweeps * GRAREP_STEPS},
-             ((palg.ShardedOp, "apply"),) + blocked_targets),
+             {"spmm_csr_bands": blocks * sweeps * GRAREP_STEPS,
+              "log_clip_bands": blocks * sweeps * GRAREP_STEPS},
+             ((palg.ShardedOp, "apply_bands"),) + blocked_targets),
         )
         for name, fn, extra, expected, targets in cases:
             kw = dict(extra, feature_dim=DIM, backend="device",
@@ -5132,16 +5198,26 @@ def main() -> int:
     t_start = time.perf_counter()
     card = environment()
     build_kernels()
+    t0 = time.perf_counter()
     check_kernels(dev)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     slice_parity(dev)
     walk_parity(dev)
+    log(f"phase 4 and the walk parity: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     rows, graph, table = full_width(dev, card)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     spectral_rows, spectral_refs = spectral_full_width(dev, card, graph)
     rows += spectral_rows
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     graph._device_cache.clear()  # phase 9 reads its entity ids only
+    t0 = time.perf_counter()
     with recorded(alg, "_walk_table_mode") as walk_modes:
         walk_rows, walk_graph, walk_refs = walk_full_width(dev, card)
     rows += walk_rows
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     n2v_rows, gq, emb_q, n2v_walks = node2vec_full_width(dev, card,
                                                          walk_graph)

@@ -56,8 +56,20 @@ from ._util import full_float32_matmul, resolve_device
 from .native import sort_u64
 from .ops import memory
 from .ops.cooccur import CountCheckpoint, device_pair_counts, ppmi_csrs
-from .ops.dense import dense_markov, log_clip, rsvd_sparse, rsvd_u_sqrt
-from .ops.spmm import CsrMatrix, spmm, spmm_axpy
+from .ops.dense import (
+    dense_markov,
+    log_clip,
+    log_clip_bands,
+    rsvd_sparse,
+    rsvd_u_sqrt,
+)
+from .ops.spmm import (
+    CsrMatrix,
+    one_hot_bands,
+    panel_band,
+    spmm_axpy,
+    spmm_bands,
+)
 from .ops.walk import (
     WALK_BATCH,
     ShardedWalkTables,
@@ -378,7 +390,9 @@ def _auto_block_rows(n: int, r: int, limit=None,
                      device: Optional[torch.device] = None) -> int:
     """Largest block width, a multiple of 128, whose O(n·b) working set
     (three (n, b) f32 buffers + rSVD (n, r) operands) fits half the
-    device."""
+    device.  A multiple of 128 is whole bands of ``panel_band``'s 32
+    columns, so the blocked GraRep's band-major panels (y, the next y and
+    L) pad nothing."""
     if limit is None and device is not None:
         limit = memory.device_memory_limit(device)
     if limit is None:
@@ -398,12 +412,8 @@ def _block_shape(n: int, r: int, block_rows, device) -> int:
 
 def _one_hot_block(n: int, b: int, start: int, device) -> torch.Tensor:
     """E_bᵀ: (n, b) with y[start + j, j] = 1 for start + j < n (the padded
-    tail columns of the last block stay 0)."""
-    y = torch.zeros((n, b), dtype=torch.float32, device=device)
-    width = min(b, n - start)
-    j = torch.arange(width, device=device)
-    y[start + j, j] = 1.0
-    return y
+    tail columns of the last block stay 0): the one-band panel."""
+    return one_hot_bands(n, b, b, start, device)[0]
 
 
 def _pad_rows(v: torch.Tensor, n_pad: int) -> torch.Tensor:
@@ -505,19 +515,22 @@ def _grarep_blocked_device(graph, feature_dim: int, max_step: int, seed: int,
     omega = torch.from_numpy(
         rng.standard_normal((max_step, n, r)).astype(np.float32)).to(dev)
 
+    g = panel_band(b)
+
     def block(start: int, W, V):
         """One walk serves ALL steps: at each power P^s the step's log
         block L_s feeds that step's pair of sketch products
-        (cleora_tpu/algorithms.py:628-648).  The padded tail columns hold
-        y == 0 → L == 0, so they need no masking."""
-        y = _one_hot_block(n, b, start, dev)
+        (cleora_tpu/algorithms.py:628-648).  The walk state is the
+        band-major panel (bands, n, g) of K1's band form; K7's band form
+        writes each power's row-major L out of place, so the walk goes on
+        from y itself.  The padded tail columns (of the last block and of
+        the last band) hold y == 0 → L == 0, so they need no masking."""
+        y = one_hot_bands(n, b, g, start, dev)
         brs, nrs = [], []
         for s in range(max_step):
-            y = spmm(csr_pt, y)
-            # K7 clips in place: the walk goes on from a copy's original
-            last = s + 1 == max_step
-            L = log_clip(y if last else y.clone(), None, None, _GRAREP_FLOOR,
-                         _GRAREP_OFFSET)
+            y = spmm_bands(csr_pt, y)
+            L = log_clip_bands(y, None, None, _GRAREP_FLOOR, _GRAREP_OFFSET,
+                               b)
             if W is not None:
                 brs.append(torch.matmul(L.T, W[s]))
             if V is not None:

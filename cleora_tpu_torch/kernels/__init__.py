@@ -5,13 +5,15 @@ K1 ``spmm_csr.cu``, K2 ``row_normalize.cu``, K3 ``hash_init.cu``, K4
 ``log_clip.cu``, K8 ``walk_uniform.cu``, K9 ``pair_enum.cu``, K10
 ``run_length.cu``, K11 ``ppmi.cu``, K12 ``walk_p_q.cu``, K13
 ``pq_adc.cu``, K14 ``label_prop.cu``, K15 ``relu_dropout.cu``, K16
-``halo_pack.cu``, K17 ``walk_owned.cu``, K18 ``walk2_owned.cu`` and K19
-``spmm_acc.cu`` are built at first use (:mod:`.build`).  Each wrapper
+``halo_pack.cu``, K17 ``walk_owned.cu``, K18 ``walk2_owned.cu``, K19
+``spmm_acc.cu`` and K1's band form ``spmm_csr_bands.cu`` are built at
+first use (:mod:`.build`).  Each wrapper
 checks device, dtype, shape and contiguity, launches on PyTorch's current
 stream, raises if the launch is refused, and adds one to its entry in
 :data:`LAUNCHES`; while :func:`recording` is open (``tracing.trace``) each
 launch is bracketed by a pair of CUDA events.  K4's library also holds
-the fused attention pass (:func:`attention_spmm`).  The wrappers take CUDA
+the fused attention pass (:func:`attention_spmm`), K7's library its band
+form (:func:`log_clip_bands`).  The wrappers take CUDA
 tensors only; the plain PyTorch versions live beside their callers in
 ``ops/``.
 """
@@ -28,10 +30,10 @@ import torch
 from . import build
 
 # the launch counters: one a kernel library, one for K10's merge form, one
-# for the fused attention pass in K4's library, one for K15's backward and
-# one for K5's banded kernel
+# for the fused attention pass in K4's library, one for K15's backward, one
+# for K5's banded kernel and one for K7's band form
 COUNTERS = (*build.KERNELS, "run_length_merge", "attention_spmm",
-            "relu_dropout_backward", "spmm_axpy_band")
+            "relu_dropout_backward", "spmm_axpy_band", "log_clip_bands")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
@@ -147,6 +149,18 @@ _ARGTYPES = {
     # x, r, c, n, m, floor, offset, vec4, stream
     "log_clip": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                  _c.c_int64, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # y, r, c, out, n, m, bands, g, floor, offset, vec4, stream
+    "log_clip_bands": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int64,
+                       _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    # indptr, indices, vals, x, out, n_rows, rps, parts, bands, long_slice,
+    # item_rows, item_starts, item_cuts, n_items, split, n_split, part,
+    # stream
+    "spmm_csr_bands": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64,
+                       _c.c_int64, _c.c_int64, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64,
+                       _c.c_void_p, _c.c_void_p],
     # indptr, cols, deg, starts, walks, batch, walk_length, base, k0, k1, n,
     # stream
     "walk_uniform": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
@@ -355,6 +369,47 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, vals: torch.Tensor,
                 None if part is None else part.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("spmm_csr", rc)
+    return out
+
+
+def spmm_csr_bands(indptr: torch.Tensor, indices: torch.Tensor,
+                   vals: torch.Tensor, x: torch.Tensor, parts: int = 1,
+                   hubs: Optional["HubPlan"] = None) -> torch.Tensor:
+    """K1's band form: ``out[j] = A @ x_j`` for every band ``j`` of a
+    band-major panel.  ``x`` is float32 (parts·bands, rps,
+    :data:`BAND_COLUMNS`): band ``j`` of part ``p`` at ``x[p·bands + j]``,
+    and column ``c`` of A is row ``c % rps`` of part ``c // rps`` (a shard
+    group's all-gather of every rank's (bands, rps, 32) panel; ``parts=1``
+    is one card's panel).  ``hubs`` as :func:`spmm_csr`.  Returns a new
+    float32 (bands, N, :data:`BAND_COLUMNS`) tensor, bitwise K1 on the
+    row-major panel."""
+    name = "spmm_csr_bands"
+    _require_csr(name, indptr, indices, vals)
+    _require(x.dtype == torch.float32 and x.dim() == 3
+             and x.shape[2] == BAND_COLUMNS,
+             f"{name}: x must be a float32 (parts*bands, rps, "
+             f"{BAND_COLUMNS}) panel")
+    parts = int(parts)
+    _require(parts >= 1 and x.shape[0] % parts == 0 and x.shape[1] >= 1,
+             f"{name}: x's first axis must hold `parts` parts of its bands")
+    _require_cuda_contiguous(name, x.device, indptr, indices, vals, x)
+    _require(_aligned16(x), f"{name}: x must be aligned to 16 bytes")
+    n = indptr.shape[0] - 1
+    bands, rps = x.shape[0] // parts, x.shape[1]
+    hub = _hub_args(hubs, x.device, name)
+    out = torch.empty((bands, n, BAND_COLUMNS), dtype=torch.float32,
+                      device=x.device)
+    part = None
+    if hub[4]:
+        part = torch.empty((bands, hub[4], BAND_COLUMNS),
+                           dtype=torch.float32, device=x.device)
+    fn = _bound(name)
+    with torch.cuda.device(x.device):
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
+                x.data_ptr(), out.data_ptr(), n, rps, parts, bands, *hub,
+                None if part is None else part.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
     return out
 
 
@@ -790,6 +845,47 @@ def log_clip_(x: torch.Tensor, row_scale: Optional[torch.Tensor],
                 torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("log_clip", rc)
     return x
+
+
+def log_clip_bands(y: torch.Tensor, row_scale: Optional[torch.Tensor],
+                   col_scale: Optional[torch.Tensor], floor: float,
+                   offset: float, width: int) -> torch.Tensor:
+    """K7's band form: ``L[i, g·j + k] = log(max(y[j, i, k]·row_scale[i]·
+    col_scale[g·j + k], floor)) − offset`` for the float32 band-major
+    panel ``y`` (bands, n, g), into a new row-major float32 (n, width)
+    ``L``; ``y`` is left as it was.  Bands of :data:`BAND_COLUMNS` columns
+    (the last one's padded columns dropped), or one band of ``width``
+    columns (K7 out of place).  A scale that is None is a factor of 1."""
+    name = "log_clip_bands"
+    scales = [t for t in (row_scale, col_scale) if t is not None]
+    for t in (y, *scales):
+        _require(t.dtype == torch.float32, f"{name}: float32 tensors expected")
+    _require(y.dim() == 3, f"{name}: y must be a (bands, n, g) panel")
+    bands, n, g = y.shape
+    m = int(width)
+    _require((bands == 1 and g == m) or (
+        g == BAND_COLUMNS and (bands - 1) * g < m <= bands * g),
+             f"{name}: y must be one band of `width` columns or bands of "
+             f"{BAND_COLUMNS} columns covering `width`")
+    _require(row_scale is None or row_scale.shape == (n,),
+             f"{name}: row_scale must have one entry per row of y")
+    _require(col_scale is None or col_scale.shape == (m,),
+             f"{name}: col_scale must have one entry per column of L")
+    _require_cuda_contiguous(name, y.device, y, *scales)
+    _require(bands == 1 or _aligned16(y),
+             f"{name}: y must be aligned to 16 bytes")
+    out = torch.empty((n, m), dtype=torch.float32, device=y.device)
+    vec4 = m % 4 == 0 and (bands > 1 or _aligned16(
+        y, *([] if col_scale is None else [col_scale])))
+    fn = _bound("log_clip", name)
+    with torch.cuda.device(y.device):
+        rc = fn(y.data_ptr(),
+                None if row_scale is None else row_scale.data_ptr(),
+                None if col_scale is None else col_scale.data_ptr(),
+                out.data_ptr(), n, m, bands, g, float(floor), float(offset),
+                int(vec4), torch.cuda.current_stream(y.device).cuda_stream)
+    _check_launch(name, rc)
+    return out
 
 
 _U32 = 0xFFFFFFFF

@@ -1,8 +1,9 @@
 // The row team shared by K1 (spmm_csr.cu), K19 (spmm_acc.cu), K2's kernel
 // for rows of up to 1,024 columns (row_normalize.cu), the fused attention
-// pass (edge_attention.cu) and K14 (label_prop.cu, its layout and
-// gather-sum): its layout, the row-team SpMM that K1 and K19 launch, and
-// its epilogue, the residual mix and the row normalisation.
+// pass (edge_attention.cu), K14 (label_prop.cu, its layout and
+// gather-sum) and K1's band form (spmm_csr_bands.cu, its gather-sum over a
+// band-major panel): its layout, the row-team SpMM that K1 and K19 launch,
+// and its epilogue, the residual mix and the row normalisation.
 //
 // Layout.  A team of L lanes owns a row: a whole warp from 32 column
 // groups on, else the smallest power of two that gives each lane a group,
@@ -160,12 +161,18 @@ __device__ __forceinline__ void load_slot(float (&o)[1],
 // Every lane of the warp calls this, `live` or not.  kRound: each product
 // and sum rounded on its own (__fmul_rn, __fadd_rn; K14's arithmetic),
 // else the compiler may contract them into a fused multiply-add (K1).
-template <typename T, bool kVec4, int kS, int kLoads, bool kRound = false>
+// kParts: x is cut into parts of `rps` rows, `part_stride` elements apart,
+// and column c is row c % rps of part c / rps (K1's band form over an
+// all-gathered band-major table; rps below 2^31); else column c is row c
+// of x.
+template <typename T, bool kVec4, int kS, int kLoads, bool kRound = false,
+          bool kParts = false>
 __device__ __forceinline__ void gather_sum(
     float (&acc)[kS][Cols<kVec4>::kP], const bool (&ok)[kS],
     const int32_t* __restrict__ indices, const float* __restrict__ vals,
     const T* __restrict__ x, int64_t d, int64_t c0, int L, int sub, bool live,
-    int64_t e0, int64_t stride, int64_t end) {
+    int64_t e0, int64_t stride, int64_t end, int64_t rps = 1,
+    int64_t part_stride = 0) {
   constexpr int kP = Cols<kVec4>::kP;
   constexpr int kB = kLoads / kS > 2 ? kLoads / kS : 2;  // edges in flight
   const int per = 32 / L;  // segments of L entries in a chunk of 32
@@ -188,7 +195,16 @@ __device__ __forceinline__ void gather_sum(
       for (int u = 0; u < kB; ++u) {
         const int cj = __shfl_sync(kAll, col, j + u, L);
         vj[u] = __shfl_sync(kAll, v, j + u, L);
-        const T* xr = x + (int64_t)cj * d + c0;
+        int64_t xo;
+        if constexpr (kParts) {
+          // 32-bit division: the columns and rps are below 2^31
+          const uint32_t q = (uint32_t)cj / (uint32_t)rps;
+          xo = (int64_t)q * part_stride +
+               (int64_t)((uint32_t)cj - q * (uint32_t)rps) * d;
+        } else {
+          xo = (int64_t)cj * d;
+        }
+        const T* xr = x + xo + c0;
 #pragma unroll
         for (int t = 0; t < kS; ++t) {
           if (j + u < k && ok[t]) {

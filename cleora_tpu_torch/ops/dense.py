@@ -19,7 +19,7 @@ import torch
 
 from .. import kernels
 from .._util import full_float32_matmul
-from .spmm import CsrMatrix, spmm_accumulate_
+from .spmm import CsrMatrix, from_bands, spmm_accumulate_
 
 
 def dense_markov(csr: CsrMatrix):
@@ -66,6 +66,30 @@ def log_clip_plain(x: torch.Tensor, row_scale: Optional[torch.Tensor],
     if col_scale is not None:
         x.mul_(col_scale[None, :])
     return x.clamp_min_(float(floor)).log_().sub_(float(offset))
+
+
+def log_clip_bands(y: torch.Tensor, row_scale: Optional[torch.Tensor],
+                   col_scale: Optional[torch.Tensor], floor: float,
+                   offset: float, width: int) -> torch.Tensor:
+    """:func:`log_clip` of the row-major view of the band-major panel ``y``
+    (bands, n, g), into a new row-major float32 (n, width) tensor; ``y``
+    is left as it was (the blocked GraRep's walk goes on from it).  On
+    CUDA this launches K7's band form; on the CPU it runs
+    :func:`log_clip_bands_plain`."""
+    if y.is_cuda:
+        return kernels.log_clip_bands(y, row_scale, col_scale, floor, offset,
+                                      width)
+    return log_clip_bands_plain(y, row_scale, col_scale, floor, offset,
+                                width)
+
+
+def log_clip_bands_plain(y: torch.Tensor, row_scale: Optional[torch.Tensor],
+                         col_scale: Optional[torch.Tensor], floor: float,
+                         offset: float, width: int) -> torch.Tensor:
+    """Plain PyTorch version of K7's band form: the row-major view copied
+    out, then :func:`log_clip_plain` in place on the copy."""
+    return log_clip_plain(from_bands(y, width), row_scale, col_scale, floor,
+                          offset)
 
 
 @full_float32_matmul()

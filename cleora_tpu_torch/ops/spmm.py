@@ -184,6 +184,79 @@ def spmm_plain(csr: CsrMatrix, x: torch.Tensor, residual_weight: float = 0.0,
     return out
 
 
+def panel_band(width: int, all_gather: bool = True) -> int:
+    """The columns of a band of a blocked panel ``width`` columns wide:
+    :data:`kernels.BAND_COLUMNS` where the step's exchange is the
+    all-gather (one card, one rank, or a group whose halo table would not
+    be smaller), at any number of rows: K1's band form was faster than
+    row-major K1 at every panel timed, from bands that the L2 holds
+    whole to bands five times its size; else ``width``, one band: the
+    row-major panel, K16 and K1 (a halo plan gathers a table of its own
+    rows)."""
+    return kernels.BAND_COLUMNS if all_gather else int(width)
+
+
+def one_hot_bands(rows: int, width: int, g: int, start: int, device,
+                  base: int = 0, n: Optional[int] = None) -> torch.Tensor:
+    """The one-hot seed E_bᵀ of the probe columns [start, start + width)
+    (column j holds e_{start+j}) as a band-major float32 panel
+    (ceil(width / g), rows, g) of the global rows [base, base + rows) (a
+    shard's rows; the whole matrix by default).  Columns whose row is not
+    among them or not below ``n`` stay 0 (the padded tail columns of the
+    last block)."""
+    y = torch.zeros((-(-width // g), rows, g), dtype=torch.float32,
+                    device=device)
+    n = rows if n is None else n
+    lo, hi = max(start, base), min(start + width, n, base + rows)
+    if hi > lo:
+        j = torch.arange(lo - start, hi - start, device=device)
+        y[j // g, j + start - base, j % g] = 1.0
+    return y
+
+
+def to_bands(x: torch.Tensor, g: int) -> torch.Tensor:
+    """The row-major (n, b) ``x`` as a new band-major (ceil(b / g), n, g)
+    panel, the last band's padded columns zero."""
+    n, b = x.shape
+    bands = -(-b // g)
+    padded = torch.nn.functional.pad(x, (0, bands * g - b))
+    return padded.reshape(n, bands, g).permute(1, 0, 2).contiguous()
+
+
+def from_bands(y: torch.Tensor, width: int) -> torch.Tensor:
+    """The band-major (bands, n, g) panel ``y`` as a new row-major
+    (n, width) tensor."""
+    bands, n, g = y.shape
+    out = y.new_empty((n, width))
+    return out.copy_(y.permute(1, 0, 2).reshape(n, bands * g)[:, :width])
+
+
+def spmm_bands(csr: CsrMatrix, x: torch.Tensor, parts: int = 1
+               ) -> torch.Tensor:
+    """``A @ x`` band by band for a band-major panel: ``x`` is (parts·bands,
+    rps, g), band ``j`` of part ``p`` at ``x[p·bands + j]``, and column
+    ``c`` of A is row ``c % rps`` of part ``c // rps`` (the all-gather of
+    every rank's (bands, rps, g) panel; ``parts=1`` on one card).  Returns
+    the (bands, N, g) panel of the product.  On CUDA this launches K1's
+    band form (bands of :data:`kernels.BAND_COLUMNS` columns); on the CPU
+    it runs :func:`spmm_bands_plain`."""
+    if x.is_cuda:
+        return kernels.spmm_csr_bands(csr.indptr, csr.indices, csr.vals,
+                                      x.contiguous(), parts, csr.hub_plan())
+    return spmm_bands_plain(csr, x, parts)
+
+
+def spmm_bands_plain(csr: CsrMatrix, x: torch.Tensor, parts: int = 1
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of K1's band form: :func:`spmm_plain` of each
+    band's (parts·rps, g) table."""
+    bands, rps, g = x.shape[0] // parts, x.shape[1], x.shape[2]
+    parted = x.reshape(parts, bands, rps, g)
+    return torch.stack([
+        spmm_plain(csr, parted[:, j].reshape(parts * rps, g))
+        for j in range(bands)])
+
+
 def spmm_axpy(csr: CsrMatrix, x: torch.Tensor, a: float, b: float = 0.0,
               z: Optional[torch.Tensor] = None, c: float = 0.0,
               acc: Optional[torch.Tensor] = None, d: float = 0.0,

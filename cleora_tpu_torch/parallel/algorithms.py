@@ -49,8 +49,8 @@ from ..algorithms import (
     _pt_values,
     _sym_normalized_vals,
 )
-from ..ops.dense import log_clip
-from ..ops.spmm import spmm_axpy
+from ..ops.dense import log_clip, log_clip_bands
+from ..ops.spmm import one_hot_bands, panel_band, spmm_axpy, spmm_bands
 from .embed import (
     _propagate_local,
     check_piece_range,
@@ -142,6 +142,17 @@ class ShardedOp:
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """The shard's rows of ``T @ x``: the exchange, then K1."""
         return _propagate_local(x, self.csr, self.mesh, self.send_idx, 0.0)
+
+    def apply_bands(self, y: torch.Tensor) -> torch.Tensor:
+        """The shard's rows of ``T @ y`` for the band-major panel ``y``
+        (bands, rows_per_shard, g) of :func:`panel_band`'s width ``g``:
+        the all-gather of every rank's panel, then K1's band form; over a
+        halo plan the one band, the row-major panel, through
+        :meth:`apply`."""
+        if self.plan is not None:
+            return self.apply(y[0])[None]
+        return spmm_bands(self.csr, self.mesh.all_gather(y),
+                          self.mesh.world_size)
 
     def apply_axpy(self, x: torch.Tensor, a: float, b: float = 0.0,
                    z: Optional[torch.Tensor] = None, c: float = 0.0,
@@ -375,19 +386,6 @@ def hope_sharded(graph, feature_dim, beta, seed, oversample, power_iters,
 
 
 # ------------------------------------------------------ blocked log panels
-def _block_seed_local(rps: int, b: int, base: int, start: int, n: int,
-                      device) -> torch.Tensor:
-    """One-hot seed of a block of probe columns, the shard's rows only:
-    column j holds e_{start+j} (for start + j < n) restricted to the rows
-    [base, base + rps)."""
-    y = torch.zeros((rps, b), dtype=torch.float32, device=device)
-    lo, hi = max(start, base), min(start + b, n, base + rps)
-    if hi > lo:
-        g = torch.arange(lo, hi, device=device)
-        y[g - base, g - start] = 1.0
-    return y
-
-
 def _overlap(base: int, rps: int, start: int, b: int):
     """Global rows [lo, hi) that block [start, start + b) shares with the
     shard's rows [base, base + rps)."""
@@ -483,7 +481,7 @@ def netmf_sharded(graph, feature_dim, window_size, negative_samples, seed,
     deg_own = op.own_rows(deg[:, None])[:, 0].contiguous()
 
     def block(start: int, W, Vb):
-        y = _block_seed_local(rps, b, base, start, n, dev)
+        y = one_hot_bands(rps, b, b, start, dev, base=base, n=n)[0]
         acc = torch.zeros_like(y)
         for _ in range(window):
             y = op.apply_axpy(y, 1.0, acc=acc, d=1.0)
@@ -522,15 +520,18 @@ def grarep_sharded(graph, feature_dim, max_step, seed, oversample,
     rps = op.rows_per_shard
     base = mesh.rank * rps
 
+    # the walk state as a band-major panel of the shard's rows (bands of
+    # 32 over the all-gathered table; one band, the row-major panel, over
+    # a halo plan's table)
+    g = panel_band(b, all_gather=op.plan is None)
+
     def block(start: int, W, Vb):
-        y = _block_seed_local(rps, b, base, start, n, dev)
+        y = one_hot_bands(rps, b, g, start, dev, base=base, n=n)
         brs, nrs = [], []
         for s in range(max_step):
-            y = op.apply(y)
-            # K7 clips in place: the walk goes on from a copy's original
-            last = s + 1 == max_step
-            L = log_clip(y if last else y.clone(), None, None, _GRAREP_FLOOR,
-                         _GRAREP_OFFSET)
+            y = op.apply_bands(y)
+            L = log_clip_bands(y, None, None, _GRAREP_FLOOR, _GRAREP_OFFSET,
+                               b)
             if W is not None:
                 brs.append(torch.matmul(L.T, W[s]))
             if Vb is not None:

@@ -51,6 +51,7 @@ from cleora_tpu_torch.ops.spmm import (
     spmm_axpy_plain,
     spmm_plain,
 )
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 ENTRY_POINTS = ("prone", "randne", "hope", "netmf", "grarep")

@@ -28,6 +28,7 @@ import cleora_tpu_torch as ctt
 import cleora_tpu_torch.checkpoint as tck
 import cleora_tpu_torch.cli as tcli
 from cleora_tpu_torch.convert import checkpoint_from_jax, from_jax_state
+from torch_test_support import one_torch_thread  # noqa: F401
 
 GRAM_ATOL = 1e-3
 LINES = ["a b", "b c", "c a", "a d", "d e", "e a", "b e"]

@@ -44,6 +44,7 @@ from cleora_tpu_torch.ops.gcn import (
 )
 from cleora_tpu_torch.ops.label_prop import label_prop_step_plain
 from cleora_tpu_torch.ops.spmm import CsrMatrix
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 # the module: cleora_tpu.ops re-exports a function of the same name

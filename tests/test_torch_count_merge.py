@@ -25,6 +25,7 @@ from cleora_tpu_torch import kernels
 from cleora_tpu_torch.ops import cooccur as tco
 from cleora_tpu_torch.ops.dense import _apply_pieces
 from cleora_tpu_torch.ops.spmm import CsrMatrix
+from torch_test_support import one_torch_thread  # noqa: F401
 
 N = 400
 

@@ -18,6 +18,7 @@ from cleora_tpu.ops.loop import embed_loop_convergence as jax_loop_convergence
 from cleora_tpu.ops.spmm import pad_coo
 from cleora_tpu_torch.convert import from_jax_state
 from cleora_tpu_torch.ops.loop import embed_loop_convergence, embed_step
+from torch_test_support import one_torch_thread  # noqa: F401
 
 D = 32
 

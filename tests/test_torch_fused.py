@@ -34,6 +34,7 @@ from cleora_tpu_torch.ops.attention import (
 )
 from cleora_tpu_torch.ops.normalize import normalize_plain
 from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 D = 16

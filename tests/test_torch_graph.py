@@ -20,6 +20,7 @@ import cleora_tpu_torch.graph.native as port_native
 import cleora_tpu_torch.native as port_native_lib
 from cleora_tpu.datasets import load_dataset
 from cleora_tpu_torch.convert import from_jax_state
+from torch_test_support import one_torch_thread  # noqa: F401
 
 _FIELDS = ("entity_hashes", "column_ids", "row_sums", "indptr", "indices",
            "left_vals", "sym_vals")

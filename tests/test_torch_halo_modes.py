@@ -25,6 +25,7 @@ loop (cleora_tpu_torch/parallel) against the JAX package's
 
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -44,6 +45,11 @@ from cleora_tpu_torch.ops.spmm import spmm_acc, spmm_acc_plain
 from cleora_tpu_torch.parallel import embed_sharded, make_hier_mesh, shard
 from cleora_tpu_torch.parallel import state as lifecycle
 from cleora_tpu_torch.parallel.mesh import ShardGroup
+from torch_test_support import (  # noqa: F401
+    once,
+    once_value,
+    one_torch_thread,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 8
@@ -176,11 +182,13 @@ _ONE = {
 
 
 @pytest.fixture(scope="module")
-def one_shard_refs(graphs):
+def one_shard_refs(graphs, tmp_path_factory):
+    """The JAX package's one-shard runs, once per session."""
     jg, _ = graphs
-    return {case: jax_embed_sharded(jg, feature_dim=D, num_iterations=ITERS,
-                                    n_devices=1, **kw)
-            for case, kw in _ONE.items()}
+    return once_value(tmp_path_factory, "halo_modes_one_shard_refs", lambda: {
+        case: jax_embed_sharded(jg, feature_dim=D, num_iterations=ITERS,
+                                n_devices=1, **kw)
+        for case, kw in _ONE.items()})
 
 
 @pytest.mark.parametrize("mode", ["overlap", "hier"])
@@ -337,49 +345,56 @@ def _free_port():
 @pytest.fixture(scope="module")
 def ranks(graphs, tmp_path_factory):
     """Both runs start at once; the JAX references are computed while
-    they run.  Returns {world: ([per-rank npz], {key: JAX output})}."""
+    they run; once per session.  Returns {world: ([per-rank npz], {key:
+    JAX output})}."""
     jg, _ = graphs
-    out_dir = tmp_path_factory.mktemp("halo_modes")
-    procs = {}
-    for world in _WORLDS:
-        port = _free_port()
-        procs[world] = []
-        for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                       LOCAL_RANK=str(r), MASTER_ADDR="localhost",
-                       MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                       PYTHONPATH=REPO + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs[world].append(subprocess.Popen(
-                [sys.executable, "-c", _RANK, str(out_dir / f"w{world}"),
-                 json.dumps(_RANK_KW)],
-                env=env, cwd=REPO, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    refs = {world: {} for world in _WORLDS}
-    for whiten in (False, True):
-        tag = "_w" if whiten else "_u"
+
+    def produce(out_dir):
+        procs = {}
         for world in _WORLDS:
-            refs[world]["overlap" + tag] = jax_embed_sharded(
-                jg, n_devices=world, halo="overlap", whiten=whiten,
-                **_RANK_KW)
-        refs[4]["hier" + tag] = jax_embed_sharded(
-            jg, mesh=jax_make_hier_mesh(n_hosts=2, chips_per_host=2),
-            halo="hier", whiten=whiten, **_RANK_KW)
-    results = {}
-    try:
-        for world, ps in procs.items():
-            for r, p in enumerate(ps):
-                log, _ = p.communicate(timeout=240)
-                assert p.returncode == 0, f"world {world} rank {r}:\n{log}"
-            results[world] = [np.load(str(out_dir / f"w{world}.{r}.npz"))
-                              for r in range(world)]
-    finally:
-        for ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=30)
-    return {world: (results[world], refs[world]) for world in _WORLDS}
+            port = _free_port()
+            procs[world] = []
+            for r in range(world):
+                env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                           LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                           MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                           PYTHONPATH=REPO + os.pathsep
+                           + os.environ.get("PYTHONPATH", ""))
+                procs[world].append(subprocess.Popen(
+                    [sys.executable, "-c", _RANK, str(out_dir / f"w{world}"),
+                     json.dumps(_RANK_KW)],
+                    env=env, cwd=REPO, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        try:
+            refs = {world: {} for world in _WORLDS}
+            for whiten in (False, True):
+                tag = "_w" if whiten else "_u"
+                for world in _WORLDS:
+                    refs[world]["overlap" + tag] = jax_embed_sharded(
+                        jg, n_devices=world, halo="overlap", whiten=whiten,
+                        **_RANK_KW)
+                refs[4]["hier" + tag] = jax_embed_sharded(
+                    jg, mesh=jax_make_hier_mesh(n_hosts=2, chips_per_host=2),
+                    halo="hier", whiten=whiten, **_RANK_KW)
+            with open(out_dir / "refs.pkl", "wb") as f:
+                pickle.dump(refs, f)
+            for world, ps in procs.items():
+                for r, p in enumerate(ps):
+                    log, _ = p.communicate(timeout=240)
+                    assert p.returncode == 0, f"world {world} rank {r}:\n{log}"
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait(timeout=30)
+
+    out_dir = once(tmp_path_factory, "halo_modes_ranks", produce)
+    with open(out_dir / "refs.pkl", "rb") as f:
+        refs = pickle.load(f)
+    return {world: ([np.load(str(out_dir / f"w{world}.{r}.npz"))
+                     for r in range(world)], refs[world])
+            for world in _WORLDS}
 
 
 @pytest.mark.parametrize("world,mode", [(2, "overlap"), (4, "overlap"),

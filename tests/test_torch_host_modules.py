@@ -54,6 +54,7 @@ from cleora_tpu_torch import (
     tuning as ttun,
     viz as tviz,
 )
+from torch_test_support import one_torch_thread  # noqa: F401
 
 
 def _same(a, b, rtol=0.0):

@@ -21,6 +21,7 @@ from cleora_tpu_torch.ops.init import (
     device_init_plain,
     hashes_as_int64,
 )
+from torch_test_support import one_torch_thread  # noqa: F401
 
 WIDTHS = (1, 7, 256, 300)
 SEEDS = (0, 7, -3, 2**40 + 5)

@@ -27,6 +27,7 @@ import cleora_tpu_torch.classify as tcl
 from cleora_tpu_torch.ops import walk as twalk
 from cleora_tpu_torch.ops.label_prop import label_prop_step_plain
 from cleora_tpu_torch.ops.spmm import CsrMatrix
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 CLASSES = (2, 7, 40, 47)

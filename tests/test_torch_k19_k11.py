@@ -31,6 +31,7 @@ from cleora_tpu_torch.ops.normalize import normalize_plain
 from cleora_tpu_torch.ops.spmm import spmm_acc, spmm_acc_plain
 from cleora_tpu_torch.parallel.embed import overlap_round, overlap_views
 from cleora_tpu_torch.parallel.shard import RoundCsr
+from torch_test_support import one_torch_thread  # noqa: F401
 
 RPS = 60  # rows of the shard
 M = 50  # rows of a received slab

@@ -29,6 +29,7 @@ import cleora_tpu_torch.algorithms as talg
 from cleora_tpu_torch import kernels
 from cleora_tpu_torch.ops import walk as twalk
 from cleora_tpu_torch.ops.spmm import spmm_axpy, spmm_axpy_plain
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 BUDGET = kernels.BAND_L2_BYTES

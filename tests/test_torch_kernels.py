@@ -76,6 +76,7 @@ from cleora_tpu_torch.ops.dense import (
     dense_markov,
     dense_markov_plain,
     log_clip,
+    log_clip_bands,
     log_clip_plain,
 )
 from cleora_tpu_torch.ops.gcn import (
@@ -111,8 +112,12 @@ from cleora_tpu_torch.ops.spmm import (
     spmm_accumulate_,
     spmm_axpy,
     spmm_axpy_plain,
+    spmm_bands,
+    spmm_bands_plain,
     spmm_plain,
+    to_bands,
 )
+from torch_test_support import one_torch_thread  # noqa: F401
 
 cuda = pytest.mark.cuda
 
@@ -486,6 +491,78 @@ def test_k7_matches_plain(cuda_device, shape, mode, scaled):
     torch.testing.assert_close(
         out, log_clip_plain(x.clone(), r, c, floor, offset), rtol=0.0,
         atol=1e-6)
+
+
+@cuda
+@pytest.mark.parametrize("b", [70, 4096])
+@pytest.mark.parametrize("parts", [1, 3])
+def test_k1_bands_is_bitwise_k1(cuda_device, b, parts):
+    """K1's band form on a band-major panel (bands of 32, the last one
+    ragged at b = 70) bitwise K1 on the row-major panel, hub rows in
+    slices; over ``parts`` parts of an all-gathered table (column c at part
+    c // rps, row c % rps), and against its plain version."""
+    rows = 3000 if b == 70 else 1200
+    csr = CsrMatrix.from_numpy(*markov_csr(rows, b, 5000), cuda_device)
+    assert csr.hub_plan().split.shape[0] == 1
+    x = torch.randn((rows, b), device=cuda_device)
+    rps = rows // parts
+    table = torch.cat([to_bands(x[p * rps:(p + 1) * rps], 32)
+                       for p in range(parts)])
+    before = dict(kernels.LAUNCHES)
+    got = spmm_bands(csr, table, parts)
+    want = spmm(csr, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_csr_bands"] == before["spmm_csr_bands"] + 1
+    assert torch.equal(got, to_bands(want, 32))
+    torch.testing.assert_close(got, spmm_bands_plain(csr, table, parts),
+                               rtol=1e-5, atol=1e-6)
+
+
+@cuda
+@pytest.mark.parametrize("b", [70, 4096, 100])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_k7_bands_is_bitwise_k7(cuda_device, b, scaled):
+    """K7's band form (bands of 32; at b = 100, one band: K7 out of place)
+    bitwise K7 in place on the row-major panel, its input unchanged."""
+    n = 1000
+    x = torch.rand((n, b), device=cuda_device) * 4
+    x[x < 1.0] = 0.0
+    r = torch.rand(n, device=cuda_device) + 0.5 if scaled else None
+    c = torch.rand(b, device=cuda_device) + 0.5 if scaled else None
+    y = to_bands(x, 32) if b != 100 else x[None].clone()
+    kept = y.clone()
+    before = kernels.LAUNCHES["log_clip_bands"]
+    got = log_clip_bands(y, r, c, _GRAREP_FLOOR, _GRAREP_OFFSET, b)
+    want = log_clip(x.clone(), r, c, _GRAREP_FLOOR, _GRAREP_OFFSET)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["log_clip_bands"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(y, kept)
+
+
+def test_band_wrappers_reject_bad_operands():
+    csr = CsrMatrix.from_numpy(*markov_csr(40, 1, 5), "cpu")
+    y = torch.zeros((3, 40, 32))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.spmm_csr_bands(csr.indptr, csr.indices, csr.vals, y)
+    with pytest.raises(ValueError, match="panel"):
+        kernels.spmm_csr_bands(csr.indptr, csr.indices, csr.vals,
+                               y[..., :16].contiguous())
+    with pytest.raises(ValueError, match="parts"):
+        kernels.spmm_csr_bands(csr.indptr, csr.indices, csr.vals, y, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.log_clip_bands(y, None, None, 1.0, 0.0, 70)
+    with pytest.raises(ValueError, match="covering"):
+        kernels.log_clip_bands(y, None, None, 1.0, 0.0, 64)
+    with pytest.raises(ValueError, match="covering"):
+        kernels.log_clip_bands(torch.zeros((2, 40, 16)), None, None, 1.0,
+                               0.0, 32)
+    with pytest.raises(ValueError, match="per row"):
+        kernels.log_clip_bands(y, torch.ones(8), None, 1.0, 0.0, 70)
+    with pytest.raises(ValueError, match="per column"):
+        kernels.log_clip_bands(y, None, torch.ones(96), 1.0, 0.0, 70)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.COUNTERS, 0)
 
 
 def walk_csr(n, seed):

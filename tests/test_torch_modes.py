@@ -31,6 +31,7 @@ from cleora_tpu_torch.ops.attention import (
     edge_attention_weights_plain,
 )
 from cleora_tpu_torch.ops.spmm import CsrMatrix
+from torch_test_support import one_torch_thread  # noqa: F401
 
 D = 32
 CPU = torch.device("cpu")

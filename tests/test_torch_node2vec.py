@@ -29,6 +29,7 @@ from cleora_tpu_torch.convert import from_jax_state
 from cleora_tpu_torch.ops import cooccur as tco
 from cleora_tpu_torch.ops import memory
 from cleora_tpu_torch.ops import walk as twalk
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 PQ = [(0.25, 4.0), (4.0, 0.25), (0.5, 2.0), (1.0, 100.0)]

@@ -30,6 +30,7 @@ from cleora_tpu_torch.ops.normalize import (
 )
 from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm, spmm_plain
 from cleora_tpu_torch.ops.whiten import whiten
+from torch_test_support import one_torch_thread  # noqa: F401
 
 
 def random_csr(n, seed, hub_degree=0, avg_degree=4):

@@ -21,6 +21,7 @@ package's (cleora_tpu/parallel) on the CPU.
 
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -44,6 +45,11 @@ from cleora_tpu_torch.ops.halo import halo_pack_plain
 from cleora_tpu_torch.parallel import embed_sharded, make_mesh, shard
 from cleora_tpu_torch.parallel import state as lifecycle
 from cleora_tpu_torch.parallel.mesh import ShardGroup
+from torch_test_support import (  # noqa: F401
+    once,
+    once_value,
+    one_torch_thread,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 8
@@ -178,10 +184,15 @@ _CASES = {
 
 
 @pytest.fixture(scope="module")
-def jax_refs(graphs):
-    """Each case through the JAX package once: embed(DiskGraph) runs its
-    sharded loop on a one-device mesh."""
+def jax_refs(graphs, tmp_path_factory):
+    """Each case through the JAX package once per session: embed(DiskGraph)
+    runs its sharded loop on a one-device mesh."""
     jdg, _ = graphs
+    return once_value(tmp_path_factory, "sharded_jax_refs",
+                      lambda: _jax_refs(jdg))
+
+
+def _jax_refs(jdg):
     x0 = np.random.default_rng(2).standard_normal(
         (jdg.num_entities, D)).astype(np.float32)
     out = {}
@@ -495,47 +506,54 @@ def _free_port():
 @pytest.fixture(scope="module")
 def ranks(graphs, tmp_path_factory):
     """Both runs start at once; the JAX references are computed while
-    they run.  Returns {world: ([per-rank npz], {halo: JAX output})}."""
+    they run; once per session.  Returns {world: ([per-rank npz], {halo:
+    JAX output})}."""
     jdg, tdg = graphs
-    out_dir = tmp_path_factory.mktemp("ranks")
-    procs = {}
-    for world in _WORLDS:
-        for k in range(world):
-            tstream.build_graph_streaming_sharded(
-                _graph_lines(), "complex::reflexive::n",
-                str(out_dir / f"w{world}.piece{k}"), k, world)
-        port = _free_port()
-        procs[world] = []
-        for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                       LOCAL_RANK=str(r), MASTER_ADDR="localhost",
-                       MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                       PYTHONPATH=REPO + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs[world].append(subprocess.Popen(
-                [sys.executable, "-c", _RANK, tdg.path,
-                 str(out_dir / f"w{world}"), json.dumps(_RANK_KW)],
-                env=env, cwd=REPO, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    refs = {world: {h: jax_embed_sharded(jdg, n_devices=world, halo=h,
-                                         **_RANK_KW)
-                    for h in (False, True)}
+
+    def produce(out_dir):
+        procs = {}
+        for world in _WORLDS:
+            for k in range(world):
+                tstream.build_graph_streaming_sharded(
+                    _graph_lines(), "complex::reflexive::n",
+                    str(out_dir / f"w{world}.piece{k}"), k, world)
+            port = _free_port()
+            procs[world] = []
+            for r in range(world):
+                env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                           LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                           MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                           PYTHONPATH=REPO + os.pathsep
+                           + os.environ.get("PYTHONPATH", ""))
+                procs[world].append(subprocess.Popen(
+                    [sys.executable, "-c", _RANK, tdg.path,
+                     str(out_dir / f"w{world}"), json.dumps(_RANK_KW)],
+                    env=env, cwd=REPO, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        try:
+            refs = {world: {h: jax_embed_sharded(jdg, n_devices=world,
+                                                 halo=h, **_RANK_KW)
+                            for h in (False, True)}
+                    for world in _WORLDS}
+            with open(out_dir / "refs.pkl", "wb") as f:
+                pickle.dump(refs, f)
+            for world, ps in procs.items():
+                for r, p in enumerate(ps):
+                    log, _ = p.communicate(timeout=240)
+                    assert p.returncode == 0, f"world {world} rank {r}:\n{log}"
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait(timeout=30)
+
+    out_dir = once(tmp_path_factory, "sharded_ranks", produce)
+    with open(out_dir / "refs.pkl", "rb") as f:
+        refs = pickle.load(f)
+    return {world: ([np.load(str(out_dir / f"w{world}.{r}.npz"))
+                     for r in range(world)], refs[world])
             for world in _WORLDS}
-    results = {}
-    try:
-        for world, ps in procs.items():
-            for r, p in enumerate(ps):
-                log, _ = p.communicate(timeout=240)
-                assert p.returncode == 0, f"world {world} rank {r}:\n{log}"
-            results[world] = [np.load(str(out_dir / f"w{world}.{r}.npz"))
-                              for r in range(world)]
-    finally:
-        for ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=30)
-    return {world: (results[world], refs[world]) for world in _WORLDS}
 
 
 @pytest.mark.parametrize("world", _WORLDS)

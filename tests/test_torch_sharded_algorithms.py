@@ -39,7 +39,6 @@ import os
 import socket
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -57,6 +56,7 @@ import cleora_tpu_torch.graph.stream as tstream
 from cleora_tpu_torch.ops.spmm import CsrMatrix, spmm_axpy_plain
 from cleora_tpu_torch.parallel import algorithms as palg
 from cleora_tpu_torch.parallel import make_mesh
+from torch_test_support import once, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = dict(device="cpu")
@@ -158,19 +158,6 @@ np.savez(out, **{name: getattr(jalg, "embed_" + name)(g, backend="device",
                                                       **kw)
                  for name, kw in spec.items()})
 """
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread(request):
-    """The port's plain versions on these small shapes run as fast on one
-    thread; eight OpenMP threads in each of several xdist workers slowed
-    them a hundredfold.  Set per test, after the module's fixtures: the
-    native graph builders set the process's OpenMP thread count."""
-    request.getfixturevalue("graph")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -285,47 +272,11 @@ def _produce(out_dir):
         _wait(procs, "rank or JAX helper")
 
 
-_WAIT_S = 600
-
-
-def _once(tmp_path_factory, name, produce):
-    """The directory into which ``produce`` wrote, run once per test
-    session: under pytest-xdist every worker that runs a test of this
-    module would otherwise repeat the runs, so the first worker to ask
-    runs it and the others wait for its result (pytest-xdist's recipe for
-    a session fixture: a lock file in the workers' common temporary
-    directory)."""
-    if "PYTEST_XDIST_WORKER" not in os.environ:
-        out = tmp_path_factory.mktemp(name)
-        produce(out)
-        return out
-    out = tmp_path_factory.getbasetemp().parent / name
-    try:
-        os.close(os.open(f"{out}.lock", os.O_CREAT | os.O_EXCL))
-    except FileExistsError:
-        deadline = time.monotonic() + _WAIT_S
-        while not (out / "done").exists():
-            if (out / "failed").exists():
-                pytest.fail(f"{name} failed in another worker:\n"
-                            + (out / "failed").read_text())
-            assert time.monotonic() < deadline, f"{name}: no result"
-            time.sleep(0.2)
-        return out
-    out.mkdir()
-    try:
-        produce(out)
-    except BaseException as err:
-        (out / "failed").write_text(repr(err))
-        raise
-    (out / "done").touch()
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{"jax": {name: the JAX package's result}, "ranks": {world:
     [per-rank npz]}}."""
-    out = _once(tmp_path_factory, "sharded_algorithms_runs", _produce)
+    out = once(tmp_path_factory, "sharded_algorithms_runs", _produce)
     jax = dict(np.load(str(out / "jax.npz")))
     for i in range(2):
         jax.update(np.load(str(out / f"jax{i}.npz")))

@@ -19,6 +19,7 @@ import cleora_tpu.graph.stream as jstream
 import cleora_tpu_torch.graph.stream as tstream
 from cleora_tpu.graph.native import native_available
 from cleora_tpu_torch.sparse import SparseMatrix
+from torch_test_support import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native builder unavailable"

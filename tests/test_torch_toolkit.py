@@ -30,6 +30,7 @@ import cleora_tpu_torch.search as tsearch
 from cleora_tpu_torch import kernels
 from cleora_tpu_torch.convert import from_jax_state
 from cleora_tpu_torch.ops.pq import device_codes, pq_adc, pq_adc_plain
+from torch_test_support import one_torch_thread  # noqa: F401
 
 
 def _clustered(n, d, k, seed):

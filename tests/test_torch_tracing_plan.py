@@ -38,6 +38,7 @@ import cleora_tpu_torch.tracing as ttracing
 from cleora_tpu_torch import algorithms as talg
 from cleora_tpu_torch.graph.stream import build_graph_streaming
 from cleora_tpu_torch.ops import memory
+from torch_test_support import one_torch_thread  # noqa: F401
 
 GIB = 1 << 30
 

@@ -41,6 +41,7 @@ from cleora_tpu_torch import kernels
 from cleora_tpu_torch.convert import from_jax_state, ranges_from_jax
 from cleora_tpu_torch.ops import cooccur as tco
 from cleora_tpu_torch.ops import walk as twalk
+from torch_test_support import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -34,7 +34,6 @@ import shutil
 import socket
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -62,6 +61,7 @@ from cleora_tpu_torch.ops import cooccur as tco
 from cleora_tpu_torch.ops import walk as twalk
 from cleora_tpu_torch.parallel import make_mesh
 from cleora_tpu_torch.parallel.cooccur import sharded_counts_to_embeddings
+from torch_test_support import once, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -78,16 +78,6 @@ def _lines():
     rng = np.random.default_rng(11)
     return [f"n{rng.integers(0, 150)} n{rng.integers(0, 150)}"
             for _ in range(900)]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The plain versions on these shapes run as fast on one thread; the
-    native graph builders set the process's OpenMP count to eight."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -534,41 +524,9 @@ def _produce(out_dir):
                 p.wait(timeout=30)
 
 
-_WAIT_S = 600
-
-
-def _once(tmp_path_factory, name, produce):
-    """The directory ``produce`` wrote into, made once per test session:
-    the first xdist worker to ask makes it, the others wait for it."""
-    if "PYTEST_XDIST_WORKER" not in os.environ:
-        out = tmp_path_factory.mktemp(name)
-        produce(out)
-        return out
-    out = tmp_path_factory.getbasetemp().parent / name
-    try:
-        os.close(os.open(f"{out}.lock", os.O_CREAT | os.O_EXCL))
-    except FileExistsError:
-        deadline = time.monotonic() + _WAIT_S
-        while not (out / "done").exists():
-            if (out / "failed").exists():
-                pytest.fail(f"{name} failed in another worker:\n"
-                            + (out / "failed").read_text())
-            assert time.monotonic() < deadline, f"{name}: no result"
-            time.sleep(0.2)
-        return out
-    out.mkdir()
-    try:
-        produce(out)
-    except BaseException as err:
-        (out / "failed").write_text(repr(err))
-        raise
-    (out / "done").touch()
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    out = _once(tmp_path_factory, "walks_sharded_runs", _produce)
+    out = once(tmp_path_factory, "walks_sharded_runs", _produce)
     ranks = {w: [dict(np.load(str(out / f"w{w}.{r}.npz"))) for r in range(w)]
              for w in WORLDS}
     return out, ranks, dict(np.load(str(out / "jax.npz")))
