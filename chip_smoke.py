@@ -154,8 +154,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    corpus shape; each of the 8 count ranges' fingerprints equal to those of
    the sort-based merge that K10's merge form replaced), the count
    reductions and the column signs timed alone, K8-K11 against their plain
-   versions at the main path's shapes and timed beside torch.sort and
-   torch.unique_consecutive (K11's launch apart from its wrapper's checks
+   versions at the main path's shapes and timed (K8's bound at its
+   record's two sectors a moving hop, the three arrays' three beside it)
+   beside torch.sort and torch.unique_consecutive (K11's launch apart from its wrapper's checks
    and host read, and its column sums beside index_add_), K10's merge
    form bitwise against its plain version on partition 0's first and last
    chain merge and timed beside the
@@ -190,8 +191,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and of 100,000 rows took 52.6 s) and every row encoded on the card,
    search_batch(backend="device") of the 1,024 queries as a main path (K13
    launched once) against backend="host" on 16 (a cut from 64); K13 at (Q, N) = (1,024,
-   1,958,363) bitwise against its plain version and timed; detect_communities_kmeans(k=50) on phase
-   8's planted-partition embedding, the card against device="cpu" (labels
+   1,958,363) bitwise against its plain version and timed, beside the
+   batch's einsum tables and torch.topk over the scores;
+   detect_communities_kmeans(k=50) on phase 8's planted-partition
+   embedding, the card against device="cpu" (labels
    equal on >= 99.9 % of rows);
 10. node classification: BASELINE config 3 at full width, the
    ogbn-arxiv-shaped graph of datasets.load_dataset("ogbn_arxiv") (169,343
@@ -2524,7 +2527,7 @@ def walk_kernels_vs_plain(g, dev: torch.device, passes: int, label: str):
     b = starts.shape[0]
     args = (tables.indptr, tables.cols, tables.deg, starts, WALK_LENGTH, 0, 0,
             n)
-    walks = walk_uniform(*args)
+    walks = walk_uniform(tables, starts, WALK_LENGTH, 0, 0)
     assert torch.equal(walks, walk_uniform_plain(*args))
     keys = cooccur.pair_keys(walks, b, n, WINDOW, passes)
     assert torch.equal(keys, cooccur.pair_keys_plain(walks, b, n, WINDOW,
@@ -2813,14 +2816,17 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     tables, args, walks, sorted_keys, runs = walk_kernels_vs_plain(
         g, dev, passes, "phase 7 full size")
     b = walks.shape[0]
-    k8_ms = time_ms(lambda: walk.walk_uniform(*args))
+    k8_ms = time_ms(lambda: walk.walk_uniform(tables, *args[3:7]))
     k8_plain_ms = time_ms(lambda: walk.walk_uniform_plain(*args), reps=3,
                           warmup=1)
-    # each hop reads deg of its node and, when it moves, indptr and cols:
-    # one 32-byte sector per random read; walks written, starts read once
+    # each hop reads its node's record (indptr, deg: one 32-byte sector)
+    # and, when it moves, cols (another); walks written, starts read once.
+    # Aside, the three-array form's bound: deg, indptr and cols, three
+    # sectors a moving hop
     reads = int((walks[:, :-1] < n).sum())
     moves = int((walks[:, 1:] < n).sum())
-    k8_bytes = 32 * (reads + 2 * moves) + 4 * b * WALK_LENGTH + 4 * b
+    k8_bytes = 32 * (reads + moves) + 4 * b * WALK_LENGTH + 4 * b
+    k8_three_bytes = 32 * (reads + 2 * moves) + 4 * b * WALK_LENGTH + 4 * b
     k9_ms = time_ms(lambda: cooccur.pair_keys(walks, b, n, WINDOW, passes))
     k9_plain_ms = time_ms(lambda: cooccur.pair_keys_plain(
         walks, b, n, WINDOW, passes), reps=3, warmup=1)
@@ -2843,7 +2849,10 @@ def walk_full_width(dev: torch.device, card: str) -> list:
     k10_bytes = 8 * lanes + 12 * m + 4 * passes
     first_batch = walks.cpu()
     log(f"K8 ({b} walks of {WALK_LENGTH}) {k8_ms:.3f} ms (plain "
-        f"{k8_plain_ms:.3f}); K9 ({lanes} keys) {k9_ms:.3f} ms (plain "
+        f"{k8_plain_ms:.3f}; bound {k8_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms at the record's two sectors a moving hop, "
+        f"{k8_three_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the three "
+        f"arrays' three); K9 ({lanes} keys) {k9_ms:.3f} ms (plain "
         f"{k9_plain_ms:.3f}); torch.sort of the keys {sort_ms:.3f} ms; K10 "
         f"({m} runs) {k10_ms:.3f} ms (plain {k10_plain_ms:.3f}, "
         f"torch.unique_consecutive {k10_lib_ms:.3f}); K11 (range 0, {m0} "
@@ -3455,6 +3464,7 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
     import cleora_tpu_torch.community as community
     import cleora_tpu_torch.compress as compress
     import cleora_tpu_torch.search as search
+    from cleora_tpu_torch import kernels
     from cleora_tpu_torch._util import full_float32_matmul
     from cleora_tpu_torch.ops.pq import device_codes, pq_adc, pq_adc_plain
 
@@ -3584,13 +3594,29 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
     assert lib_err <= 1e-5, lib_err
     lib_ms = time_ms(lambda: F.embedding_bag(bags, weight, mode="sum"),
                      reps=5)
+    del weight, bags
+    # the rest of a PQ batch on the card: the einsum tables and the top-k
+    # over K13's padded rows, as PQIndex.search_batch launches them
+    qsub = torch.from_numpy(qall.reshape(QUERIES, PQ_SUBSPACES, -1)).to(dev)
+
+    def einsum_tables():
+        with full_float32_matmul():
+            return torch.einsum("qmd,mcd->qmc", qsub, cb).contiguous()
+    tables_ms = time_ms(einsum_tables)
+    rows = kernels.pq_adc_rows(tables, codes_dev)  # padded, contiguous
+    topk_lib_ms = time_ms(lambda: torch.topk(rows, TOP_K, dim=1), reps=5)
+    del rows
+    log(f"  PQ batch's library calls: the einsum tables {tables_ms:.4f} ms "
+        f"(bound {max(tab_ops_ms, tab_bytes_ms):.4f} ms), torch.topk over "
+        f"the {QUERIES} x {n} scores {topk_lib_ms:.3f} ms (bound "
+        f"{topk_ms:.3f} ms); [{card}]")
     log(f"K13 (Q={QUERIES}, N={n}, M={PQ_SUBSPACES}, C={PQ_CENTROIDS}) "
         f"{k13_ms:.3f} ms (plain {k13_plain_ms:.3f}), bitwise equal; "
         f"bound {k13_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; library "
         f"embedding_bag {lib_ms:.3f} ms (its index offsets and transposed "
         f"tables made beforehand in {prep_s * 1e3:.3f} ms), max |err| "
         f"against K13 {lib_err:.3e}; [{card}]")
-    del tables, codes_dev, pq, weight, bags
+    del tables, codes_dev, pq
     torch.cuda.empty_cache()
 
     # ---- k-means assignment on the planted partition's embedding: the
@@ -3614,9 +3640,11 @@ def retrieval_full_width(dev: torch.device, card: str, g, table: np.ndarray,
         f"{max(as_ops, as_bytes):.4f} ms (operations {as_ops:.4f}, bytes "
         f"{as_bytes:.4f})")
 
-    return [kernel_row("pq_adc", "cleora_tpu_torch/kernels/pq_adc.cu",
-                       "cleora_tpu/compress.py:149", k13_ms, k13_plain_ms,
-                       lib_ms, k13_err, k13_bytes, 0, launches["pq_adc"])]
+    return [dict(kernel_row("pq_adc", "cleora_tpu_torch/kernels/pq_adc.cu",
+                            "cleora_tpu/compress.py:149", k13_ms,
+                            k13_plain_ms, lib_ms, k13_err, k13_bytes, 0,
+                            launches["pq_adc"]),
+                 tables_ms=tables_ms, topk_ms=topk_lib_ms)]
 
 
 def rel_err(got, want) -> float:
@@ -4481,8 +4509,7 @@ def check_k17_k18(dev: torch.device) -> None:
         starts[64 * i:64 * (i + 1)] = node
     starts = torch.from_numpy(starts.astype(np.int32)).to(dev)
     length, seed, base = K17_CHECK_LENGTH, 21, 5
-    k8 = walk.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
-                           base, n)
+    k8 = walk.walk_uniform(t, starts, length, seed, base)
     k17_rounds = {}
     for world in (1, 2, 4):
         first = rank_slices(arrays[:3], n, world, dev)
@@ -4704,8 +4731,8 @@ def walk_siblings_sharded(dev: torch.device, card: str, g, p7: dict,
                     k17_plain_ms = time_ms(k17, reps=3, warmup=1)
             del tw
         t8 = walk.WalkTables(indptr, cols, deg_, n, dev)
-        k8_ms = time_ms(lambda: walk.walk_uniform(
-            t8.indptr, t8.cols, t8.deg, starts, WALK_LENGTH, 0, 0, n))
+        k8_ms = time_ms(lambda: walk.walk_uniform(t8, starts, WALK_LENGTH, 0,
+                                                  0))
         k17_bytes = k17_sector_bytes(walks, n)
         log(f"K17 ({walks.shape[0]} walks of {WALK_LENGTH}): one slice "
             f"{k17_ms[1]:.3f} ms ({k17_rounds[1]} round, one launch; plain "

@@ -6,9 +6,9 @@ Counterpart of cleora_tpu/compress.py, with the same names and host code.
 means CUDA; ``device="cpu"`` runs the plain PyTorch path; without a card and
 without ``device="cpu"`` it raises): the (Q, M, C) inner-product tables are
 a full-float32 ``torch.einsum``, the scores are kernel K13
-(``kernels/pq_adc.cu``, :func:`ops.pq.pq_adc`) and the top-k is
-``torch.topk``.  ``backend="host"`` is the JAX package's vectorized numpy
-path, a path the caller chooses.
+(``kernels/pq_adc.cu``) and the top-k is ``torch.topk`` over them
+(:func:`ops.pq.pq_topk`).  ``backend="host"`` is the JAX package's
+vectorized numpy path, a path the caller chooses.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ._util import full_float32_matmul, resolve_device
-from .ops.pq import device_codes, pq_adc
+from .ops.pq import device_codes, pq_topk
 
 
 def pca_compress(embeddings: np.ndarray, target_dim: int) -> np.ndarray:
@@ -174,7 +174,7 @@ class PQIndex:
         q_dev = torch.from_numpy(np.ascontiguousarray(qsub)).to(dev)
         with full_float32_matmul():
             tables = torch.einsum("qmd,mcd->qmc", q_dev, cb_dev).contiguous()
-        scores, idx = torch.topk(pq_adc(tables, codes_dev), k, dim=1)
+        scores, idx = pq_topk(tables, codes_dev, k)
         return {"indices": idx.to(torch.int32).cpu().numpy(),
                 "scores": scores.cpu().numpy()}
 

@@ -161,20 +161,21 @@ _ARGTYPES = {
                        _c.c_int64, _c.c_int64, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64,
                        _c.c_void_p, _c.c_void_p],
-    # indptr, cols, deg, starts, walks, batch, walk_length, base, k0, k1, n,
+    # record, cols, starts, walks, batch, walk_length, base, k0, k1, n,
     # stream
     "walk_uniform": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                     _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64,
-                     _c.c_uint32, _c.c_uint32, _c.c_int32, _c.c_void_p],
+                     _c.c_int64, _c.c_int, _c.c_int64, _c.c_uint32,
+                     _c.c_uint32, _c.c_int32, _c.c_void_p],
     # head, cols, vals, starts, walks, batch, walk_length, base, k0, k1, n,
     # inv_p, inv_q, tries, stream
     "walk_p_q": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                  _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_uint32,
                  _c.c_uint32, _c.c_int32, _c.c_float, _c.c_float, _c.c_int,
                  _c.c_void_p],
-    # tables, codes, code_bytes, scores, q, n, m, c, stream
-    "pq_adc": [_c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int64,
-               _c.c_int64, _c.c_int, _c.c_int, _c.c_void_p],
+    # tables, qt, codes, code_bytes, scores, ld, q, n, m, c, stream
+    "pq_adc": [_c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p,
+               _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int, _c.c_int,
+               _c.c_void_p],
     # walks, batch, walk_length, n_valid, n, passes, window, keys, stream
     "pair_enum": [_c.c_void_p, _c.c_int64, _c.c_int, _c.c_int64, _c.c_int64,
                   _c.c_int64, _c.c_int, _c.c_void_p, _c.c_void_p],
@@ -891,33 +892,45 @@ def log_clip_bands(y: torch.Tensor, row_scale: Optional[torch.Tensor],
 _U32 = 0xFFFFFFFF
 
 
-def walk_uniform(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+def walk_record(indptr: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """K8's records of the walk CSR: an int32 (n, 2) tensor whose row i is
+    (``indptr[i]``, ``deg[i]``), 8 bytes a row, on the tables' device."""
+    return torch.stack([indptr.to(torch.int32), deg.to(torch.int32)],
+                       dim=1).contiguous()
+
+
+def walk_uniform(record: torch.Tensor, cols: torch.Tensor,
                  starts: torch.Tensor, walk_length: int, seed: int,
                  base: int, n: int) -> torch.Tensor:
     """K8: one first-order uniform walk of ``walk_length`` nodes from each
     of ``starts`` (int32 (B,); the sentinel ``n`` marks a pad lane) over the
-    walk CSR (``indptr`` row starts, ``cols``, ``deg``: int32).  Lane ``b``
-    is the walk of global index ``base + b`` and draws from Philox4x32-10
-    keyed by ``seed``.  Returns a new int32 (B, walk_length) tensor.  The
-    tables must be valid (``ops/walk.py:WalkTables`` checks them once)."""
+    walk CSR: ``record``, its :func:`walk_record` records (a row's ``indptr``
+    and ``deg``; int32 (n, 2)), and ``cols`` (int32).  Lane ``b`` is the
+    walk of global index ``base + b`` and draws from Philox4x32-10 keyed by
+    ``seed``.  Returns a new int32 (B, walk_length) tensor.  The tables
+    must be valid (``ops/walk.py:WalkTables`` checks them once and builds
+    ``record``)."""
     name = "walk_uniform"
-    for t in (indptr, cols, deg, starts):
+    for t in (cols, starts):
         _require(t.dtype == torch.int32 and t.dim() == 1,
-                 f"{name}: int32 1-D tables and starts expected")
-    _require(indptr.shape == deg.shape and indptr.shape[0] == n,
-             f"{name}: indptr and deg must have one entry per node")
+                 f"{name}: int32 1-D cols and starts expected")
+    _require(record.dtype == torch.int32 and record.shape == (n, 2),
+             f"{name}: record must be the (n, 2) int32 walk_record records, "
+             "one entry per node")
     _require(walk_length >= 1 and base >= 0,
              f"{name}: walk_length >= 1 and base >= 0 expected")
-    _require_cuda_contiguous(name, starts.device, indptr, cols, deg, starts)
+    _require_cuda_contiguous(name, starts.device, record, cols, starts)
+    _require(record.data_ptr() % 8 == 0,
+             f"{name}: record must be 8-byte aligned")
     batch = starts.shape[0]
     walks = torch.empty((batch, walk_length), dtype=torch.int32,
                         device=starts.device)
     key = int(seed) & ((1 << 64) - 1)
     fn = _bound(name)
     with torch.cuda.device(starts.device):
-        rc = fn(indptr.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-                starts.data_ptr(), walks.data_ptr(), batch, int(walk_length),
-                int(base), key & _U32, key >> 32, int(n),
+        rc = fn(record.data_ptr(), cols.data_ptr(), starts.data_ptr(),
+                walks.data_ptr(), batch, int(walk_length), int(base),
+                key & _U32, key >> 32, int(n),
                 torch.cuda.current_stream(starts.device).cuda_stream)
     _check_launch(name, rc)
     return walks
@@ -979,15 +992,64 @@ def walk_p_q(head: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
 
 
 _CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+# K13's tiles: 16, 8 or 4 queries side by side (pq_adc.cu kQt), 32/kQt
+# subspaces a line of 32 words; a query row of the scores starts on a
+# 128-byte line of 32 floats.  A tile is staged in shared memory when it
+# fits in the 227 KiB a block of an H100 may take.
+PQ_TILE_WIDTHS = (4, 8, 16)
+_PQ_LINE = 32
+_PQ_SMEM = 227 * 1024
+
+
+def pq_tile_width(q: int, m: int, c: int) -> int:
+    """The queries of K13's tile for ``q`` queries of ``m`` subspaces of
+    ``c`` codes: the narrowest width that holds ``q`` (16 from 9 queries
+    on), narrowed while a tile's tables (``m·c·4`` bytes a query, rounded
+    up to whole lines) exceed the shared memory of a block."""
+    width = next((w for w in PQ_TILE_WIDTHS if q <= w), PQ_TILE_WIDTHS[-1])
+    while width > PQ_TILE_WIDTHS[0] and \
+            _pq_tile_bytes(width, m, c) > _PQ_SMEM:
+        width //= 2
+    return width
+
+
+def _pq_tile_bytes(width: int, m: int, c: int) -> int:
+    per_line = _PQ_LINE // width
+    return -(-m // per_line) * c * _PQ_LINE * 4
+
+
+def pq_lane_tables(tables: torch.Tensor, width: int) -> torch.Tensor:
+    """K13's layout of float32 (Q, M, C) ``tables`` in tiles of ``width``
+    queries taken in order (:func:`pq_tile_width`): a new float32 (T, P, C,
+    S, width) tensor, T = ceil(Q/width), S = 32/width subspaces a line and
+    P = ceil(M/S) lines a code, whose entry [t, j, c, s, l] is
+    ``tables[width·t + l, S·j + s, c]`` (0 past Q and past M).  A tile's
+    entries of one code and S subspaces fill one 32-word line, subspace m
+    in its part m % S (``pq_adc.cu``)."""
+    q, m, c = tables.shape
+    g = _PQ_LINE // width
+    t, p = -(-q // width), -(-m // g)
+    ext = tables.new_zeros((t * width, p * g, c))
+    ext[:q, :m] = tables
+    return ext.view(t, width, p, g, c).permute(0, 2, 4, 3, 1).contiguous()
 
 
 def pq_adc(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """K13's (Q, N) scores: the first N columns of :func:`pq_adc_rows`."""
+    return pq_adc_rows(tables, codes)[:, :codes.shape[0]]
+
+
+def pq_adc_rows(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """K13: the asymmetric-distance scores ``scores[q, i] = Σ_m
     tables[q, m, codes[i, m]]``, summed in ``m`` order in float32, from
     float32 (Q, M, C) ``tables`` and (N, M) ``codes`` (uint8, uint16 or
-    int32).  Every code must lie in [0, C): the codes are uploaded once and
-    checked there (``ops/pq.py:device_codes``), not on every search.
-    Returns a new float32 (Q, N) tensor."""
+    int32).  The tables are laid out for K13's tiles
+    (:func:`pq_lane_tables`, a copy of about Q·M·C words).  Every code must
+    lie in [0, C): the codes are uploaded once and checked there
+    (``ops/pq.py:device_codes``), not on every search.  Returns a new
+    float32 (Q, L) tensor, L = N rounded up to a multiple of 32, so that
+    each row starts on a 128-byte line: its first N columns are the scores
+    and the rest -inf."""
     name = "pq_adc"
     _require(tables.dtype == torch.float32 and tables.dim() == 3,
              f"{name}: tables must be a 3-D float32 tensor")
@@ -998,13 +1060,17 @@ def pq_adc(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
              f"{name}: codes need one column per subspace of tables")
     _require_cuda_contiguous(name, tables.device, tables, codes)
     n = codes.shape[0]
-    scores = torch.empty((q, n), dtype=torch.float32, device=tables.device)
+    ld = -(-n // _PQ_LINE) * _PQ_LINE
+    scores = torch.empty((q, ld), dtype=torch.float32, device=tables.device)
+    scores[:, n:] = float("-inf")
     if q == 0 or n == 0:
         return scores
+    width = pq_tile_width(q, m, c)
+    lanes = pq_lane_tables(tables, width)
     fn = _bound(name)
     with torch.cuda.device(tables.device):
-        rc = fn(tables.data_ptr(), codes.data_ptr(), _CODE_BYTES[codes.dtype],
-                scores.data_ptr(), q, n, m, c,
+        rc = fn(lanes.data_ptr(), width, codes.data_ptr(),
+                _CODE_BYTES[codes.dtype], scores.data_ptr(), ld, q, n, m, c,
                 torch.cuda.current_stream(tables.device).cuda_stream)
     _check_launch(name, rc)
     return scores

@@ -1,6 +1,7 @@
 // One hop of the first-order uniform walk, shared by K8 (walk_uniform.cu:
-// every row on one card) and K17 (walk_owned.cu: rows cut into slices), so
-// that the two cannot drift apart.
+// every row on one card, from one (indptr, deg) record a row) and K17
+// (walk_owned.cu: rows cut into slices, three arrays), so that the two
+// cannot drift apart: both draw with philox_x0 and pick.
 //
 // The hop h (0-based) of the walk whose global index is g, from a row of
 // degree d > 0 whose entries start at indptr[row]:
@@ -49,17 +50,23 @@ __device__ __forceinline__ uint32_t philox_x0(uint32_t c0, uint32_t c1,
   return c0;
 }
 
+// The entry of a row of degree d > 0 that hop's Philox word `bits` picks:
+// min(int(u * float(d)), d - 1), u = (bits >> 8) * 2^-24.
+__device__ __forceinline__ int32_t pick(uint32_t bits, int32_t d) {
+  const float u = __uint2float_rn(bits >> 8) * 5.9604644775390625e-08f;
+  const int32_t t = (int32_t)__fmul_rn(u, __int2float_rn(d));
+  return t > d - 1 ? d - 1 : t;
+}
+
 // The next node of hop h of walk (g0, g1) = (g lo, g hi) from row `row` of
-// degree d > 0.
+// degree d > 0 (K17's three-array form; K8 reads a row's record and draws
+// ahead, walk_uniform.cu).
 __device__ __forceinline__ int32_t next(const int32_t* __restrict__ indptr,
                                         const int32_t* __restrict__ cols,
                                         int64_t row, int32_t d, uint32_t g0,
                                         uint32_t g1, uint32_t h, uint32_t k0,
                                         uint32_t k1) {
-  const uint32_t bits = philox_x0(g0, g1, h, k0, k1);
-  const float u = __uint2float_rn(bits >> 8) * 5.9604644775390625e-08f;
-  int32_t t = (int32_t)__fmul_rn(u, __int2float_rn(d));
-  if (t > d - 1) t = d - 1;
+  const int32_t t = pick(philox_x0(g0, g1, h, k0, k1), d);
   return __ldg(cols + __ldg(indptr + row) + t);
 }
 

@@ -40,6 +40,16 @@ def pq_adc(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return pq_adc_plain(tables, codes)
 
 
+def pq_topk(tables: torch.Tensor, codes: torch.Tensor, k: int):
+    """``torch.topk`` of each query's scores (``k`` at most N): on CUDA
+    over K13's whole padded rows (``kernels.pq_adc_rows``: contiguous, and
+    -inf past N, so a padding column is never among the top k), on the CPU
+    over the plain version's."""
+    if tables.is_cuda:
+        return torch.topk(kernels.pq_adc_rows(tables, codes), k, dim=1)
+    return torch.topk(pq_adc_plain(tables, codes), k, dim=1)
+
+
 def pq_adc_plain(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K13: one (Q, N) gather per subspace, added
     in ``m`` order starting from the first gather."""

@@ -104,17 +104,17 @@ def round_uniforms(walk_index: torch.Tensor, hop: int, rnd: int, seed: int):
     return _unit_float(x0), _unit_float(x1), _unit_float(x2)
 
 
-def walk_uniform(indptr: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
-                 starts: torch.Tensor, walk_length: int, seed: int, base: int,
-                 n: int) -> torch.Tensor:
+def walk_uniform(t: "WalkTables", starts: torch.Tensor, walk_length: int,
+                 seed: int, base: int) -> torch.Tensor:
     """(B, walk_length) int32 walks from int32 ``starts`` (lane b is the
-    walk of global index ``base + b``).  On CUDA this launches K8; on the
-    CPU it runs :func:`walk_uniform_plain`."""
+    walk of global index ``base + b``) over the tables ``t``.  On CUDA this
+    launches K8 on ``t.record`` and ``t.cols``; on the CPU it runs
+    :func:`walk_uniform_plain` on the three arrays."""
     if starts.is_cuda:
-        return kernels.walk_uniform(indptr, cols, deg, starts, walk_length,
-                                    seed, base, n)
-    return walk_uniform_plain(indptr, cols, deg, starts, walk_length, seed,
-                              base, n)
+        return kernels.walk_uniform(t.record, t.cols, starts, walk_length,
+                                    seed, base, t.n)
+    return walk_uniform_plain(t.indptr, t.cols, t.deg, starts, walk_length,
+                              seed, base, t.n)
 
 
 def walk_uniform_plain(indptr: torch.Tensor, cols: torch.Tensor,
@@ -173,8 +173,10 @@ def _check_sorted_rows(indptr: np.ndarray, cols: np.ndarray,
 
 class WalkTables:
     """The walk CSR on one device: int32 row starts ``indptr`` (n,), column
-    ids ``cols`` (nnz,) and degrees ``deg`` (n,), validated once so that K8
-    can trust every offset it gathers."""
+    ids ``cols`` (nnz,) and degrees ``deg`` (n,), and K8's 8-byte record a
+    row, ``record`` (``kernels.walk_record``: the row's ``indptr`` and
+    ``deg`` in one int32 (n, 2) tensor), validated once so that K8 can
+    trust every offset it gathers."""
 
     def __init__(self, indptr: np.ndarray, cols: np.ndarray, deg: np.ndarray,
                  n: int, device):
@@ -189,6 +191,7 @@ class WalkTables:
         self.indptr = torch.from_numpy(indptr).to(device)
         self.cols = torch.from_numpy(cols).to(device)
         self.deg = torch.from_numpy(deg).to(device)
+        self.record = kernels.walk_record(self.indptr, self.deg)
 
     @property
     def device(self) -> torch.device:
@@ -216,8 +219,7 @@ def device_walks(tables, starts: np.ndarray, num_walks: int,
                                         group)
     else:
         def launch(chunk, lo):
-            return walk_uniform(t.indptr, t.cols, t.deg, chunk, walk_length,
-                                seed, lo, t.n)
+            return walk_uniform(t, chunk, walk_length, seed, lo)
         if group is not None:
             launch = _lane_blocks(launch, t.n, group)
     yield from _walk_batches(t.device, starts, num_walks, batch, resident,

@@ -76,6 +76,17 @@ def in_turns(runs: dict, turns=TURNS) -> dict:
     return ms
 
 
+def k8_of(mod, t, starts, length: int):
+    """K8 of a tree's ``ops.walk`` at seed 0 and base 0: over the tables
+    where its ``walk_uniform`` takes them, else over their three arrays."""
+    import inspect
+
+    if "t" in inspect.signature(mod.walk_uniform).parameters:
+        return mod.walk_uniform(t, starts, length, 0, 0)
+    return mod.walk_uniform(t.indptr, t.cols, t.deg, starts, length, 0, 0,
+                            t.n)
+
+
 def k17_probe(card: str) -> None:
     import chip_smoke as cs
     import cleora_tpu_torch.algorithms as alg
@@ -91,12 +102,9 @@ def k17_probe(card: str) -> None:
                               .astype(np.int32)).to(dev)
     length = cs.WALK_LENGTH
     t8 = walk.WalkTables(indptr, cols, deg, n, dev)
-    k8 = walk.walk_uniform(t8.indptr, t8.cols, t8.deg, starts, length, 0, 0,
-                           n)
-    runs = {"parent K8": lambda: pwalk.walk_uniform(
-                t8.indptr, t8.cols, t8.deg, starts, length, 0, 0, n),
-            "this K8": lambda: walk.walk_uniform(
-                t8.indptr, t8.cols, t8.deg, starts, length, 0, 0, n)}
+    k8 = walk.walk_uniform(t8, starts, length, 0, 0)
+    runs = {"parent K8": lambda: k8_of(pwalk, t8, starts, length),
+            "this K8": lambda: walk.walk_uniform(t8, starts, length, 0, 0)}
     assert torch.equal(runs["parent K8"](), k8)
     slices = {}
     for world in (1, 4):

@@ -585,12 +585,12 @@ def sample_walks(device, n=2000, batch=1500, length=12, seed=3):
     t = walk_tables(n, seed, device)
     starts = torch.randint(0, n + 1, (batch,), device=device,
                            dtype=torch.int32)  # n: pad lanes
-    return kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, length,
-                                seed, 0, n), n
+    return kernels.walk_uniform(t.record, t.cols, starts, length, seed, 0,
+                                n), n
 
 
 @cuda
-@pytest.mark.parametrize("length", [1, 2, 80])
+@pytest.mark.parametrize("length", [1, 2, 7, 8, 9, 15, 16, 17, 80])
 @pytest.mark.parametrize("seed", [0, 2**40 + 3, -1])
 @pytest.mark.parametrize("base", [0, 2**33 + 5])
 def test_k8_bitwise(cuda_device, length, seed, base):
@@ -599,8 +599,8 @@ def test_k8_bitwise(cuda_device, length, seed, base):
     starts = torch.randint(0, n + 1, (4099,), device=cuda_device,
                            dtype=torch.int32)
     before = kernels.LAUNCHES["walk_uniform"]
-    got = kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, length, seed,
-                               base, n)
+    got = kernels.walk_uniform(t.record, t.cols, starts, length, seed, base,
+                               n)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["walk_uniform"] == before + 1
     want = walk_uniform_plain(t.indptr, t.cols, t.deg, starts, length, seed,
@@ -785,7 +785,19 @@ def _adc_case(q, m, c, n, dtype, device, seed=0):
     (37, 8, 256, 20000, torch.uint8),
     (64, 4, 300, 5000, torch.uint16),
     (9, 16, 16, 777, torch.int32),
+    (17, 8, 256, 1001, torch.uint8),  # a query past a tile of 16
+    (33, 8, 256, 20031, torch.uint8),  # N not a multiple of 32 rows
+    (33, 1, 256, 999, torch.uint8),
+    (5, 1, 7, 65, torch.int32),
+    (17, 3, 40, 333, torch.uint16),  # an odd M: a line's second half empty
+    (16, 4, 256, 1025, torch.uint16),  # wide codes read one at a time
+    (20, 2, 500, 1027, torch.int32),
     (3, 64, 1024, 500, torch.int32),  # 256 KiB per query: gathers from HBM
+    (3, 8, 256, 4097, torch.uint8),  # a tile of 4 queries, 8 codes a word
+    (6, 8, 256, 1031, torch.uint8),  # a tile of 8
+    (40, 16, 256, 3001, torch.uint8),  # M = 16: tiles of 8 in shared memory
+    (64, 32, 256, 999, torch.uint8),  # tiles of 4, 128 KiB each
+    (2, 5, 100, 70, torch.uint16),  # a tile of 4, lags up to 7 past M
 ])
 def test_k13_bitwise(cuda_device, q, m, c, n, dtype):
     tables, codes = _adc_case(q, m, c, n, dtype, cuda_device)
@@ -795,6 +807,29 @@ def test_k13_bitwise(cuda_device, q, m, c, n, dtype):
     assert kernels.LAUNCHES["pq_adc"] == before + 1
     assert got.shape == (q, n) and torch.equal(got, pq_adc_plain(tables,
                                                                  codes))
+    # each row of the scores starts on a 128-byte line, its padding -inf
+    assert got.stride(1) == 1 and got.stride(0) % 32 == 0
+    assert got.data_ptr() % 128 == 0
+    rows = kernels.pq_adc_rows(tables, codes)
+    assert rows.is_contiguous() and rows.shape == (q, -(-n // 32) * 32)
+    assert torch.equal(rows[:, :n], got)
+    assert bool((rows[:, n:] == float("-inf")).all())
+
+
+@cuda
+@pytest.mark.parametrize("q,m,c,n,k", [(1, 8, 256, 1000, 10),
+                                       (37, 8, 256, 20001, 10),
+                                       (5, 3, 40, 31, 31)])
+def test_k13_top_k_over_the_padded_rows(cuda_device, q, m, c, n, k):
+    from cleora_tpu_torch.ops.pq import pq_topk
+
+    tables, codes = _adc_case(q, m, c, n, torch.uint8, cuda_device)
+    got = pq_topk(tables, codes, k)
+    want = torch.topk(pq_adc_plain(tables, codes), k, dim=1)
+    assert torch.equal(got.values, want.values)
+    assert bool((got.indices < n).all())
+    assert torch.equal(torch.gather(pq_adc_plain(tables, codes), 1,
+                                    got.indices), got.values)
 
 
 def _sorted_keys(rng, n, passes, runs, long_run, dead):
@@ -1169,14 +1204,13 @@ def test_walk_and_count_wrappers_reject_bad_operands():
     i32 = torch.zeros(10, dtype=torch.int32)
     kernels.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 5, 0, 0, 2)
+        kernels.walk_uniform(t.record, t.cols, starts, 5, 0, 0, 2)
     with pytest.raises(ValueError, match="int32"):
-        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts.long(), 5, 0, 0,
-                             2)
+        kernels.walk_uniform(t.record, t.cols, starts.long(), 5, 0, 0, 2)
     with pytest.raises(ValueError, match="one entry per node"):
-        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 5, 0, 0, 3)
+        kernels.walk_uniform(t.record, t.cols, starts, 5, 0, 0, 3)
     with pytest.raises(ValueError, match="walk_length >= 1"):
-        kernels.walk_uniform(t.indptr, t.cols, t.deg, starts, 0, 0, 0, 2)
+        kernels.walk_uniform(t.record, t.cols, starts, 0, 0, 0, 2)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.pair_enum(walks, 4, 2, 5, 1)
     with pytest.raises(ValueError, match="2-D int32"):
@@ -1597,8 +1631,7 @@ def test_k17_matches_k8_and_plain(cuda_device, world, seed, base):
     assert rounds == 1 if world == 1 else 1 <= rounds <= length - 1
     assert kernels.LAUNCHES["walk_owned"] == before + world * rounds
     assert torch.equal(got, kernels.walk_uniform(
-        t.indptr, t.cols, t.deg, starts.to(cuda_device), length, seed, base,
-        n))
+        t.record, t.cols, starts.to(cuda_device), length, seed, base, n))
     cpu = [ShardedWalkTables(*arrays, n, r, world, "cpu")
            for r in range(world)]
     assert torch.equal(got.cpu(), walk_uniform_sharded(cpu, starts, length,

@@ -157,8 +157,7 @@ def test_dead_ends_and_pad_lanes_emit_the_sentinel():
     tables = twalk.WalkTables(np.array([0, 1, 2, 2]), np.array([1, 2, 0]),
                               np.array([1, 1, 0, 1]), 4, CPU)
     starts = torch.tensor([0, 3, 2, 4], dtype=torch.int32)
-    w = twalk.walk_uniform(tables.indptr, tables.cols, tables.deg, starts, 6,
-                           seed=1, base=0, n=4)
+    w = twalk.walk_uniform(tables, starts, 6, seed=1, base=0)
     assert w.tolist() == [[0, 1, 2, 4, 4, 4], [3, 0, 1, 2, 4, 4],
                           [2, 4, 4, 4, 4, 4], [4, 4, 4, 4, 4, 4]]
     with pytest.raises(ValueError, match="column index out of range"):
@@ -176,8 +175,7 @@ def test_next_hop_is_uniform_chi_square():
                               np.arange(1, d + 1, dtype=np.int32),
                               np.array([d] + [0] * d), d + 1, CPU)
     starts = torch.zeros(walks, dtype=torch.int32)
-    w = twalk.walk_uniform(tables.indptr, tables.cols, tables.deg, starts, 2,
-                           seed=3, base=0, n=d + 1)
+    w = twalk.walk_uniform(tables, starts, 2, seed=3, base=0)
     counts = np.bincount(w[:, 1].numpy(), minlength=d + 1)[1:]
     assert counts.sum() == walks
     assert chisquare(counts).pvalue > 1e-3
