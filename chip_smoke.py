@@ -920,7 +920,6 @@ def check_k4(dev: torch.device) -> None:
         edge_attention_weights,
         edge_attention_weights_plain,
     )
-    from cleora_tpu_torch.ops.normalize import l2_normalize_plain
     from cleora_tpu_torch.ops.spmm import CsrMatrix
 
     indptr, cols, vals = markov_csr(K1_CHECK_ROWS, 1, HUB_DEGREE)
@@ -930,11 +929,12 @@ def check_k4(dev: torch.device) -> None:
     csr = CsrMatrix.from_numpy(indptr, cols, vals, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for d in (8, 256, 300, WIDE_DIM):
-        xn = l2_normalize_plain(
-            torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen))
+        # the raw state: K4 normalises its rows itself
+        x = torch.randn((K1_CHECK_ROWS, d), device=dev, generator=gen)
+        x *= torch.rand((K1_CHECK_ROWS, 1), device=dev, generator=gen) * 10
         for temperature in (0.7, 1.0):
-            got = edge_attention_weights(csr, xn, temperature)
-            want = edge_attention_weights_plain(csr, xn, temperature)
+            got = edge_attention_weights(csr, x, temperature)
+            want = edge_attention_weights_plain(csr, x, temperature)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
             zero = got[int(indptr[zero_row]):int(indptr[zero_row + 1])]
@@ -1371,13 +1371,15 @@ def run_main_path(name: str, call) -> tuple:
 
 
 def kernel_row(name, source, replaces, ms, plain_ms, lib_ms, err, nbytes,
-               flops, launches) -> dict:
+               flops, launches, floor=None) -> dict:
     """One entry of the kernels line; the bound is the larger of the bytes
     (each input read once, each output written once) over the memory rate
-    and the flops over the float32 rate."""
+    and the flops over the float32 rate.  ``floor``, where given, is
+    (ms, what): a rate measured in this run beside the bound (never a
+    computed one), as ``floor_ms`` and ``floor``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return {
+    row = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1385,6 +1387,9 @@ def kernel_row(name, source, replaces, ms, plain_ms, lib_ms, err, nbytes,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms,
     }
+    if floor is not None:
+        row["floor_ms"], row["floor"] = floor
+    return row
 
 
 def full_width(dev: torch.device, card: str) -> tuple:
@@ -1434,9 +1439,9 @@ def full_width(dev: torch.device, card: str) -> tuple:
     check_covariance(att_out, dev)
     del att_out
 
-    # ---- rows wider than one tile keep K1 then K2, and K2 + K4 + K1 + K2
-    # for attention (on phase 4's graph: the entry point a user with
-    # D > 1024 calls)
+    # ---- rows wider than one tile keep K1 then K2, and K4 (on the raw
+    # state) + K1 + K2 for attention (on phase 4's graph: the entry point a
+    # user with D > 1024 calls)
     wide = random_graph(PARITY_NODES, PARITY_EDGES, seed=3)
     wide_out, wide_launches = run_main_path(
         f"embed_with_attention(D={WIDE_DIM}, {WIDE_ITERATIONS} iterations, "
@@ -1445,7 +1450,7 @@ def full_width(dev: torch.device, card: str) -> tuple:
             whiten=False))
     assert wide_launches == none | {
         "spmm_csr": WIDE_ITERATIONS, "hash_init": 1,
-        "row_normalize": 2 * WIDE_ITERATIONS - 1,
+        "row_normalize": WIDE_ITERATIONS,
         "edge_attention": WIDE_ITERATIONS - 1}, wide_launches
     wide_rows, _ = wide_path(wide, wide_out, dev, card)
     del wide, wide_out
@@ -1506,33 +1511,32 @@ def full_width(dev: torch.device, card: str) -> tuple:
     device_share(csr, x0)
 
     # ---- an attention iteration: the fused pass (then whitening) against
-    # the five passes it replaces (a float32 copy of x, K2 on it, K4, K1
-    # with K4's weights, K2), in the same run
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    # the passes it replaces (K4 on the state x itself, K1 with K4's
+    # weights, K2: the wide rows' path; before K4 read x, a float32 copy
+    # of x and K2 on it came first), in the same run
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(7)]
           for _ in range(3)]
     for e in ev:
         e[0].record()
-        xn = normalize(x.to(torch.float32, copy=True), "l2")
+        weights = edge_attention_weights(csr, x, 1.0)
         e[1].record()
-        weights = edge_attention_weights(csr, xn, 1.0)
+        y3 = spmm(csr.with_vals(weights), x)
         e[2].record()
-        y5 = spmm(csr.with_vals(weights), x)
+        y3 = normalize(y3, "l2")
         e[3].record()
-        y5 = normalize(y5, "l2")
+        del weights, y3
         e[4].record()
-        del xn, weights, y5
-        e[5].record()
         y = attention_spmm(csr, x, 1.0, "l2")
-        e[6].record()
+        e[5].record()
         x = whiten(y)
-        e[7].record()
+        e[6].record()
     torch.cuda.synchronize()
     split = [np.mean([e[k].elapsed_time(e[k + 1]) for e in ev])
-             for k in range(7)]
-    log(f"per attention iteration: the fused pass {split[5]:.3f} ms against "
-        f"the five passes {sum(split[:4]):.3f} ms (copy + K2 "
-        f"{split[0]:.3f}, K4 {split[1]:.3f}, K1 {split[2]:.3f}, K2 "
-        f"{split[3]:.3f}); whiten {split[6]:.3f} ms; [{card}]")
+             for k in range(6)]
+    log(f"per attention iteration: the fused pass {split[4]:.3f} ms against "
+        f"the three passes {sum(split[:3]):.3f} ms (K4 on x "
+        f"{split[0]:.3f}, K1 {split[1]:.3f}, K2 {split[2]:.3f}); whiten "
+        f"{split[5]:.3f} ms; [{card}]")
     del x, y
 
     # ---- each kernel at the main path's shape: error, times, bounds.  K1
@@ -1572,18 +1576,19 @@ def full_width(dev: torch.device, card: str) -> tuple:
     k2_lib_ms = time_ms(lambda: F.normalize(y, p=2.0, dim=1, eps=1e-10))
     del k2_plain
 
-    # K4 on the normalised state of one propagate step (T = 1, the default)
-    xn = k2_out
-    k4_out = edge_attention_weights(csr, xn, 1.0)
-    k4_plain = edge_attention_weights_plain(csr, xn, 1.0)
+    # K4 on the raw state of one propagate step, y (it normalises the rows
+    # itself; T = 1, the default)
+    k4_out = edge_attention_weights(csr, y, 1.0)
+    k4_plain = edge_attention_weights_plain(csr, y, 1.0)
     torch.cuda.synchronize()
     k4_err = max_err(k4_out, k4_plain)
     torch.testing.assert_close(k4_out, k4_plain, rtol=1e-5, atol=1e-6)
     del k4_plain
-    k4_ms = time_ms(lambda: edge_attention_weights(csr, xn, 1.0))
-    k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, xn, 1.0),
+    k4_ms = time_ms(lambda: edge_attention_weights(csr, y, 1.0))
+    k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, y, 1.0),
                           reps=3, warmup=1)
     del k4_out
+    xn = k2_out
 
     # the fused attention pass on the same state, l2 (the main path's)
     att_got = attention_spmm(csr, xn, 1.0, "l2")
@@ -1627,9 +1632,14 @@ def full_width(dev: torch.device, card: str) -> tuple:
     # siblings and halo="overlap"'s rounds
     log(f"K2 at D={DIM} {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, "
         f"F.normalize {k2_lib_ms:.3f}, max |err| {k2_err:.3e}); [{card}]")
-    log(f"K4 at D={DIM} {k4_ms:.3f} ms (plain {k4_plain_ms:.3f}, max |err| "
-        f"{k4_err:.3e}); one xn row per edge = {gather_bytes / 1e9:.3f} GB "
-        f"-> {gather_bytes / (k4_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
+    k4_bytes = 4 * n * DIM + 8 * (n + 1) + 8 * nnz + 4 * nnz
+    k4_gather = 8 * (n + 1) + nnz * (8 + 4 * DIM) + 4 * n * DIM + 4 * nnz
+    log(f"K4 at D={DIM} on the raw state {k4_ms:.3f} ms (plain "
+        f"{k4_plain_ms:.3f}, max |err| {k4_err:.3e}); bound (each input "
+        f"once) {k4_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; one x row an "
+        f"entry = {k4_gather / 1e9:.3f} GB -> floor "
+        f"{k4_gather / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+        f"{k4_gather / (k4_ms * 1e-3) / 1e12:.3f} TB/s; [{card}]")
     log(f"fused attention pass (l2) {att_ms:.3f} ms (plain "
         f"{att_plain_ms:.3f}); bound {att_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
         f"ms; one x row per edge floor "
@@ -1666,14 +1676,14 @@ def full_width(dev: torch.device, card: str) -> tuple:
 def wide_path(wide, wide_out: np.ndarray, dev: torch.device,
               card: str) -> tuple:
     """The D = 1028 attention path (rows wider than one column tile: K1
-    then K2, and K2 + K4 + K1 + K2 an attention iteration) held to its
-    plain versions: the entry point's output against the plain chain
-    from the same init (normalize_plain(spmm_plain) then
+    then K2, and K4 on the raw state + K1 + K2 an attention iteration)
+    held to its plain versions: the entry point's output against the
+    plain chain from the same init (normalize_plain(spmm_plain) then
     attention_spmm_plain), and one attention step on the same state
-    against attention_spmm_plain, both at rtol=1e-5, atol=1e-6; then K2
-    and K4 at that shape against their plain versions and timed.
-    Returns ({"k2": ..., "k4": ...} kernel_row arguments before the
-    launches, the step's max |err|)."""
+    against attention_spmm_plain, both at rtol=1e-5, atol=1e-6, the step
+    timed; then K2 and K4 at that shape against their plain versions and
+    timed.  Returns ({"k2": ..., "k4": ...} kernel_row arguments before
+    the launches, the step's max |err|)."""
     import torch.nn.functional as F
 
     from cleora_tpu_torch import kernels
@@ -1705,15 +1715,17 @@ def wide_path(wide, wide_out: np.ndarray, dev: torch.device,
     kernels.reset_launches()
     y = attention_step(csr, state, 1.0, "l2")
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    assert launches == {"row_normalize": 2, "edge_attention": 1,
+    # K4 reads the state itself: one K2 a step (after K1), none before K4
+    assert launches == {"row_normalize": 1, "edge_attention": 1,
                         "spmm_csr": 1}, launches
     want = attention_spmm_plain(csr, state, 1.0, "l2")
     torch.cuda.synchronize()
     step_err = max_err(y, want)
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
     del y, want
+    step_ms = time_ms(lambda: attention_step(csr, state, 1.0, "l2"))
 
-    # K2 on the wide state (one block a row), K4 on its l2-normalised copy
+    # K2 on the wide state (one block a row), K4 on the same raw state
     raw = spmm_plain(csr, state)
     k2_out = normalize(raw.clone(), "l2")
     k2_plain = l2_normalize_plain(raw.clone())
@@ -1723,29 +1735,35 @@ def wide_path(wide, wide_out: np.ndarray, dev: torch.device,
     k2_ms = time_ms(lambda: normalize(k2_out, "l2"))
     k2_plain_ms = time_ms(lambda: l2_normalize_plain(k2_plain))
     k2_lib_ms = time_ms(lambda: F.normalize(raw, p=2.0, dim=1, eps=1e-10))
-    del k2_plain, raw
-    xn = k2_out
-    k4_out = edge_attention_weights(csr, xn, 1.0)
-    k4_plain = edge_attention_weights_plain(csr, xn, 1.0)
+    del k2_plain, k2_out
+    k4_out = edge_attention_weights(csr, raw, 1.0)
+    k4_plain = edge_attention_weights_plain(csr, raw, 1.0)
     torch.cuda.synchronize()
     k4_err = max_err(k4_out, k4_plain)
     torch.testing.assert_close(k4_out, k4_plain, rtol=1e-5, atol=1e-6)
     del k4_out, k4_plain
-    k4_ms = time_ms(lambda: edge_attention_weights(csr, xn, 1.0))
-    k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, xn, 1.0))
-    # K2: x read and written once; K4: xn, the CSR and the weights once,
-    # the scores' dot products
+    k4_ms = time_ms(lambda: edge_attention_weights(csr, raw, 1.0))
+    k4_plain_ms = time_ms(lambda: edge_attention_weights_plain(csr, raw, 1.0))
+    del raw
+    # K2: x read and written once; K4: x, the CSR and the weights once,
+    # the scores' dot products and each row's sum of squares once; its
+    # computed floor on a random graph (logged, not in the kernels line):
+    # one gathered row of x an entry over the memory rate
     k2_bytes, k2_flops = 2 * 4 * n * d, 3 * n * d
     k4_bytes = 4 * n * d + 8 * (n + 1) + 8 * nnz + 4 * nnz
-    k4_flops = 2 * nnz * d
+    k4_flops = 2 * nnz * d + 2 * n * d
+    k4_gather = 8 * (n + 1) + nnz * (8 + 4 * d) + 4 * n * d + 4 * nnz
+    k4_floor_ms = k4_gather / HBM_BYTES_PER_S * 1e3
     log(f"  D={d} path on phase 4's graph ({n} rows, {nnz} entries): the "
         f"entry point's output against the plain chain max |err| "
-        f"{run_err:.3e}; one attention step (K2, K4, K1, K2) against "
-        f"attention_spmm_plain {step_err:.3e}; K2 {k2_ms:.4f} ms (plain "
-        f"{k2_plain_ms:.4f}, F.normalize {k2_lib_ms:.4f}, max |err| "
-        f"{k2_err:.3e}, bound {k2_bytes / HBM_BYTES_PER_S * 1e3:.4f}); K4 "
+        f"{run_err:.3e}; one attention step (K4, K1, K2) against "
+        f"attention_spmm_plain {step_err:.3e}, {step_ms:.4f} ms; K2 "
+        f"{k2_ms:.4f} ms (plain {k2_plain_ms:.4f}, F.normalize "
+        f"{k2_lib_ms:.4f}, max |err| {k2_err:.3e}, bound "
+        f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f}); K4 on the raw state "
         f"{k4_ms:.4f} ms (plain {k4_plain_ms:.4f}, max |err| {k4_err:.3e}, "
-        f"bound {k4_bytes / HBM_BYTES_PER_S * 1e3:.4f}); [{card}]")
+        f"bound {k4_bytes / HBM_BYTES_PER_S * 1e3:.4f}, one gathered row an "
+        f"entry {k4_floor_ms:.4f}); [{card}]")
     # no single PyTorch call computes K4's function
     return {"k2": (k2_ms, k2_plain_ms, k2_lib_ms, k2_err, k2_bytes,
                    k2_flops),
@@ -2358,10 +2376,17 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
                                    rtol=0.0, atol=1e-6)
         k6_lib_ms = time_ms(k6_library)
     del a_lib
+    # the card's measured write rate: a fill of an (n, n) float32 buffer,
+    # all that K6 must do, which it cannot beat
+    fill = torch.empty((nd, nd), dtype=torch.float32, device=dev)
+    k6_fill_ms = time_ms(lambda: fill.zero_())
+    del fill
     k6_bytes = 8 * (nd + 1) + 8 * nnzd + 4 * nd * nd + 4 * nd + 8
     k6_flops = 2 * nnzd
     log(f"K6 n={nd}: {k6_ms:.3f} ms (plain {k6_plain_ms:.3f}, to_dense + row "
-        f"divide {k6_lib_ms:.3f}); max |err| {k6_err:.3e}; [{card}]")
+        f"divide {k6_lib_ms:.3f}); max |err| {k6_err:.3e}; bound "
+        f"{k6_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; measured write floor "
+        f"(torch.empty((n, n)).zero_()) {k6_fill_ms:.3f} ms; [{card}]")
 
     p, deg, vol = dense_markov(csrd)
     xk7 = torch.matmul(p, p)  # a transition power, as the entry points clip
@@ -2449,7 +2474,8 @@ def spectral_full_width(dev: torch.device, card: str, g) -> tuple:
         kernel_row("dense_markov", src + "dense_markov.cu",
                    "cleora_tpu/algorithms.py:397", k6_ms, k6_plain_ms,
                    k6_lib_ms, k6_err, k6_bytes, k6_flops,
-                   netmf["dense_markov"]),
+                   netmf["dense_markov"],
+                   floor=(k6_fill_ms, "measured: torch.empty((n, n)).zero_()")),
         kernel_row("log_clip", src + "log_clip.cu",
                    "cleora_tpu/algorithms.py:429", k7_ms, k7_plain_ms,
                    k7_lib_ms, k7_err, k7_bytes, k7_flops, netmf["log_clip"]),

@@ -367,8 +367,9 @@ def embed_with_attention(
     The first iteration is a plain propagate step; each later one
     reweights the Markov matrix by softmax_row(cos(e_i, e_j)/T) over its
     edges, row-renormalizes it and propagates with it
-    (:func:`~.ops.attention.attention_step`: kernels K2, K4, K1).  The
-    hash init is built on the card (K3).
+    (:func:`~.ops.attention.attention_step`: the fused attention pass up
+    to 1,024 columns; wider, K4 on the state itself, K1, K2).  The hash
+    init is built on the card (K3).
     """
     _validate_propagation(propagation)
     if attention_temperature <= 0:

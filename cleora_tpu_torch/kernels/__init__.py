@@ -108,10 +108,14 @@ _ARGTYPES = {
     # hashes, out, n_rows, d, seed, vec4, stream
     "hash_init": [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64,
                   _c.c_int, _c.c_void_p],
-    # indptr, indices, vals, xn, out, n_rows, d, temperature, vec4, stream
+    # indptr, indices, vals, x, out, n_rows, d, temperature, vec4,
+    # long_slice, item_rows, item_starts, item_cuts, n_items, split, n_split,
+    # stats, stream
     "edge_attention": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_float,
-                       _c.c_int, _c.c_void_p],
+                       _c.c_int, _c.c_int64, _c.c_void_p, _c.c_void_p,
+                       _c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64,
+                       _c.c_void_p, _c.c_void_p],
     # indptr, indices, vals, x, out, n_rows, d, temperature, norm, vec4,
     # long_slice, item_rows, item_starts, item_cuts, n_items, split, n_split,
     # part, stats, stream
@@ -142,10 +146,9 @@ _ARGTYPES = {
                        _c.c_void_p, _c.c_int64, _c.c_float, _c.c_float,
                        _c.c_int, _c.c_int64, _c.c_int64, _c.c_void_p,
                        _c.c_void_p, _c.c_void_p],
-    # indptr, indices, vals, p, deg, vol, n, vec4, stream
+    # indptr, indices, vals, p, deg, vol, n, stream
     "dense_markov": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                     _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
-                     _c.c_void_p],
+                     _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p],
     # x, r, c, n, m, floor, offset, vec4, stream
     "log_clip": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64,
                  _c.c_int64, _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
@@ -456,32 +459,36 @@ def hash_init(hashes: torch.Tensor, feature_dim: int,
 
 
 def edge_attention(indptr: torch.Tensor, indices: torch.Tensor,
-                   vals: torch.Tensor, xn: torch.Tensor,
-                   temperature: float) -> torch.Tensor:
+                   vals: torch.Tensor, x: torch.Tensor, temperature: float,
+                   hubs: Optional["HubPlan"] = None) -> torch.Tensor:
     """K4: the attention-reweighted, row-renormalised edge values of the
-    CSR matrix for the row-normalised state ``xn``.  Returns a new float32
-    (nnz,) tensor."""
+    CSR matrix for the state ``x``, whose rows the kernel l2-normalises
+    itself (the scores are cosines over T).  ``hubs`` as for
+    :func:`spmm_csr`: the rows of more than :data:`LONG_SLICE` entries
+    are scored in slices and finished by a team each.  Returns a new
+    float32 (nnz,) tensor."""
+    name = "edge_attention"
     n = indptr.shape[0] - 1
-    for t in (indptr, indices, vals, xn):
-        _require(t.is_cuda and t.device == xn.device,
-                 "edge_attention: every operand must be on the same CUDA device")
-        _require(t.is_contiguous(), "edge_attention: operands must be contiguous")
-    _require(indptr.dtype == torch.int64 and indices.dtype == torch.int32
-             and vals.dtype == torch.float32,
-             "edge_attention: indptr int64, indices int32 and vals float32 expected")
-    _require(xn.dtype == torch.float32 and xn.dim() == 2,
-             "edge_attention: xn must be a 2-D float32 tensor")
-    _require(indices.shape == vals.shape, "edge_attention: indices/vals mismatch")
-    _require(xn.shape[0] >= n, "edge_attention: xn has fewer rows than A")
-    d = xn.shape[1]
+    _require_csr(name, indptr, indices, vals)
+    _require_cuda_contiguous(name, x.device, indptr, indices, vals, x)
+    _require(x.dtype == torch.float32 and x.dim() == 2,
+             f"{name}: x must be a 2-D float32 tensor")
+    _require(x.shape[0] >= n, f"{name}: x has fewer rows than A")
+    d = x.shape[1]
+    hub = _hub_args(hubs, x.device, name)
     out = torch.empty_like(vals)
-    vec4 = d % 4 == 0 and xn.data_ptr() % 16 == 0
-    fn = _bound("edge_attention")
-    with torch.cuda.device(xn.device):
+    stats = None
+    if hub[4]:
+        stats = torch.empty((hub[4], 4), dtype=torch.float32,
+                            device=x.device)
+    vec4 = d % 4 == 0 and _aligned16(x)
+    fn = _bound(name)
+    with torch.cuda.device(x.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
-                xn.data_ptr(), out.data_ptr(), n, d, float(temperature),
-                int(vec4), torch.cuda.current_stream(xn.device).cuda_stream)
-    _check_launch("edge_attention", rc)
+                x.data_ptr(), out.data_ptr(), n, d, float(temperature),
+                int(vec4), *hub, None if stats is None else stats.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
     return out
 
 
@@ -809,11 +816,11 @@ def dense_markov(indptr: torch.Tensor, indices: torch.Tensor,
     p = torch.empty((n, n), dtype=torch.float32, device=vals.device)
     deg = torch.empty((n,), dtype=torch.float32, device=vals.device)
     vol = torch.zeros((1,), dtype=torch.float64, device=vals.device)
-    vec4 = n % 4 == 0 and _aligned16(p)
+    _require(_aligned16(p), f"{name}: P must be aligned to 16 bytes")
     fn = _bound(name)
     with torch.cuda.device(vals.device):
         rc = fn(indptr.data_ptr(), indices.data_ptr(), vals.data_ptr(),
-                p.data_ptr(), deg.data_ptr(), vol.data_ptr(), n, int(vec4),
+                p.data_ptr(), deg.data_ptr(), vol.data_ptr(), n,
                 torch.cuda.current_stream(vals.device).cuda_stream)
     _check_launch(name, rc)
     return p, deg, vol

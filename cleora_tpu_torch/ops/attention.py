@@ -11,9 +11,9 @@ normalisation and optional whitening.
 On CUDA, up to ``kernels.FUSED_NORM_MAX_WIDTH`` columns, one pass
 computes all of it but the whitening (:func:`attention_spmm`, the fused
 kernel in ``kernels/edge_attention.cu``, with l2/l1 normalisation in its
-epilogue).  Wider rows take the weights kernel K4 on an l2-normalised
-copy of ``x`` (K2), K1 with those weights, then K2.  On the CPU the plain
-versions run.
+epilogue).  Wider rows take the weights kernel K4, which reads ``x``
+itself and normalises its rows in registers, then K1 with those weights,
+then K2.  On the CPU the plain versions run.
 """
 
 from __future__ import annotations
@@ -21,12 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .normalize import (
-    l2_normalize,
-    l2_normalize_plain,
-    normalize,
-    normalize_plain,
-)
+from .normalize import l2_normalize_plain, normalize, normalize_plain
 from .spmm import CsrMatrix, spmm, spmm_plain
 from .whiten import whiten
 
@@ -35,21 +30,24 @@ EPS = 1e-10
 _PLAIN_CHUNK_EDGES = 1 << 21
 
 
-def edge_attention_weights(csr: CsrMatrix, xn: torch.Tensor,
+def edge_attention_weights(csr: CsrMatrix, x: torch.Tensor,
                            temperature: float) -> torch.Tensor:
-    """The (nnz,) float32 attention weights: K4 on CUDA,
+    """The (nnz,) float32 attention weights of the state ``x`` (its rows
+    l2-normalised: the scores are cosines): K4 on CUDA,
     :func:`edge_attention_weights_plain` on the CPU."""
-    if xn.is_cuda:
+    if x.is_cuda:
         return kernels.edge_attention(csr.indptr, csr.indices, csr.vals,
-                                      xn.contiguous(), temperature)
-    return edge_attention_weights_plain(csr, xn, temperature)
+                                      x.contiguous(), temperature,
+                                      csr.hub_plan())
+    return edge_attention_weights_plain(csr, x, temperature)
 
 
-def edge_attention_weights_plain(csr: CsrMatrix, xn: torch.Tensor,
+def edge_attention_weights_plain(csr: CsrMatrix, x: torch.Tensor,
                                  temperature: float) -> torch.Tensor:
-    """Plain PyTorch version of K4, with the JAX version's segment ops:
-    scores in edge chunks, then ``scatter_reduce("amax")`` and
-    ``index_add_`` per row."""
+    """Plain PyTorch version of K4: ``x`` l2-normalised on a float32 copy,
+    then the JAX version's segment ops: scores in edge chunks, then
+    ``scatter_reduce("amax")`` and ``index_add_`` per row."""
+    xn = l2_normalize_plain(x.to(torch.float32, copy=True))
     rows, cols = csr.plain_index()
     n = csr.n_rows
     t = torch.tensor(temperature, dtype=torch.float32)
@@ -86,11 +84,11 @@ def attention_spmm(csr: CsrMatrix, x: torch.Tensor, temperature: float,
 
 def attention_spmm_plain(csr: CsrMatrix, x: torch.Tensor, temperature: float,
                          normalization: str = "none") -> torch.Tensor:
-    """Plain PyTorch version of the fused pass: the weights on an
-    l2-normalised copy of ``x`` (:func:`edge_attention_weights_plain`),
-    :func:`~.spmm.spmm_plain` with them, then the normalisation."""
-    xn = l2_normalize_plain(x.to(torch.float32, copy=True))
-    weights = edge_attention_weights_plain(csr, xn, temperature)
+    """Plain PyTorch version of the fused pass: the weights
+    (:func:`edge_attention_weights_plain`, on an l2-normalised copy of
+    ``x``), :func:`~.spmm.spmm_plain` with them, then the
+    normalisation."""
+    weights = edge_attention_weights_plain(csr, x, temperature)
     return normalize_plain(spmm_plain(csr.with_vals(weights), x),
                            normalization)
 
@@ -103,8 +101,7 @@ def attention_step(csr: CsrMatrix, x: torch.Tensor, temperature: float,
     if x.is_cuda and x.shape[1] <= kernels.FUSED_NORM_MAX_WIDTH:
         y = attention_spmm(csr, x, temperature, fused)
     else:
-        xn = l2_normalize(x.to(torch.float32, copy=True))
-        weights = edge_attention_weights(csr, xn, temperature)
+        weights = edge_attention_weights(csr, x, temperature)
         y = spmm(csr.with_vals(weights), x, normalization=fused)
     if fused == "none":
         y = normalize(y, normalization)
